@@ -8,6 +8,9 @@ correction, sweep A (XSPH + density + EOS + FHN), sweep B (forces + Vm
 Laplacian + integration + walls), unsort. `simulate` is a Python loop over
 steps; `run_protocol` replays the reference app's experiment protocol in
 chunks. Only the fused path is ported; the unfused reference step is not.
+`step_fused_diff` is the same step under autograd: it swaps in the
+differentiable sweeps of ops/fused_adjoint.py, whose backward passes are
+hand-written kernels.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ import torch
 from ..config import SimConfig, resolve_params
 from ..state import ParticleState
 from ..ops.electrophysiology import turn_off_stim
+from ..ops.fused_adjoint import make_diff_sweeps
 from ..ops.fused_step import (apply_out_fused, build_dynp, build_qm_feats,
-                              feats_from_out_a, sweep_a3, sweep_b3)
+                              feats_b, sweep_a3, sweep_b3)
 from ..ops.shape_matching import corrected_velocity, sm_invariants
 from ..ops.sweeps import sweep_bookkeeping3
 
@@ -43,7 +47,7 @@ def ensure_fp32() -> None:
 
 
 def step_fused(state: ParticleState, cfg: SimConfig, sub_q: int = 128,
-               impl: str = "v4", sm_inv=None, params=None
+               impl: str = "v4", sm_inv=None, params=None, sweeps=None
                ) -> tuple[ParticleState, StepAux]:
     """One coupled step with the fused sweeps.
 
@@ -52,29 +56,48 @@ def step_fused(state: ParticleState, cfg: SimConfig, sub_q: int = 128,
     w_window have no counterpart: the CUDA kernels iterate each window
     exactly). `sm_inv`: hoisted shape-matching invariants. `params`:
     per-call physics overrides (config.PARAM_FIELDS) that reach the kernels
-    through the physics-constant vector (ops.fused_step.build_dynp)."""
+    through the physics-constant vector (ops.fused_step.build_dynp).
+    `sweeps`: a (sweep_a, sweep_b) pair, each (qm, dynp, blk_lo, blk_hi)
+    -> (N, 16), in place of the production sweeps (step_fused_diff passes
+    the differentiable ones)."""
     if impl != "v4":
         raise NotImplementedError(f"impl={impl!r}: the port has the v4 "
                                   "fused step only")
     cfg_eff = resolve_params(cfg, params)
-    dynp = build_dynp(cfg_eff, state.device) if params else None
+    # the differentiable sweeps take the constants as an operand always
+    dynp = (build_dynp(cfg_eff, state.device)
+            if params or sweeps is not None else None)
 
+    # the sort and windows are per-step geometry, outside autograd
     order, inv, blk_lo, blk_hi, cx, cyz = sweep_bookkeeping3(
-        state.pos, state.active, cfg, sub_q)
+        state.pos.detach(), state.active, cfg, sub_q)
     # phase 2: shape matching (original order), with the effective config
     state = corrected_velocity(state, cfg_eff, sm_inv=sm_inv)
 
     fs, feats_a = build_qm_feats(state, cx, cyz, order)
-    out_a = sweep_a3(fs, feats_a, blk_lo, blk_hi, cfg, sub_q=sub_q,
-                     dynp=dynp)
-    vol_now = torch.where(out_a[:, 8] > 0.0, out_a[:, 10] / out_a[:, 8],
-                          torch.zeros_like(out_a[:, 8]))
-    feats_b = feats_from_out_a(out_a, vol_now)
-    out_b = sweep_b3(out_a, feats_b, blk_lo, blk_hi, cfg, sub_q=sub_q,
-                     dynp=dynp)
+    if sweeps is None:
+        out_a = sweep_a3(fs, feats_a, blk_lo, blk_hi, cfg, sub_q=sub_q,
+                         dynp=dynp)
+        out_b = sweep_b3(out_a, feats_b(out_a), blk_lo, blk_hi, cfg,
+                         sub_q=sub_q, dynp=dynp)
+    else:
+        out_a = sweeps[0](fs, dynp, blk_lo, blk_hi)
+        out_b = sweeps[1](out_a, dynp, blk_lo, blk_hi)
     state = apply_out_fused(state, out_a, out_b, inv)
     return state, StepAux(overflow=torch.zeros((), dtype=torch.int32,
                                                device=state.device))
+
+
+def step_fused_diff(state: ParticleState, cfg: SimConfig, sub_q: int = 128,
+                    sm_inv=None, params=None) -> ParticleState:
+    """Differentiable v4 coupled step (the counterpart of the JAX package's
+    ops.fused_adjoint.step_fused_diff): step_fused with the production
+    sweep kernels forward and the hand-written backward sweeps in
+    autograd's backward pass. Gradients w.r.t. the state and any tensor
+    `params` overrides (config.PARAM_FIELDS). For long rollouts wrap the
+    step in torch.utils.checkpoint. Returns the new state."""
+    return step_fused(state, cfg, sub_q, sm_inv=sm_inv, params=params,
+                      sweeps=make_diff_sweeps(cfg, sub_q))[0]
 
 
 def simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,

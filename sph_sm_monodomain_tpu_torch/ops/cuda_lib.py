@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) through ctypes.
 
-The sources are compiled with `nvcc` for Hopper (`sm_90a`) into a shared
+The sources are compiled with `nvcc` for Hopper (`sm_90a`), one nvcc
+process per source, all started together, and linked into one shared
 library with a plain C interface, at first use, into
 `<checkout>/build/torch_kernels/` (git-ignored). The file name carries a
-hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused. Nothing here runs at import time: the CPU tests
+hash of the sources, headers and flags, so an edited source builds anew and
+an unchanged one is reused. Nothing here runs at import time: the CPU tests
 import this module on machines without nvcc.
 """
 
@@ -20,11 +21,12 @@ import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_sweeps.cu",)
+SOURCES = ("fused_sweeps.cu", "fused_adjoint.cu")
+HEADERS = ("sweep_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # no --use_fast_math: IEEE division and sqrt, as the reference computes them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -35,6 +37,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sph_sweep_a3": [_P] * 6 + [_I] * 8 + [_P],
     "sph_sweep_b3": [_P] * 6 + [_I] * 4 + [_P],
+    "sph_sweep_bwd_a": [_P] * 6 + [_I] * 3 + [_P],
+    "sph_sweep_bwd_b": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 
@@ -51,9 +55,25 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libsph_sweeps_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]], verbose: bool) -> None:
+    """Run the commands in parallel, wait for every one, and raise if any
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if verbose:
+            print(out, flush=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
 
 
 def build(verbose: bool = False) -> Path:
@@ -64,21 +84,16 @@ def build(verbose: bool = False) -> Path:
     if path.exists() and not verbose:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, path)  # atomic: a reader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS,
+                   *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", o,
+                   str(CSRC_DIR / s)] for s, o in zip(SOURCES, objs)],
+                 verbose)
+        lib = str(Path(tmp) / path.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)
+        os.replace(lib, path)  # atomic: a reader never sees a partial file
     return path
 
 

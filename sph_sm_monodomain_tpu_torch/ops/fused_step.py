@@ -13,6 +13,8 @@ On a CUDA tensor each sweep is one hand-written kernel
 (csrc/fused_sweeps.cu); on a CPU tensor the wrapper runs the plain PyTorch
 version in this module (`sweep_a3_plain` / `sweep_b3_plain`), which the
 tests hold to the JAX package and chip_smoke.py holds the kernels to.
+`_epi_a` / `_epi_b` are each sweep's epilogue as a function of its pair
+sums; ops/fused_adjoint.py takes their VJP with autograd.
 
 Layouts (16 f32 columns per particle, sorted order), as in the JAX package:
   QM_A / fs:  [pos3 | cvel3 | mass | dens_prev | vm | stim | iion | w |
@@ -78,14 +80,19 @@ def _static_consts(cfg: SimConfig) -> tuple:
 
 
 def build_dynp(cfg_eff: SimConfig, device="cpu") -> torch.Tensor:
-    """(1, 16) f32 dynamic-params operand from a resolve_params'd config
-    (fields may be 0-dim tensors)."""
+    """(1, 16) f32 dynamic-params operand from a resolve_params'd config.
+    Fields may be 0-dim tensors; a slot derived from one keeps its autograd
+    graph, so gradients reach the `params` overrides. Python-float slots
+    come from the per-device constant cache (no host-to-device copy)."""
     vals = _derived_consts(cfg_eff)
-    vec = [torch.as_tensor(vals[k], dtype=torch.float32, device=device)
-           .reshape(()) for k in _DYN_SLOTS]
-    vec += [torch.zeros((), dtype=torch.float32, device=device)] \
-        * (16 - len(_DYN_SLOTS))
-    return torch.stack(vec).reshape(1, 16)
+    floats = const_tensor(tuple(
+        0.0 if torch.is_tensor(vals[k]) else float(vals[k])
+        for k in _DYN_SLOTS) + (0.0,) * (16 - len(_DYN_SLOTS)),
+        torch.device(device))
+    vec = [vals[k].to(device, torch.float32).reshape(())
+           if torch.is_tensor(vals[k]) else floats[i]
+           for i, k in enumerate(_DYN_SLOTS)]
+    return torch.stack(vec + list(floats[len(_DYN_SLOTS):])).reshape(1, 16)
 
 
 def kernel_params(cfg: SimConfig, dynp=None, device="cpu") -> torch.Tensor:
@@ -172,6 +179,36 @@ def _b_epilogue(cfg: SimConfig, with_ep: bool, qpos, qiv, qvm, dens, react,
         v_cols.append(v)
     return (torch.cat(p_cols, dim=1), torch.cat(v_cols, dim=1), vm_new,
             inter_vm, acc)
+
+
+def _epi_a(cfg: SimConfig, raw_d, raw_x, fs, dynp=None,
+           with_ep: bool = True) -> torch.Tensor:
+    """Sweep A's epilogue and copies: pair sums (raw_d (N,) density, raw_x
+    (N, 3) XSPH) + QM_A -> OUT_A (the counterpart of the JAX package's
+    `_epi_a_jnp`). The plain version and the sweep-A kernel compute the same
+    operations, so autograd over this function is the epilogue's VJP."""
+    P = _Phys(kernel_params(cfg, dynp, fs.device))
+    ivel = fs[:, 3:6] + raw_x * P.velocity_mixing            # cpp:699
+    mass, vm = fs[:, 6:7], fs[:, 8:9]
+    dens, pres, react, iion_n, w_n = _a_epilogue(
+        cfg, with_ep, mass, vm, fs[:, 9:10], fs[:, 10:11], fs[:, 11:12],
+        raw_d[:, None], P)
+    return torch.cat([fs[:, 0:3], ivel, pres, vm, dens, react, mass, iion_n,
+                      fs[:, 12:15], w_n], dim=1)
+
+
+def _epi_b(cfg: SimConfig, raw_acc, raw_lap, out_a, dynp=None,
+           with_ep: bool = True) -> torch.Tensor:
+    """Sweep B's epilogue and copies: pair sums (raw_acc (N, 3), raw_lap
+    (N,)) + OUT_A -> OUT_B (the counterpart of `_epi_b_jnp`)."""
+    P = _Phys(kernel_params(cfg, dynp, out_a.device))
+    dens, qp = out_a[:, 8:9], out_a[:, 6:7]
+    pos_n, vel_n, vm_new, inter_vm, acc = _b_epilogue(
+        cfg, with_ep, out_a[:, 0:3], out_a[:, 3:6], out_a[:, 7:8], dens,
+        out_a[:, 9:10], out_a[:, 10:11], raw_acc, raw_lap[:, None], P)
+    return torch.cat([pos_n, vel_n, vm_new, dens, qp, out_a[:, 11:12],
+                      out_a[:, 15:16], inter_vm, acc,
+                      torch.zeros_like(dens)], dim=1)
 
 
 # --- plain versions: dense masked pair sums over every candidate -----------
@@ -273,16 +310,9 @@ def sweep_a3_plain(fs, feats_a, cfg: SimConfig, with_ep: bool = True,
     OUT_A (N,16). Dense over all candidates (no window bounds); dead query
     rows (cx sentinel) get zero sums."""
     P = _Phys(kernel_params(cfg, dynp, fs.device))
-    a_d, a_x, a_y, a_z = (a[:, None] for a in _pair_sums_a(fs, feats_a,
-                                                           cfg, P))
-    ivel = fs[:, 3:6] + torch.cat([a_x, a_y, a_z], dim=1) \
-        * P.velocity_mixing                              # cpp:699
-    mass, vm = fs[:, 6:7], fs[:, 8:9]
-    dens, pres, react, iion_n, w_n = _a_epilogue(
-        cfg, with_ep, mass, vm, fs[:, 9:10], fs[:, 10:11], fs[:, 11:12],
-        a_d, P)
-    return torch.cat([fs[:, 0:3], ivel, pres, vm, dens, react, mass, iion_n,
-                      fs[:, 12:15], w_n], dim=1)
+    a_d, a_x, a_y, a_z = _pair_sums_a(fs, feats_a, cfg, P)
+    return _epi_a(cfg, a_d, torch.stack([a_x, a_y, a_z], dim=1), fs, dynp,
+                  with_ep)
 
 
 def sweep_b3_plain(out_a, feats_b, cfg: SimConfig, with_ep: bool = True,
@@ -290,16 +320,9 @@ def sweep_b3_plain(out_a, feats_b, cfg: SimConfig, with_ep: bool = True,
     """Plain PyTorch sweep B: OUT_A (N,16) + sweep-B features (16,N) ->
     OUT_B (N,16)."""
     P = _Phys(kernel_params(cfg, dynp, out_a.device))
-    a_ax, a_ay, a_az, a_lap = (a[:, None] for a in _pair_sums_b(
-        out_a, feats_b, cfg, with_ep, P))
-    dens, qp = out_a[:, 8:9], out_a[:, 6:7]
-    pos_n, vel_n, vm_new, inter_vm, acc = _b_epilogue(
-        cfg, with_ep, out_a[:, 0:3], out_a[:, 3:6], out_a[:, 7:8], dens,
-        out_a[:, 9:10], out_a[:, 10:11], torch.cat([a_ax, a_ay, a_az], 1),
-        a_lap, P)
-    return torch.cat([pos_n, vel_n, vm_new, dens, qp, out_a[:, 11:12],
-                      out_a[:, 15:16], inter_vm, acc,
-                      torch.zeros_like(dens)], dim=1)
+    a_ax, a_ay, a_az, a_lap = _pair_sums_b(out_a, feats_b, cfg, with_ep, P)
+    return _epi_b(cfg, torch.stack([a_ax, a_ay, a_az], dim=1), a_lap, out_a,
+                  dynp, with_ep)
 
 
 # --- wrappers ----------------------------------------------------------------
@@ -391,6 +414,20 @@ sweep_b3.launches = 0
 
 # --- glue ---------------------------------------------------------------------
 
+def _safe_div(num, den, ok):
+    """num / den where `ok`, else 0, with no inf or NaN in either branch
+    (so autograd through it stays finite)."""
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(num))
+
+
+def feats_b(out_a):
+    """(16, N) sweep-B candidate features of OUT_A, with the current
+    volume mass / dens (0 where dens <= 0)."""
+    return feats_from_out_a(out_a, _safe_div(out_a[:, 10], out_a[:, 8],
+                                             out_a[:, 8] > 0.0))
+
+
 def feats_from_out_a(out_a, vol):
     """(16, N) candidate features for sweep B from OUT_A columns."""
     z = torch.zeros_like(vol)
@@ -424,7 +461,7 @@ def feats_a_from_fs(fs):
     z = torch.zeros_like(fs[:, 0])
     live = fs[:, 12] >= 0.0
     mass_c = torch.where(live, fs[:, 6], z)
-    vol_prev = torch.where(live & (fs[:, 7] > 0.0), fs[:, 6] / fs[:, 7], z)
+    vol_prev = _safe_div(fs[:, 6], fs[:, 7], live & (fs[:, 7] > 0.0))
     return torch.stack([fs[:, 0], fs[:, 1], fs[:, 2], fs[:, 3], fs[:, 4],
                         fs[:, 5], vol_prev, mass_c, z, z, z, z,
                         fs[:, 12], fs[:, 13], z, z], dim=0)

@@ -23,6 +23,17 @@ def _round_up(n: int, m: int = PAD_MULTIPLE) -> int:
     return ((n + m - 1) // m) * m
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device. The port's entry points default to the
+    card; a CUDA device that torch cannot see raises instead of falling
+    back to the CPU, which a caller asks for with device="cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} requested but torch sees no "
+                           "CUDA GPU; pass device=\"cpu\" to run on the CPU")
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class ParticleState:
     """SoA particle state (Particle.h:10-29 fields, padded + masked).
@@ -80,12 +91,14 @@ _BOOL_FIELDS = ("fixed", "active", "is_stim_on")
 
 
 def init_fluid(positions, cfg: SimConfig, velocities=None,
-               pad_to: int | None = None, device="cpu") -> ParticleState:
+               pad_to: int | None = None, device="cuda") -> ParticleState:
     """Seed a fluid from a point cloud (Init_Fluid / Init_Particle,
     cpp:93-125): capacity clamp at `cfg.max_particles` (cpp:103-104),
     vel = acc = 0, dens = rho0, mass = 0.2, EP fields zero, goal = orig =
     pos, nothing fixed. Padded rows sit far outside the world (they never
-    hash into a grid cell) with `active=False`."""
+    hash into a grid cell) with `active=False`. The state lives on
+    `device` (the card unless the caller asks for "cpu")."""
+    device = resolve_device(device)
     positions = np.asarray(positions, dtype=np.float32)
     if positions.ndim != 2 or positions.shape[1] != 3:
         raise ValueError(f"positions must be (N, 3), got {positions.shape}")
@@ -135,10 +148,12 @@ def init_fluid(positions, cfg: SimConfig, velocities=None,
     )
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> ParticleState:
-    """ParticleState from a dict of arrays keyed by field name (e.g. the
-    fields of a JAX-package state taken through `np.asarray`). Missing or
-    unknown fields raise; float fields become float32, flags bool."""
+def state_from_numpy(arrays: dict, device="cuda") -> ParticleState:
+    """ParticleState on `device` from a dict of arrays keyed by field name
+    (e.g. the fields of a JAX-package state taken through `np.asarray`).
+    Missing or unknown fields raise; float fields become float32, flags
+    bool."""
+    device = resolve_device(device)
     missing = [n for n in FIELD_NAMES if n not in arrays]
     unknown = sorted(set(arrays) - set(FIELD_NAMES))
     if missing or unknown:
@@ -189,9 +204,10 @@ def save_checkpoint(path: str, state: ParticleState, step: int = 0,
         np.savez_compressed(f, **arrays)
 
 
-def load_checkpoint(path: str, with_config: bool = False, device="cpu"):
-    """Load a by-name checkpoint -> (state, step) or (state, step,
-    cfg|None). Missing or unknown fields raise."""
+def load_checkpoint(path: str, with_config: bool = False, device="cuda"):
+    """Load a by-name checkpoint onto `device` -> (state, step) or (state,
+    step, cfg|None). Missing or unknown fields raise."""
+    device = resolve_device(device)
     with np.load(path) as data:
         if "__step__" not in data:
             raise ValueError(f"{path}: not a sph_sm_monodomain checkpoint "

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 
 from ..config import SimConfig
-from ..state import ParticleState, init_fluid
+from ..state import ParticleState, init_fluid, resolve_device
 from ..ops.grid import auto_cell_capacity, auto_window_capacity
 from ..ops.sweeps import auto_sweep4_params
 from ..ops import electrophysiology as ep
@@ -125,11 +125,13 @@ def scene_positions(name: str, cfg: SimConfig) -> np.ndarray:
 
 def build_scene(name: str, cfg: SimConfig | None = None, replicate: int = 1,
                 stim: bool = True, pad_to: int | None = None,
-                fused_impl: str | None = None, device="cpu") -> Scene:
+                fused_impl: str | None = None, device="cuda") -> Scene:
     """Load + seed + stimulate a scene the way the reference app does
     (init / init_mesh / init_cube, main.cpp:464-496), with the state on
-    `device`. Multi-muscle replication (`replicate` > 1) and fused kernel
-    generations other than v4 are not ported yet."""
+    `device` (the card unless the caller asks for "cpu"). Multi-muscle
+    replication (`replicate` > 1) and fused kernel generations other than
+    v4 are not ported yet."""
+    device = resolve_device(device)
     if replicate != 1:
         raise NotImplementedError("replicate > 1 (multi-muscle clusters) is "
                                   "not ported yet")

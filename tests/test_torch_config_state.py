@@ -48,7 +48,7 @@ def test_config_mirrors_jax(overrides):
 def test_state_carry_over_roundtrip():
     js = random_state(J.SimConfig(), n=150)
     arrays = jax_state_arrays(js)
-    ts = T.state_from_numpy(arrays)
+    ts = T.state_from_numpy(arrays, device="cpu")
     assert ts.capacity == js.capacity
     back = T.state_to_numpy(ts)
     assert set(back) == set(arrays)
@@ -57,7 +57,8 @@ def test_state_carry_over_roundtrip():
     np.testing.assert_array_equal(ts.displacement().numpy(),
                                   np.asarray(js.displacement()))
     with pytest.raises(ValueError):
-        T.state_from_numpy({k: v for k, v in arrays.items() if k != "w"})
+        T.state_from_numpy({k: v for k, v in arrays.items() if k != "w"},
+                           device="cpu")
 
 
 def test_checkpoints_cross_load(tmp_path):
@@ -65,7 +66,7 @@ def test_checkpoints_cross_load(tmp_path):
     js = random_state(jcfg, n=130)
     p = str(tmp_path / "jax_ckpt")
     J.save_checkpoint(p, js, step=17, cfg=jcfg)
-    ts, step, tcfg = T.load_checkpoint(p, with_config=True)
+    ts, step, tcfg = T.load_checkpoint(p, with_config=True, device="cpu")
     assert step == 17 and tcfg == torch_cfg(jcfg)
     for k, v in jax_state_arrays(js).items():
         assert_bit_equal(T.state_to_numpy(ts)[k], v, k)
@@ -81,7 +82,7 @@ def test_checkpoints_cross_load(tmp_path):
 @pytest.mark.parametrize("name", ["biceps_full", "cube"])
 def test_build_scene_bit_identical(name):
     js = J.build_scene(name)
-    ts = T.build_scene(name)
+    ts = T.build_scene(name, device="cpu")
     for f in ("cell_capacity", "neighbor_capacity", "num_particles", "name",
               "q_block", "block_window", "sub_block", "fused_impl",
               "pack_cap"):

@@ -1,5 +1,6 @@
-"""The port's CUDA sweep kernels on the card, against their plain PyTorch
-versions (marker `cuda`; skipped where torch sees no GPU).
+"""The port's CUDA sweep kernels (forward and backward) and its
+differentiable step on the card, against their plain PyTorch versions and
+the CPU path (marker `cuda`; skipped where torch sees no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -8,6 +9,7 @@ machine without JAX:
 
 Tolerance: per output column, |kernel - plain| <= 1e-5 * max(1, max|plain
 column|) — both fp32, summed in another order, the kernel with rsqrtf.
+Gradients, card against CPU: rtol 1e-3 (the JAX suite's 3-step bound).
 """
 
 import numpy as np
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
+from sph_sm_monodomain_tpu_torch.ops.shape_matching import sm_invariants
 from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
 
 pytestmark = pytest.mark.cuda
@@ -65,9 +69,7 @@ def test_kernels_match_plain(device, case):
     want_a = fst.sweep_a3_plain(fs, fa, cfg, with_ep, dynp)
     got_a = fst.sweep_a3(fs, fa, lo, hi, cfg, with_ep, 128, dynp)
     _check(got_a, want_a, "OUT_A")
-    vol = torch.where(want_a[:, 8] > 0, want_a[:, 10] / want_a[:, 8],
-                      torch.zeros_like(want_a[:, 8]))
-    fb = fst.feats_from_out_a(want_a, vol)
+    fb = fst.feats_b(want_a)
     want_b = fst.sweep_b3_plain(want_a, fb, cfg, with_ep, dynp)
     got_b = fst.sweep_b3(want_a, fb, lo, hi, cfg, with_ep, 128, dynp)
     torch.cuda.synchronize()
@@ -100,3 +102,70 @@ def test_step_on_card_matches_cpu(device):
         np.testing.assert_allclose(g[name][act], w[name][act], atol=atol,
                                    err_msg=name)
     np.testing.assert_allclose(g["dens"][act], w["dens"][act], rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["default", "dynp"])
+def test_backward_kernels_match_plain(device, case):
+    cfg, st = _blob(device)
+    dynp = (fst.build_dynp(T.resolve_params(cfg, {"mu_viscosity": 40.0}),
+                           device) if case == "dynp" else None)
+    order, inv, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg,
+                                                     128)
+    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+    out_a = fst.sweep_a3_plain(fs, fa, cfg, dynp=dynp)
+    rng = np.random.default_rng(1)
+    cot = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    n = fs.shape[0]
+    qa = fad.bwd_a_query(fs, cot(n), cot(n, 3))
+    qb = fad.bwd_b_query(out_a, cot(n, 3), cot(n))
+    n_a, n_b = fad.sweep_bwd_a.launches, fad.sweep_bwd_b.launches
+    got_a = fad.sweep_bwd_a(qa, qa.T.contiguous(), lo, hi, cfg)
+    got_b = fad.sweep_bwd_b(qb, qb.T.contiguous(), lo, hi, cfg, dynp=dynp)
+    torch.cuda.synchronize()
+    _check(got_a, fad.sweep_bwd_a_plain(qa, qa.T, cfg), "bwd A")
+    _check(got_b, fad.sweep_bwd_b_plain(qb, qb.T, cfg, dynp), "bwd B")
+    assert (fad.sweep_bwd_a.launches, fad.sweep_bwd_b.launches) == (n_a + 1,
+                                                                  n_b + 1)
+
+
+def test_checkpointed_grad_on_card_matches_cpu(device):
+    """A 2-step checkpointed rollout's grad w.r.t. log(K, mu): the card
+    (kernels) against the CPU (plain versions), and the launch counts of
+    one value-and-grad: the forward kernels 2S times (checkpointing
+    recomputes each step), the backward kernels S times."""
+    from torch.utils.checkpoint import checkpoint
+    cfg, st = _blob(device, n=600, seed=3)
+    # off the rest shape and moving, so that d/d mu is not rounding noise
+    rng = np.random.default_rng(4)
+    r = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(device)
+    act = st.active[:, None]
+    st = st.replace(pos=st.pos + r(st.capacity, 3) * 0.003 * act,
+                    vel=r(st.capacity, 3) * 0.05)
+    steps = 2
+
+    def value_and_grad(s0):
+        inv = sm_invariants(s0, cfg)
+        th = torch.log(torch.tensor([0.5, 100.0], device=s0.device)) \
+            .requires_grad_()
+        p = {"k_stiffness": torch.exp(th[0]), "mu_viscosity": torch.exp(th[1])}
+        s = s0
+        for _ in range(steps):
+            s = checkpoint(lambda x: T.step_fused_diff(x, cfg, sm_inv=inv,
+                                                       params=p),
+                           s, use_reentrant=False)
+        d = torch.where(s.active[:, None], s.pos - s.orig_pos,
+                        torch.zeros_like(s.pos))
+        val = (d * d).sum() * 1e6
+        (g,) = torch.autograd.grad(val, th)
+        return float(val.detach()), g.cpu().numpy()
+
+    kernels = (fst.sweep_a3, fst.sweep_b3, fad.sweep_bwd_a, fad.sweep_bwd_b)
+    before = [k.launches for k in kernels]
+    vc, gc = value_and_grad(st)
+    assert [k.launches - b for k, b in zip(kernels, before)] \
+        == [2 * steps, 2 * steps, steps, steps]
+    vp, gp = value_and_grad(st.to("cpu"))
+    np.testing.assert_allclose(vc, vp, rtol=1e-3)
+    np.testing.assert_allclose(gc, gp, rtol=1e-3)

@@ -5,19 +5,26 @@ Tolerance: rtol 1e-5, atol 1e-6 on the fp32 results, for the fixed-iteration
 Jacobi chains and the fp32 moment sums, which both packages run in another
 summation order; the corrected velocity carries the goal error times
 alpha/dt (~97), so its absolute tolerance is the goal's times that factor.
+The gradient of corrected_velocity against JAX autodiff: rtol 1e-4 with an
+absolute floor of 1e-5 * max|grad| (the same fixed-iteration Jacobi in
+fp32, summed in another order).
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import sph_sm_monodomain_tpu as J
+from sph_sm_monodomain_tpu.config import resolve_params as jresolve
 from sph_sm_monodomain_tpu.ops import linalg as jla
 from sph_sm_monodomain_tpu.ops import shape_matching as jsm
+import sph_sm_monodomain_tpu_torch as T
 from sph_sm_monodomain_tpu_torch.ops import linalg as tla
 from sph_sm_monodomain_tpu_torch.ops import shape_matching as tsm
 
-from torch_parity import to_torch_state, torch_cfg
+from torch_parity import random_state, to_torch_state, torch_cfg
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -125,3 +132,50 @@ def test_sm_clusters_raise():
     with pytest.raises(NotImplementedError):
         tsm.sm_invariants(to_torch_state(js),
                           torch_cfg(jcfg).replace(sm_clusters=2))
+
+
+@pytest.mark.parametrize("case", ["linear", "planar"])
+def test_corrected_velocity_grad_matches_jax(case):
+    """Autograd through the port's shape matching (max-pivot / cyclic
+    Jacobi, polar decomposition, in-place rotation updates) against JAX
+    autodiff through its own, w.r.t. positions and (sm_alpha, sm_beta).
+    The planar cloud gives A^T A a zero eigenvalue: the masked branches
+    must keep the gradient finite (its value there is ill-posed, as
+    test_linalg_3x3_matches notes for R)."""
+    jcfg = J.SimConfig()
+    js = random_state(jcfg, n=150, seed=5)
+    rng = np.random.default_rng(6)
+    pos = np.asarray(js.pos).copy()
+    if case == "planar":
+        pos[:, 2] = 0.6
+        js = js.replace(orig_pos=jnp.asarray(pos))
+    pos = pos + rng.normal(size=pos.shape).astype(np.float32) * 0.01
+    js = js.replace(pos=jnp.asarray(pos))
+    ts = to_torch_state(js)
+    tcfg = torch_cfg(jcfg)
+    w = rng.normal(size=pos.shape).astype(np.float32)
+    ab = np.asarray([0.3, 0.4], np.float32)
+    tinv = tsm.sm_invariants(ts, tcfg)
+    p_t = torch.from_numpy(pos).requires_grad_()
+    ab_t = torch.from_numpy(ab).requires_grad_()
+    cfg_t = T.resolve_params(tcfg, {"sm_alpha": ab_t[0], "sm_beta": ab_t[1]})
+    st = tsm.corrected_velocity(ts.replace(pos=p_t), cfg_t, sm_inv=tinv)
+    gt = torch.autograd.grad((st.corrected_vel * torch.from_numpy(w)).sum(),
+                             (p_t, ab_t))
+    assert all(bool(torch.isfinite(a).all()) for a in gt)
+    if case == "planar":
+        return
+    jinv = jsm.sm_invariants(js, jcfg)
+
+    def jloss(p, ab):
+        cfg = jresolve(jcfg, {"sm_alpha": ab[0], "sm_beta": ab[1]})
+        st = jsm.corrected_velocity(js.replace(pos=p), cfg, sm_inv=jinv)
+        return jnp.sum(st.corrected_vel * w)
+
+    # ~20 s: XLA compiling the unrolled Jacobi's backward
+    gj = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(pos),
+                                                  jnp.asarray(ab))
+    for a, b in zip(gt, gj):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(b).max()))

@@ -36,8 +36,8 @@ def test_step_matches_oracle(stim_off):
     pts = np.clip(rng.normal(size=(220, 3)).astype(np.float32) * 0.05
                   + 0.55, 0.05, 1.2)
     n = pts.shape[0]
-    state = set_stim(T.init_fluid(pts, CFG), (0.55, 0.55, 0.55), 0.5,
-                     CFG.stim_strength, CFG)
+    state = set_stim(T.init_fluid(pts, CFG, device="cpu"), (0.55, 0.55, 0.55),
+                     0.5, CFG.stim_strength, CFG)
     fixed = torch.zeros(state.capacity, dtype=torch.bool)
     fixed[:5] = True
     state = state.replace(fixed=fixed)

@@ -36,7 +36,8 @@ def _scenes():
                   fused_impl="v4")
     jsc = J.Scene(state=js, cfg=jcfg, **common)
     tcfg = torch_cfg(jcfg)
-    ts = T.stim.turn_on_stim_mesh(T.init_fluid(pts, tcfg), pts, tcfg)
+    ts = T.stim.turn_on_stim_mesh(T.init_fluid(pts, tcfg, device="cpu"), pts,
+                                  tcfg)
     tsc = T.Scene(state=ts, cfg=tcfg, **common)
     for k, v in jax_state_arrays(js).items():
         assert_bit_equal(T.state_to_numpy(ts)[k], v, k)
@@ -132,4 +133,4 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         T.run_protocol(tsc, num_steps=1, fused=False)
     with pytest.raises(NotImplementedError):
-        T.build_scene("cube", replicate=2)
+        T.build_scene("cube", replicate=2, device="cpu")

@@ -25,7 +25,7 @@ def jax_state_arrays(js) -> dict:
 
 
 def to_torch_state(js):
-    return T.state_from_numpy(jax_state_arrays(js))
+    return T.state_from_numpy(jax_state_arrays(js), device="cpu")
 
 
 def assert_bit_equal(a, b, what=""):
