@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card at the full width of
+Drives the port's paths on the card at the full width of
 `build_scene("biceps_full")` (18,475 particles): the chunked `run_protocol`
-of the v4 fused step, through the two hand-written CUDA sweep kernels, and
-the flagship (K, mu) material fit through the differentiable step, whose
-backward pass runs the two hand-written backward sweep kernels. Phases,
-each printing its lines; any failure raises and exits non-zero:
+of the v4 fused step, through the two hand-written CUDA sweep kernels; the
+flagship (K, mu) material fit through the differentiable step, whose
+backward pass runs the two hand-written backward sweep kernels; the
+frozen-cloud monodomain mode on the hand-written Laplacian kernel, forward
+and backward; and the SPH-only, SM-only and unfused modes. Phases, each
+printing its lines; any failure raises and exits non-zero:
 
   1. device   needs torch.cuda; prints the card's name and power limit
   2. build    nvcc builds csrc/*.cu, one process per source (timed, with
@@ -34,6 +36,25 @@ each printing its lines; any failure raises and exits non-zero:
  10. timing   backward kernels against their plain versions, forward and
               grad ms/step of the fit's rollout, its peak memory, and each
               kernel's bound from the pairs these inputs need
+ 11. lap      the Laplacian kernel against its plain version on the
+              monodomain tables of biceps_full, forward and backward forms,
+              per column; a CSR SpMV of the same operator (a PyTorch library
+              yardstick the port never calls) against its column 0
+ 12. mono     monodomain_prepare_fused + 500 fused monodomain-only steps on
+              biceps_full with exact launch counts; 30 slice steps, card
+              against CPU
+ 13. grad     d loss / d vm0 of a 3-step slice rollout, the Laplacian kernel
+              path against the unfused path under autograd (both on the
+              card); the ported fit_fhn_fused_demo on biceps_full (30
+              steps, 8 Newton iterations) with exact launch counts
+ 14. modes    SPH-only (fused, 500 steps), SM-only (500 steps) and
+              run_protocol(fused=False) (50 steps) on biceps_full; fused
+              against unfused SPH-only on the slice
+ 15. timing   the Laplacian kernel, its plain version and the SpMV; ms/step
+              of every mode; the monodomain value-and-grad ms/step; then
+              biceps_full x56 (1,034,600 particles): prepare time, ms/step
+              of 100 monodomain-only steps, peak memory; the Laplacian
+              kernel's bound
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -45,14 +66,17 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.examples import fit_fhn_fused_demo as fhn
 from sph_sm_monodomain_tpu_torch.examples import fit_material_flagship as fit
 from sph_sm_monodomain_tpu_torch.models import monodomain
+from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import cuda_lib
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
@@ -78,12 +102,26 @@ SLICE_DENS_RTOL = 5e-5
 GRAD_STEPS, GRAD_RTOL = 3, 1e-3
 # the fit at full width: rollout steps, snapshots, Adam iterations
 FIT_STEPS, FIT_SNAPS, FIT_ITERS = 20, 4, 6
+# the monodomain mode: steps of its main run; slice steps card vs CPU at
+# the JAX suite's 30-step fused-mode bound (tests/test_variants.py:173-175);
+# the gradient check's steps; the demo's steps and Newton iterations; the
+# replicated scene and its steps
+MONO_STEPS, MONO_SLICE_STEPS, MONO_SLICE_TOL = 500, 30, 1e-3
+MONO_GRAD_STEPS, FHN_STEPS, FHN_ITERS = 3, 30, 8
+REPLICATE, REPLICATE_STEPS = 56, 100
+# the other modes: SPH-only and SM-only steps, unfused run_protocol steps;
+# fused vs unfused SPH-only on the slice after 5 steps at the JAX suite's
+# bounds (tests/test_variants.py:48-51)
+MODE_STEPS, UNFUSED_STEPS = 500, 50
+SPH_SLICE_STEPS, SPH_POS_TOL, SPH_DENS_RTOL = 5, 2e-5, 1e-4
 # name, source, TPU kernel replaced, module holding the wrapper
 KERNELS = (
     ("sweep_a3", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
      "sph_sm_monodomain_tpu/ops/fused_step.py:446", fst),
     ("sweep_b3", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
      "sph_sm_monodomain_tpu/ops/fused_step.py:522", fst),
+    ("sweep_lap3", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:700", fst),
     ("sweep_bwd_a", "sph_sm_monodomain_tpu_torch/csrc/fused_adjoint.cu",
      "sph_sm_monodomain_tpu/ops/fused_adjoint.py:94", fad),
     ("sweep_bwd_b", "sph_sm_monodomain_tpu_torch/csrc/fused_adjoint.cu",
@@ -104,9 +142,13 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #   bwd A:   43 for r < h (9 accumulators, both pair roles)
 #   bwd B:   129 for 1e-12 < r^2 < 4h^2 (rsqrt, r, r/h, then 10
 #            accumulators, both pair roles)
+#   lap:     16 for 1e-12 < r^2 < 4h^2 (rsqrt, r, r/h, the q >= 2 test,
+#            the relu-form B-spline W2 with its constant (8), vol*W2, two
+#            accumulations (3))
 PAIR_FLOPS = {
     "sweep_a3": (("full", 10), ("h", 15)),
     "sweep_b3": (("full", 10), ("2h", 40)),
+    "sweep_lap3": (("full", 10), ("2h", 16)),
     "sweep_bwd_a": (("full", 10), ("h", 43)),
     "sweep_bwd_b": (("full", 10), ("2h", 129)),
 }
@@ -190,6 +232,49 @@ def column_errors(got, want):
     err = (got - want).abs().amax(dim=0)
     bound = KERNEL_TOL * torch.clamp(want.abs().amax(dim=0), min=1.0)
     return float(err.max()), float((err / bound).max()), err.tolist()
+
+
+def check_in_world(state, cfg, what: str) -> None:
+    """Active positions finite and inside the world box."""
+    pos = state.pos[state.active]
+    world = torch.tensor(cfg.world_size, device=pos.device)
+    if not torch.isfinite(pos).all():
+        raise AssertionError(f"{what}: non-finite positions")
+    if not ((pos >= 0.0) & (pos <= world)).all():
+        raise AssertionError(f"{what}: positions outside the world box")
+
+
+def laplacian_csr(qm, feats, cfg):
+    """The monodomain mode's operator L = A - diag(rowsum A), A_ij = vol_j
+    W2(r_ij), as one CSR matrix in sorted order, built from the plain
+    version's pair weights (ops/fused_step.lap_pair_weights); L @ vm is the
+    Laplacian kernel's column 0. The self pair's weight is 0 (the r^2 >
+    1e-12 guard), so the diagonal holds -rowsum alone."""
+    P = fst._Phys(fst.kernel_params(cfg, None, qm.device))
+    gm = float(fst._g_mid(cfg))
+    n = qm.shape[0]
+    rows = fst._rows_per_chunk(n, qm.device)
+    idx, vals = [], []
+    for s in range(0, n, rows):
+        vw = fst.lap_pair_weights(qm[s:s + rows], feats, gm, P)
+        r = torch.arange(vw.shape[0], device=qm.device)
+        vw[r, s + r] -= vw.sum(1)
+        nz = vw.nonzero()
+        vals.append(vw[nz[:, 0], nz[:, 1]])
+        idx.append(nz + torch.tensor([s, 0], device=qm.device))
+    with warnings.catch_warnings():  # sparse CSR's "beta state" notice
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(torch.cat(idx).T, torch.cat(vals),
+                                       (n, n)).coalesce().to_sparse_csr()
+
+
+def timed_run(run, steps: int):
+    """(device ms per step of run(steps), its result), CUDA events, after a
+    one-step warm-up run."""
+    run(1)
+    out = {}
+    ms = cuda_ms(lambda: out.setdefault("r", run(steps)), 1) / steps
+    return ms, out["r"]
 
 
 def slice_scene(dev):
@@ -429,6 +514,7 @@ def main() -> int:
     # pass; the target rollout runs the forward once more
     want = {"sweep_a3": FIT_STEPS * (1 + 2 * FIT_ITERS),
             "sweep_b3": FIT_STEPS * (1 + 2 * FIT_ITERS),
+            "sweep_lap3": 0,
             "sweep_bwd_a": FIT_STEPS * FIT_ITERS,
             "sweep_bwd_b": FIT_STEPS * FIT_ITERS}
     if fit_launches != want:
@@ -465,24 +551,306 @@ def main() -> int:
     print(f"pairs the sweeps need (biceps_full step 0): {counts}",
           flush=True)
     bounds = {}
-    for name, *_ in KERNELS:
+    for name in times:
         bounds[name] = bound(name, counts, n_rows)
         b_ms, by, flops, nbytes = bounds[name]
         print(f"{name}: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB, "
               f"bound {b_ms * 1e3:.4f} us ({by}), kernel at "
               f"{b_ms / times[name][0] * 100:.3f}% of it", flush=True)
 
+    phase("11 Laplacian kernel vs plain version (biceps_full monodomain "
+          "tables), forward and backward forms; CSR SpMV of the operator")
+    tab = variants.monodomain_prepare_fused(scene.state, cfg, sub_q=sub_q)
+    vm_r, g_r = cot(n_rows) * 10.0, cot(n_rows)
+    geom = (tab.pos_s, tab.cx_s, tab.cyz_s)
+    lap_in = {"forward": variants._lap_inputs(vm_r, tab.vol_s, vm_r, *geom),
+              "backward": variants._lap_inputs(torch.zeros_like(g_r),
+                                               torch.ones_like(g_r), g_r,
+                                               *geom)}
+    lap_out, worst = {}, 0.0
+    for form, (qm_l, feats_l) in lap_in.items():
+        got = fst.sweep_lap3(qm_l, feats_l, tab.blk_lo, tab.blk_hi, cfg,
+                             sub_q)
+        want = fst.sweep_lap3_plain(qm_l, feats_l, cfg)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"sweep_lap3 {form}: non-finite output")
+        max_err, ratio, per_col = column_errors(got, want)
+        worst = max(worst, max_err)
+        print(f"sweep_lap3 {form}: max_abs_err {max_err:.6g}, worst column "
+              f"at {ratio:.4g} of the bound {KERNEL_TOL:g}*max(1,max|plain|)"
+              f"; column 0 {per_col[0]:.3g}, columns 1-15 "
+              f"{max(per_col[1:]):.3g}", flush=True)
+        if not ratio <= 1.0:
+            raise AssertionError(f"sweep_lap3 {form} disagrees with its "
+                                 "plain version")
+        lap_out[form] = got
+    report["sweep_lap3"] = {"max_abs_err": worst}
+    t0 = time.perf_counter()
+    lap_csr = laplacian_csr(*lap_in["forward"], cfg)
+    vm_col = vm_r[:, None]
+    spmv_y = lap_csr @ vm_col
+    torch.cuda.synchronize()
+    max_err, ratio, _ = column_errors(spmv_y, lap_out["forward"][:, :1])
+    print(f"CSR Laplacian: {lap_csr._nnz()} nonzeros (built in "
+          f"{time.perf_counter() - t0:.3f} s); SpMV vs kernel column 0: "
+          f"max_abs_err {max_err:.6g}, {ratio:.4g} of the bound", flush=True)
+    if not ratio <= 1.0:
+        raise AssertionError("the CSR SpMV disagrees with the kernel")
+
+    phase(f"12 monodomain mode: monodomain_prepare_fused + {MONO_STEPS} "
+          "fused steps on biceps_full")
+    fst.sweep_a3.launches = fst.sweep_lap3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mtab = variants.monodomain_prepare_fused(scene.state, cfg, sub_q=sub_q)
+    mono = variants.simulate_monodomain_only_fused(scene.state, mtab, cfg,
+                                                   MONO_STEPS, sub_q=sub_q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mono_launches = {"sweep_a3": fst.sweep_a3.launches,
+                     "sweep_lap3": fst.sweep_lap3.launches}
+    vm = mono.vm[mono.active]
+    print(f"{MONO_STEPS} steps in {wall:.3f} s wall, launches "
+          f"{mono_launches}; vm min {float(vm.min()):.6g} mean "
+          f"{float(vm.mean()):.6g} max {float(vm.max()):.6g}", flush=True)
+    want = {"sweep_a3": 1, "sweep_lap3": MONO_STEPS + 1}
+    if mono_launches != want:
+        raise AssertionError(f"monodomain launches {mono_launches}, want "
+                             f"{want}")
+    launches["sweep_lap3"] = mono_launches["sweep_lap3"]
+    if not (torch.isfinite(vm).all()
+            and float(vm.abs().max()) <= cfg.max_voltage):
+        raise AssertionError("monodomain: vm non-finite or beyond "
+                             "max_voltage")
+    if not torch.equal(mono.pos, scene.state.pos):
+        raise AssertionError("monodomain: the frozen cloud moved")
+    vms = []
+    for st_s in (small.state, small.state.to("cpu")):
+        t_s = variants.monodomain_prepare_fused(st_s, small.cfg)
+        vms.append(variants.simulate_monodomain_only_fused(
+            st_s, t_s, small.cfg, MONO_SLICE_STEPS).vm.cpu())
+    a = small.state.active.cpu()
+    err = float((vms[0][a] - vms[1][a]).abs().max())
+    print(f"slice, {MONO_SLICE_STEPS} steps: vm card vs CPU max abs diff "
+          f"{err:.3g} (tolerance {MONO_SLICE_TOL:g})", flush=True)
+    if not err <= MONO_SLICE_TOL:
+        raise AssertionError("slice monodomain run: card and CPU disagree")
+
+    phase(f"13 gradient through the Laplacian kernel: {MONO_GRAD_STEPS}-step "
+          "slice rollout vs the unfused path; the fhn demo on biceps_full")
+    rng = np.random.default_rng(13)
+    cap_s = small.state.capacity
+    wgt = torch.from_numpy(rng.normal(size=cap_s).astype(np.float32)).to(dev)
+    vm0 = torch.from_numpy(rng.normal(size=cap_s).astype(np.float32)
+                           * 5.0).to(dev)
+    ftab = variants.monodomain_prepare_fused(small.state, small.cfg)
+    utab = variants.monodomain_prepare(small.state, small.cfg,
+                                       small.neighbor_capacity)
+    vg = {}
+    for name, run in (
+            ("kernel", lambda s: variants.simulate_monodomain_only_fused(
+                s, ftab, small.cfg, MONO_GRAD_STEPS)),
+            ("unfused", lambda s: variants.simulate_monodomain_only(
+                s, utab, small.cfg, MONO_GRAD_STEPS))):
+        v = vm0.clone().requires_grad_()
+        out = run(small.state.replace(vm=v))
+        val = torch.where(out.active, out.vm * wgt,
+                          torch.zeros_like(out.vm)).sum()
+        (g,) = torch.autograd.grad(val, v)
+        vg[name] = (float(val.detach()), g)
+    (vk, gk), (vu, gu) = vg["kernel"], vg["unfused"]
+    g_tol = 1e-4 * max(1.0, float(gu.abs().max()))
+    g_err = float((gk - gu).abs().max())
+    print(f"loss kernel {vk:.9g} unfused {vu:.9g} (rel diff "
+          f"{abs(vk - vu) / abs(vu):.3g}, tolerance 1e-5); d loss / d vm0 "
+          f"max abs diff {g_err:.3g} (tolerance {g_tol:.3g}, max|g| "
+          f"{float(gu.abs().max()):.4g})", flush=True)
+    if not (abs(vk - vu) <= 1e-5 * abs(vu) and g_err <= g_tol
+            and float(gu.abs().max()) > 0.0):
+        raise AssertionError("gradient through the Laplacian kernel "
+                             "disagrees with the unfused path")
+    fst.sweep_a3.launches = fst.sweep_lap3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    demo = fhn.main(["biceps_full", str(FHN_STEPS), str(FHN_ITERS),
+                     "--device", str(dev)])
+    torch.cuda.synchronize()
+    demo_launches = {"sweep_a3": fst.sweep_a3.launches,
+                     "sweep_lap3": fst.sweep_lap3.launches}
+    print(f"fhn demo in {time.perf_counter() - t0:.3f} s wall: amplitude "
+          f"{demo['amp']:.6g} ({demo['err'] * 100:.4f}% off), launches "
+          f"{demo_launches}", flush=True)
+    # the prepare's sweep A and row sum; the target rollout; per
+    # value-and-grad one forward sweep per step and one backward sweep per
+    # step but the first, whose input vm does not depend on the amplitude
+    want = {"sweep_a3": 1,
+            "sweep_lap3": 1 + FHN_STEPS + FHN_ITERS * (2 * FHN_STEPS - 1)}
+    if demo_launches != want or not demo["err"] <= 0.01:
+        raise AssertionError(f"fhn demo: launches {demo_launches} (want "
+                             f"{want}), amplitude error {demo['err']}")
+
+    phase(f"14 SPH-only ({MODE_STEPS} fused steps), SM-only ({MODE_STEPS} "
+          f"steps), run_protocol(fused=False) ({UNFUSED_STEPS} steps) on "
+          "biceps_full")
+    sph_cfg = variants.sph_only_config(cfg)
+    fst.sweep_a3.launches = fst.sweep_b3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sph, sph_aux = variants.simulate_sph_only(
+        scene.state, sph_cfg, scene.neighbor_capacity, MODE_STEPS,
+        fused=True, sub_q=sub_q)
+    torch.cuda.synchronize()
+    sph_launches = (fst.sweep_a3.launches, fst.sweep_b3.launches)
+    t1 = time.perf_counter()
+    sm, sm_aux = variants.simulate_sm_only(scene.state, cfg, MODE_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    uf, uf_aux, _ = T.run_protocol(scene, num_steps=UNFUSED_STEPS, chunk=25,
+                                   fused=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    act = scene.state.active
+    for what, st_m, aux_m, secs in (("SPH-only", sph, sph_aux, t1 - t0),
+                                    ("SM-only", sm, sm_aux, t2 - t1),
+                                    ("unfused run_protocol", uf, uf_aux,
+                                     t3 - t2)):
+        check_in_world(st_m, cfg, what)
+        d = torch.linalg.vector_norm(st_m.pos[act] - scene.state.pos[act],
+                                     dim=-1)
+        print(f"{what}: {secs:.3f} s wall, overflow {int(aux_m.overflow)}, "
+              f"mean displacement {float(d.mean()):.6g} (max "
+              f"{float(d.max()):.6g})", flush=True)
+        if int(aux_m.overflow) != 0:
+            raise AssertionError(f"{what}: overflow {int(aux_m.overflow)}")
+    if sph_launches != (MODE_STEPS, MODE_STEPS):
+        raise AssertionError(f"SPH-only launches {sph_launches}")
+    s_cfg = variants.sph_only_config(small.cfg)
+    sph_s = [variants.simulate_sph_only(
+        small.state, s_cfg, small.neighbor_capacity, SPH_SLICE_STEPS,
+        fused=f)[0] for f in (True, False)]
+    a = small.state.active
+    pos_err = float((sph_s[0].pos[a] - sph_s[1].pos[a]).abs().max())
+    dens_err = float(((sph_s[0].dens[a] - sph_s[1].dens[a]).abs()
+                      / sph_s[1].dens[a].abs()).max())
+    print(f"slice SPH-only, {SPH_SLICE_STEPS} steps, fused vs unfused: pos "
+          f"{pos_err:.3g} (tolerance {SPH_POS_TOL:g}), dens rel "
+          f"{dens_err:.3g} (tolerance {SPH_DENS_RTOL:g})", flush=True)
+    if not (pos_err <= SPH_POS_TOL and dens_err <= SPH_DENS_RTOL):
+        raise AssertionError("slice SPH-only: fused and unfused disagree")
+
+    phase("15 timing: the Laplacian kernel, the modes, biceps_full "
+          f"x{REPLICATE}, bounds")
+    qm_f, feats_f = lap_in["forward"]
+    times["sweep_lap3"] = (
+        cuda_ms(lambda: fst.sweep_lap3(qm_f, feats_f, tab.blk_lo, tab.blk_hi,
+                                       cfg, sub_q), 200),
+        cuda_ms(lambda: fst.sweep_lap3_plain(qm_f, feats_f, cfg), 5))
+    spmv_ms = cuda_ms(lambda: lap_csr @ vm_col, 200)
+    print(f"sweep_lap3: kernel {times['sweep_lap3'][0]:.4f} ms, plain "
+          f"{times['sweep_lap3'][1]:.4f} ms, CSR SpMV {spmv_ms:.4f} ms",
+          flush=True)
+    utab_full = variants.monodomain_prepare(scene.state, cfg,
+                                            scene.neighbor_capacity)
+    k_nbr = scene.neighbor_capacity
+    with torch.no_grad():
+        mode_ms = {
+            "monodomain_fused": timed_run(
+                lambda k: variants.simulate_monodomain_only_fused(
+                    scene.state, mtab, cfg, k, sub_q=sub_q), 100)[0],
+            "monodomain_unfused": timed_run(
+                lambda k: variants.simulate_monodomain_only(
+                    scene.state, utab_full, cfg, k), 20)[0],
+            "sph_only_fused": timed_run(
+                lambda k: variants.simulate_sph_only(
+                    scene.state, sph_cfg, k_nbr, k, fused=True,
+                    sub_q=sub_q), 100)[0],
+            "sph_only_unfused": timed_run(
+                lambda k: variants.simulate_sph_only(
+                    scene.state, sph_cfg, k_nbr, k), 20)[0],
+            "sm_only": timed_run(
+                lambda k: variants.simulate_sm_only(scene.state, cfg, k),
+                50)[0],
+            "coupled_unfused": timed_run(
+                lambda k: T.simulate(scene.state, cfg, k, fused=False,
+                                     neighbor_capacity=k_nbr), 20)[0],
+        }
+    rollout = fhn.make_rollout(scene, mtab, FHN_STEPS)
+    amp = torch.tensor(300.0, device=dev)
+    fhn.value_and_grad(rollout, amp)
+    mode_ms["monodomain_value_and_grad"] = cuda_ms(
+        lambda: fhn.value_and_grad(rollout, amp), 2) / FHN_STEPS
+    for name, ms in mode_ms.items():
+        print(f"{name}: {ms:.4f} ms/step", flush=True)
+
+    del lap_csr, utab_full
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = T.build_scene("biceps_full", replicate=REPLICATE, device=dev)
+    torch.cuda.synchronize()
+    build_big_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    btab = variants.monodomain_prepare_fused(big.state, big.cfg,
+                                             sub_q=big.sub_block)
+    torch.cuda.synchronize()
+    prep_big_s = time.perf_counter() - t0
+    with torch.no_grad():
+        big_ms, big_out = timed_run(
+            lambda k: variants.simulate_monodomain_only_fused(
+                big.state, btab, big.cfg, k, sub_q=big.sub_block),
+            REPLICATE_STEPS)
+    big_peak = torch.cuda.max_memory_allocated(dev)
+    check_in_world(big_out, big.cfg, f"x{REPLICATE}")
+    bvm = big_out.vm[big_out.active]
+    if not (torch.isfinite(bvm).all()
+            and float(bvm.abs().max()) <= big.cfg.max_voltage):
+        raise AssertionError(f"x{REPLICATE}: vm non-finite or beyond "
+                             "max_voltage")
+    qm_b, feats_b = variants._lap_inputs(big.state.vm[btab.order],
+                                         btab.vol_s,
+                                         big.state.vm[btab.order],
+                                         btab.pos_s, btab.cx_s, btab.cyz_s)
+    big_lap_ms = cuda_ms(lambda: fst.sweep_lap3(qm_b, feats_b, btab.blk_lo,
+                                                btab.blk_hi, big.cfg,
+                                                big.sub_block), 20)
+    print(f"biceps_full x{REPLICATE}: {big.num_particles} particles "
+          f"(capacity {big.state.capacity}), scene built in "
+          f"{build_big_s:.3f} s, prepare {prep_big_s:.3f} s, "
+          f"{REPLICATE_STEPS} monodomain-only steps at {big_ms:.4f} ms/step "
+          f"({big.num_particles / big_ms * 1e3:.1f} particle-steps/s), "
+          f"Laplacian kernel {big_lap_ms:.4f} ms; max_memory_allocated "
+          f"{big_peak / 2**30:.4f} GiB ({(big_peak - base) / 2**20:.1f} MiB "
+          f"above the {base / 2**20:.1f} MiB held before the prepare); vm "
+          f"max {float(bvm.max()):.6g}", flush=True)
+
+    lap_counts = pair_counts(qm_f, tab.blk_lo, tab.blk_hi, cfg, sub_q)
+    bounds["sweep_lap3"] = bound("sweep_lap3", lap_counts, n_rows)
+    b_ms, by, flops, nbytes = bounds["sweep_lap3"]
+    print(f"pairs the Laplacian kernel needs (biceps_full): {lap_counts}; "
+          f"sweep_lap3: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB, "
+          f"bound {b_ms * 1e3:.4f} us ({by}), kernel at "
+          f"{b_ms / times['sweep_lap3'][0] * 100:.3f}% of it", flush=True)
+
+    library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": report[name]["max_abs_err"],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": library.get(name)}
         for name, source, replaces, _ in KERNELS],
         "step_ms": kernel_ms, "plain_step_ms": plain_ms,
         "fit_fwd_ms_per_step": fwd_ms, "fit_grad_ms_per_step": grad_ms,
-        "fit_peak_gib": peak / 2**30}), flush=True)
+        "fit_peak_gib": peak / 2**30,
+        "mode_ms_per_step": mode_ms,
+        "replicate": {"particles": big.num_particles,
+                      "prepare_s": prep_big_s, "ms_per_step": big_ms,
+                      "lap_kernel_ms": big_lap_ms,
+                      "peak_gib": big_peak / 2**30}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

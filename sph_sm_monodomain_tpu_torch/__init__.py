@@ -5,9 +5,11 @@ Coupled SPH + shape-matching + monodomain skeletal-muscle simulation: a
 dataclass-of-tensors particle state, the v4 fused coupled step (two
 hand-written CUDA sweep kernels, csrc/fused_sweeps.cu, with plain PyTorch
 versions that run on the CPU), its differentiable form `step_fused_diff`
-(two hand-written backward sweep kernels, csrc/fused_adjoint.cu), and the
-chunked run loops. Entry points build on the card unless given
-device="cpu". The JAX package is the reference this port is tested
+(two hand-written backward sweep kernels, csrc/fused_adjoint.cu), the
+unfused reference step `step`, the chunked run loops, and the variant
+modes of `variants` (SPH-only, SM-only, and the frozen-cloud monodomain
+mode on a hand-written Laplacian kernel, forward and backward). Entry
+points build on the card unless given device="cpu". The JAX package is the reference this port is tested
 against; this package imports neither jax nor sph_sm_monodomain_tpu.
 """
 
@@ -15,17 +17,18 @@ from .config import (SimConfig, DEFAULT_CONFIG, PARAM_FIELDS, resolve_params,
                      config_from_dict)
 from .state import (ParticleState, init_fluid, save_checkpoint,
                     load_checkpoint, state_from_numpy, state_to_numpy)
-from .models.monodomain import (step_fused, step_fused_diff, simulate,
+from .models.monodomain import (step, step_fused, step_fused_diff, simulate,
                                 run_protocol, StepAux)
 from .utils.io import build_scene, read_cloud_csv, Scene
 from .ops import electrophysiology as stim
+from .models import variants
 
 __all__ = [
     "SimConfig", "DEFAULT_CONFIG", "PARAM_FIELDS", "resolve_params",
     "config_from_dict", "ParticleState", "init_fluid", "save_checkpoint",
-    "load_checkpoint", "state_from_numpy", "state_to_numpy", "step_fused",
-    "step_fused_diff", "simulate", "StepAux", "run_protocol", "build_scene",
-    "read_cloud_csv", "Scene", "stim",
+    "load_checkpoint", "state_from_numpy", "state_to_numpy", "step",
+    "step_fused", "step_fused_diff", "simulate", "StepAux", "run_protocol",
+    "build_scene", "read_cloud_csv", "Scene", "stim", "variants",
 ]
 
 __version__ = "0.1.0"

@@ -1,12 +1,14 @@
-// Neighbor sweeps of the v4 fused coupled step, hand-written for Hopper
-// (sm_90a). Plain C interface, loaded through ctypes
-// (sph_sm_monodomain_tpu_torch/ops/cuda_lib.py); the Python wrappers are
-// sweep_a3 / sweep_b3 in ops/fused_step.py, beside their plain PyTorch
-// versions sweep_a3_plain / sweep_b3_plain.
+// Neighbor sweeps of the v4 fused coupled step and of the frozen-cloud
+// monodomain mode, hand-written for Hopper (sm_90a). Plain C interface,
+// loaded through ctypes (sph_sm_monodomain_tpu_torch/ops/cuda_lib.py); the
+// Python wrappers are sweep_a3 / sweep_b3 / sweep_lap3 in
+// ops/fused_step.py, beside their plain PyTorch versions sweep_a3_plain /
+// sweep_b3_plain / sweep_lap3_plain.
 //
-// Replaces the Pallas TPU kernels _kernel_a3 (sweep A) and _kernel_b3
-// (sweep B) of sph_sm_monodomain_tpu/ops/fused_step.py with
-// stencil="xyz3" (enumeration _gather_loop4).
+// Replaces the Pallas TPU kernels _kernel_a3 (sweep A), _kernel_b3 (sweep
+// B) and _kernel_lap3 (the Laplacian-only sweep) of
+// sph_sm_monodomain_tpu/ops/fused_step.py with stencil="xyz3" (enumeration
+// _gather_loop4).
 //
 // Design. One thread block per bookkeeping sub-block of `sub_q` sorted query
 // rows (sub_q = 128 on every scene the port builds), one thread per query
@@ -44,6 +46,8 @@ using namespace sph;
 //   sweep B: pos3 | ivel3 | vol | pres | vm | cx | cyz
 using RowsA = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13>;
 using RowsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
+//   Laplacian sweep: pos3 | vol | vm | cx | cyz
+using RowsL = Rows<0, 1, 2, 3, 4, 12, 13>;
 
 // Sweep A (replaces _kernel_a3): XSPH velocity sum + Poly6 density
 // (_pair_step_a), then the EOS / stim gate / FHN epilogue (_a_epilogue).
@@ -228,6 +232,58 @@ __global__ void sweep_b3_kernel(const float* __restrict__ qm,
   o[15] = 0.0f;
 }
 
+// Laplacian-only sweep (replaces _kernel_lap3): the Vm diffusion half of
+// Compute_Force (cpp:562-563) for the frozen-cloud monodomain mode, with two
+// accumulators a_vw = sum_j vol_j W2(r_ij) and a_vwvm = sum_j vol_j W2(r_ij)
+// vm_j under the full 27-cell mask (W2's support is 2h, so the truncation
+// to the stencil is part of the function) and the r^2 > 1e-12 guard. The
+// same kernel runs the mode's backward sweep (unit volumes, the cotangent
+// as candidate vm, zero query vm), where padding rows are excluded by the
+// cell mask alone: their cx sentinel fails |qcx - ccx| <= 1.
+// Bound on the H100 as sweeps A / B: issue rate at low occupancy, with the
+// smallest pair body of the three (16 FLOPs per pair within 2h).
+__global__ void sweep_lap3_kernel(const float* __restrict__ qm,
+                                  const float* __restrict__ feats,
+                                  const int* __restrict__ blk_lo,
+                                  const int* __restrict__ blk_hi,
+                                  const float* __restrict__ prm,
+                                  float* __restrict__ out, int n, int g_mid) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  const float qx = q[0], qy = q[1], qz = q[2], qvm = q[3];
+  const float qcx = q[12], qcyz = q[13];
+  const bool qlive = qcx >= 0.0f;
+  const float inv_h = prm[INV_H], bs_c = prm[BSPLINE];
+  const float* s_x = tile;
+  const float* s_y = tile + T;
+  const float* s_z = tile + 2 * T;
+  const float* s_vol = tile + 3 * T;
+  const float* s_vm = tile + 4 * T;
+
+  float a_vw = 0.0f, a_vwvm = 0.0f;
+  for_each_neighbor(RowsL{}, tile, feats, blk_lo, blk_hi, n, g_mid, qcx,
+                    qcyz, qlive, true, [&](int k) {
+    const float dx = qx - s_x[k], dy = qy - s_y[k], dz = qz - s_z[k];
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (!(r2 > kPairEps)) return;  // cpp:546
+    const float qr = (r2 * rsqrtf(r2)) * inv_h;
+    // B_spline_2 (cpp:186-196) in relu form: exactly 0 from q = 2 on
+    if (qr >= 2.0f) return;
+    const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
+                             6.0f * fmaxf(1.0f - qr, 0.0f));
+    const float vw = s_vol[k] * w2;
+    a_vw += vw;
+    a_vwvm += vw * s_vm[k];
+  });
+
+  float* o = out + row * 16;
+  o[0] = a_vwvm - a_vw * qvm;
+#pragma unroll
+  for (int c = 1; c < 16; ++c) o[c] = 0.0f;
+}
+
 }  // namespace
 
 extern "C" {
@@ -251,6 +307,15 @@ int sph_sweep_b3(const float* qm, const float* feats, const int* blk_lo,
   const size_t smem = RowsB::count * (size_t)sub_q * sizeof(float);
   sweep_b3_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
       qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, g_mid);
+  return (int)cudaGetLastError();
+}
+
+int sph_sweep_lap3(const float* qm, const float* feats, const int* blk_lo,
+                   const int* blk_hi, const float* prm, float* out, int n,
+                   int sub_q, int g_mid, void* stream) {
+  const size_t smem = RowsL::count * (size_t)sub_q * sizeof(float);
+  sweep_lap3_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, g_mid);
   return (int)cudaGetLastError();
 }
 

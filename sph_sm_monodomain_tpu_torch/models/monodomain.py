@@ -1,16 +1,17 @@
-"""The coupled SPH + shape-matching + monodomain model: the v4 fused step and
-its run loops (mirror of `sph_sm_monodomain_tpu.models.monodomain`,
-`:44-172`, `:231-325`, `:349-480`).
+"""The coupled SPH + shape-matching + monodomain model: the v4 fused step,
+the unfused reference step, and their run loops (mirror of
+`sph_sm_monodomain_tpu.models.monodomain`, `:44-480`).
 
-Each step runs the reference phases (compute_SPH_SM_monodomain,
+The fused step runs the reference phases (compute_SPH_SM_monodomain,
 cpp:794-824) as: sort + window bookkeeping, shape-matching velocity
 correction, sweep A (XSPH + density + EOS + FHN), sweep B (forces + Vm
-Laplacian + integration + walls), unsort. `simulate` is a Python loop over
-steps; `run_protocol` replays the reference app's experiment protocol in
-chunks. Only the fused path is ported; the unfused reference step is not.
-`step_fused_diff` is the same step under autograd: it swaps in the
-differentiable sweeps of ops/fused_adjoint.py, whose backward passes are
-hand-written kernels.
+Laplacian + integration + walls), unsort. `step` is the unfused reference
+form of the same phases over a neighbor table (ops/grid.py, ops/sph.py):
+plain PyTorch everywhere, and the in-package cross-check of the fused step.
+`simulate` is a Python loop over steps; `run_protocol` replays the
+reference app's experiment protocol in chunks. `step_fused_diff` is the
+fused step under autograd: it swaps in the differentiable sweeps of
+ops/fused_adjoint.py, whose backward passes are hand-written kernels.
 """
 
 from __future__ import annotations
@@ -21,17 +22,21 @@ import torch
 
 from ..config import SimConfig, resolve_params
 from ..state import ParticleState
-from ..ops.electrophysiology import turn_off_stim
+from ..ops.electrophysiology import fhn_cell_model, turn_off_stim
 from ..ops.fused_adjoint import make_diff_sweeps
 from ..ops.fused_step import (apply_out_fused, build_dynp, build_qm_feats,
                               feats_b, sweep_a3, sweep_b3)
+from ..ops.grid import build_neighbor_table
+from ..ops.integrate import update_properties
 from ..ops.shape_matching import corrected_velocity, sm_invariants
+from ..ops.sph import (density_pressure, force_and_diffusion,
+                       xsph_intermediate_velocity)
 from ..ops.sweeps import sweep_bookkeeping3
 
 
 class StepAux(NamedTuple):
     """Per-step diagnostics."""
-    overflow: torch.Tensor  # particles dropped by a capacity (0 on v4)
+    overflow: torch.Tensor  # neighbor-table entries dropped (0 on v4)
 
 
 def ensure_fp32() -> None:
@@ -100,16 +105,41 @@ def step_fused_diff(state: ParticleState, cfg: SimConfig, sub_q: int = 128,
                       sweeps=make_diff_sweeps(cfg, sub_q))[0]
 
 
+def step(state: ParticleState, cfg: SimConfig, neighbor_capacity: int,
+         sm_inv=None, params=None) -> tuple[ParticleState, StepAux]:
+    """One coupled step in the unfused reference form (Animation ->
+    compute_SPH_SM_monodomain): neighbor table, corrected velocity, XSPH,
+    density + pressure, FHN, force + Vm diffusion, integration. Plain
+    PyTorch, differentiable w.r.t. the state and tensor `params`
+    (config.PARAM_FIELDS) everywhere but through the neighbor table, which
+    is geometry built from the static `cfg`."""
+    nbr = build_neighbor_table(state.pos, state.pos, state.active, cfg,
+                               neighbor_capacity)
+    cfg = resolve_params(cfg, params)
+    state = corrected_velocity(state, cfg, sm_inv=sm_inv)
+    state = xsph_intermediate_velocity(state, nbr, cfg)
+    state = density_pressure(state, nbr, cfg)
+    state = fhn_cell_model(state, cfg)
+    state = force_and_diffusion(state, nbr, cfg)
+    state = update_properties(state, cfg)
+    return state, StepAux(overflow=nbr.overflow)
+
+
 def simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
              stim_off_step: int = -1, record_every: int = 0,
-             sub_q: int = 128, impl: str = "v4", params=None):
-    """Run `num_steps` coupled fused steps.
+             sub_q: int = 128, impl: str = "v4", params=None,
+             fused: bool = True, neighbor_capacity: int = 0):
+    """Run `num_steps` coupled steps: fused (v4 sweep kernels), or with
+    `fused=False` the unfused reference step over a neighbor table of width
+    `neighbor_capacity` (which must then be given).
 
     `stim_off_step`: turnOffStim fires BEFORE that step index
     (main.cpp:329-334); -1 disables. If `record_every` > 0, returns (state,
     aux, traj) with traj = {"pos": (T, N, 3), "vm": (T, N)} frames taken
     after each full block of `record_every` steps (leftover steps run
-    unrecorded)."""
+    unrecorded). aux.overflow is the largest per-step table overflow."""
+    if not fused and neighbor_capacity <= 0:
+        raise ValueError("the unfused step needs neighbor_capacity > 0")
     ensure_fp32()
     # rest-shape SM moments are run constants: hoisted out of the loop
     sm_inv = sm_invariants(state, cfg)
@@ -118,8 +148,12 @@ def simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
     for i in range(num_steps):
         if i == stim_off_step:
             state = turn_off_stim(state, cfg)
-        state, aux = step_fused(state, cfg, sub_q, impl=impl,
-                                sm_inv=sm_inv, params=params)
+        if fused:
+            state, aux = step_fused(state, cfg, sub_q, impl=impl,
+                                    sm_inv=sm_inv, params=params)
+        else:
+            state, aux = step(state, cfg, neighbor_capacity, sm_inv=sm_inv,
+                              params=params)
         overflow = torch.maximum(overflow, aux.overflow)
         if record_every and (i + 1) % record_every == 0:
             pos_t.append(state.pos.clone())
@@ -144,12 +178,15 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
     at `stim_off_step` (default num_steps // 2), `chunk` steps per
     `simulate` call.
 
+    `fused`: None or True runs the fused step, False the unfused reference
+    step over the scene's neighbor table. On that path a chunk whose table
+    overflowed is redone from its input state with `neighbor_capacity`
+    grown 1.5x (rounded up to a multiple of 9), at most 3 times per run.
+
     `callback(step_idx, state)` runs between chunks and may return
     {"stim_off": True} (turnOffStim now, key 'q') or {"stop": True} (end
     the run, ESC). Returns (state, StepAux, traj|None)."""
-    if fused is False:
-        raise NotImplementedError("the unfused reference step is not "
-                                  "ported yet")
+    fused = fused is not False
     state, cfg = scene.state, scene.cfg
     run_impl = impl or scene.fused_impl
     if stim_off_step is None:
@@ -159,17 +196,27 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
         chunk = max(record_every, chunk - chunk % record_every)
     trajs = []
     max_overflow = 0
+    regrow = 0
     done = 0
     while done < num_steps:
         n = min(chunk, num_steps - done)
         off = stim_off_step - done if done <= stim_off_step < done + n else -1
         out = simulate(state, cfg, num_steps=n, stim_off_step=off,
                        record_every=record_every, sub_q=scene.sub_block,
-                       impl=run_impl, params=params)
-        state, aux = out[0], out[1]
+                       impl=run_impl, params=params, fused=fused,
+                       neighbor_capacity=scene.neighbor_capacity)
+        step_overflow = int(out[1].overflow)
+        if step_overflow and regrow < 3 and not fused:
+            # the table truncated neighbor runs (the cloud densified past
+            # K): regrow and redo this chunk from its unchanged input state
+            regrow += 1
+            new_k = ((int(scene.neighbor_capacity * 1.5) + 8) // 9) * 9
+            scene = scene._replace(neighbor_capacity=new_k)
+            continue
+        state = out[0]
         if record_every:
             trajs.append(out[2])
-        max_overflow = max(max_overflow, int(aux.overflow))
+        max_overflow = max(max_overflow, step_overflow)
         done += n
         if callback is not None:
             cmd = callback(done, state) or {}

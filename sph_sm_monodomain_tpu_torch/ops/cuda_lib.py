@@ -37,6 +37,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sph_sweep_a3": [_P] * 6 + [_I] * 8 + [_P],
     "sph_sweep_b3": [_P] * 6 + [_I] * 4 + [_P],
+    "sph_sweep_lap3": [_P] * 6 + [_I] * 3 + [_P],
     "sph_sweep_bwd_a": [_P] * 6 + [_I] * 3 + [_P],
     "sph_sweep_bwd_b": [_P] * 6 + [_I] * 3 + [_P],
 }

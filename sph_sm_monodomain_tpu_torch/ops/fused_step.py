@@ -9,10 +9,15 @@
       cpp:515-573), epilogue: semi-implicit Euler, voltage update, walls
       and AABB clamp (Update_Properties cpp:596-651).
 
+  Laplacian-only sweep (`sweep_lap3`): the Vm diffusion half of sweep B
+      with two accumulators, for the frozen-cloud monodomain mode
+      (models/variants.py), forward and backward.
+
 On a CUDA tensor each sweep is one hand-written kernel
 (csrc/fused_sweeps.cu); on a CPU tensor the wrapper runs the plain PyTorch
-version in this module (`sweep_a3_plain` / `sweep_b3_plain`), which the
-tests hold to the JAX package and chip_smoke.py holds the kernels to.
+version in this module (`sweep_a3_plain` / `sweep_b3_plain` /
+`sweep_lap3_plain`), which the tests hold to the JAX package and
+chip_smoke.py holds the kernels to.
 `_epi_a` / `_epi_b` are each sweep's epilogue as a function of its pair
 sums; ops/fused_adjoint.py takes their VJP with autograd.
 
@@ -410,6 +415,63 @@ def sweep_b3(out_a, feats_b, blk_lo, blk_hi, cfg: SimConfig,
 
 
 sweep_b3.launches = 0
+
+
+# --- the Laplacian-only sweep (frozen-cloud monodomain mode) ------------------
+
+def sweep_lap3_plain(qm, feats, cfg: SimConfig) -> torch.Tensor:
+    """Plain PyTorch Laplacian-only sweep: qm (N, 16) [x y z | vm | - ... |
+    cx@12 cyz@13 | - -], feats (16, N) [x y z | vol | vm | - ... | cx@12
+    cyz@13 | - -] -> (N, 16) with lap_i = sum_j vol_j W2(r_ij) vm_j -
+    vm_i sum_j vol_j W2(r_ij) in column 0 and zeros elsewhere. The mask is
+    the full per-axis cell test (W2's support is 2h, so the 27-cell
+    truncation is part of the function) with the r^2 > 1e-12 pair guard;
+    W2 is B_spline_2 in its relu form."""
+    P = _Phys(kernel_params(cfg, None, qm.device))
+    n = qm.shape[0]
+    gm = float(_g_mid(cfg))
+    a_vw, a_vwvm = [], []
+    rows = _rows_per_chunk(n, qm.device)
+    for s in range(0, n, rows):
+        vw = lap_pair_weights(qm[s:s + rows], feats, gm, P)
+        a_vw.append(vw.sum(1))
+        a_vwvm.append((vw * feats[4][None, :]).sum(1))
+    lap = torch.cat(a_vwvm) - torch.cat(a_vw) * qm[:, 3]
+    return torch.cat([lap[:, None], qm.new_zeros((n, 15))], dim=1)
+
+
+def lap_pair_weights(q, c, gm: float, P: _Phys) -> torch.Tensor:
+    """(rows, N) Laplacian pair weights vol_j * W2(r_ij) of the query rows
+    `q` against every candidate of `c` (layouts of sweep_lap3_plain), 0
+    where the full cell mask or the r^2 > 1e-12 guard fails."""
+    dx = q[:, 0:1] - c[0][None, :]
+    dy = q[:, 1:2] - c[1][None, :]
+    dz = q[:, 2:3] - c[2][None, :]
+    r2 = dx * dx + dy * dy + dz * dz
+    p = _stencil(q, c, gm, True) & (r2 > _PAIR_EPS)           # cpp:546
+    inv_rr = torch.rsqrt(torch.where(p, r2, torch.ones_like(r2)))
+    qr = (r2 * inv_rr) * P.inv_h
+    w2 = P.bspline * (1.5 * torch.clamp(2.0 - qr, min=0.0)
+                      - 6.0 * torch.clamp(1.0 - qr, min=0.0))
+    return torch.where(p, c[3][None, :] * w2, torch.zeros_like(w2))
+
+
+def sweep_lap3(qm, feats, blk_lo, blk_hi, cfg: SimConfig, sub_q: int = 128):
+    """Laplacian-only sweep over the sub-blocks' three windows (see
+    sweep_lap3_plain for the layouts) -> (N, 16), sorted order, the
+    Laplacian in column 0. On a CUDA tensor this launches the Laplacian
+    kernel; on a CPU tensor it runs sweep_lap3_plain."""
+    _check_sweep_inputs(qm, feats, blk_lo, blk_hi, sub_q)
+    if qm.device.type == "cpu":
+        return sweep_lap3_plain(qm, feats, cfg)
+    lib = cuda_lib.load()
+    out = _launch(lib.sph_sweep_lap3, qm, feats, blk_lo, blk_hi,
+                  kernel_params(cfg, None, qm.device), sub_q, _g_mid(cfg))
+    sweep_lap3.launches += 1
+    return out
+
+
+sweep_lap3.launches = 0
 
 
 # --- glue ---------------------------------------------------------------------

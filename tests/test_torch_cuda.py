@@ -1,6 +1,7 @@
-"""The port's CUDA sweep kernels (forward and backward) and its
-differentiable step on the card, against their plain PyTorch versions and
-the CPU path (marker `cuda`; skipped where torch sees no GPU).
+"""The port's CUDA sweep kernels (forward, backward and the Laplacian-only
+sweep), its differentiable step and the monodomain mode's gradient on the
+card, against their plain PyTorch versions and the CPU path (marker
+`cuda`; skipped where torch sees no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -9,7 +10,9 @@ machine without JAX:
 
 Tolerance: per output column, |kernel - plain| <= 1e-5 * max(1, max|plain
 column|) — both fp32, summed in another order, the kernel with rsqrtf.
-Gradients, card against CPU: rtol 1e-3 (the JAX suite's 3-step bound).
+Gradients, card against CPU: rtol 1e-3 (the JAX suite's 3-step bound);
+through the Laplacian kernel, value rtol 1e-5 and gradient atol
+1e-4 * max(1, max|g|) (tests/test_differentiable.py:91-96).
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
 from sph_sm_monodomain_tpu_torch.ops.shape_matching import sm_invariants
@@ -169,3 +173,60 @@ def test_checkpointed_grad_on_card_matches_cpu(device):
     vp, gp = value_and_grad(st.to("cpu"))
     np.testing.assert_allclose(vc, vp, rtol=1e-3)
     np.testing.assert_allclose(gc, gp, rtol=1e-3)
+
+
+@pytest.mark.parametrize("form", ["forward", "backward"])
+def test_lap_kernel_matches_plain(device, form):
+    """The Laplacian-only sweep on the monodomain tables of a blob with
+    padding rows: the forward form and the backward form (zero query vm,
+    unit candidate volumes, a random cotangent as candidate vm)."""
+    cfg, st = _blob(device)
+    tab = variants.monodomain_prepare_fused(st, cfg)
+    n = st.capacity
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=n).astype(
+        np.float32) * 10.0).to(device)
+    if form == "forward":
+        vm_q, vol, vm_row = g, tab.vol_s, g
+    else:
+        vm_q, vol, vm_row = torch.zeros_like(g), torch.ones_like(g), g
+    qm, feats = variants._lap_inputs(vm_q, vol, vm_row, tab.pos_s, tab.cx_s,
+                                     tab.cyz_s)
+    n0 = fst.sweep_lap3.launches
+    got = fst.sweep_lap3(qm, feats, tab.blk_lo, tab.blk_hi, cfg)
+    torch.cuda.synchronize()
+    _check(got, fst.sweep_lap3_plain(qm, feats, cfg), form)
+    assert fst.sweep_lap3.launches == n0 + 1
+    with pytest.raises(ValueError):
+        fst.sweep_lap3(qm, feats.cpu(), tab.blk_lo, tab.blk_hi, cfg)
+
+
+def test_lap_vm_grad_on_card_matches_cpu(device):
+    """d loss / d vm0 of a 3-step fused monodomain rollout through LapVmFn:
+    the card (kernel forward and backward) against the CPU (plain
+    version), and the launches of one value-and-grad on the card: the
+    prepare's one, then one forward and one backward per step."""
+    cfg, st = _blob(device, n=600, seed=3)
+    rng = np.random.default_rng(4)
+    wgt = rng.normal(size=st.capacity).astype(np.float32)
+    vm0 = rng.normal(size=st.capacity).astype(np.float32) * 5.0
+    steps = 3
+
+    def value_and_grad(s0):
+        d = s0.device
+        tab = variants.monodomain_prepare_fused(s0, cfg)
+        vm = torch.from_numpy(vm0).to(d).requires_grad_()
+        out = variants.simulate_monodomain_only_fused(s0.replace(vm=vm), tab,
+                                                      cfg, steps)
+        val = torch.where(out.active, out.vm * torch.from_numpy(wgt).to(d),
+                          torch.zeros_like(out.vm)).sum()
+        (g,) = torch.autograd.grad(val, vm)
+        return float(val.detach()), g.cpu().numpy()
+
+    n0 = fst.sweep_lap3.launches
+    vc, gc = value_and_grad(st)
+    assert fst.sweep_lap3.launches - n0 == 1 + 2 * steps
+    vp, gp = value_and_grad(st.to("cpu"))
+    np.testing.assert_allclose(vc, vp, rtol=1e-5)
+    assert np.abs(gp).max() > 0
+    np.testing.assert_allclose(gc, gp, atol=1e-4 * max(1.0,
+                                                       np.abs(gp).max()))

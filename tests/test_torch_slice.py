@@ -127,10 +127,14 @@ def test_run_protocol_callback_commands(cmd):
 
 
 def test_unported_paths_raise():
+    """What the port does not have yet raises: fused kernel generations
+    other than v4, and shape matching over several clusters (the coupled
+    step on a replicated, multi-muscle scene)."""
     _, tsc = _scenes()
     with pytest.raises(NotImplementedError):
         T.step_fused(tsc.state, tsc.cfg, impl="v5")
     with pytest.raises(NotImplementedError):
-        T.run_protocol(tsc, num_steps=1, fused=False)
+        T.build_scene("susane", fused_impl="v5", device="cpu")
+    rep = T.build_scene("susane", replicate=2, device="cpu")
     with pytest.raises(NotImplementedError):
-        T.build_scene("cube", replicate=2, device="cpu")
+        T.run_protocol(rep, num_steps=1)
