@@ -55,6 +55,17 @@ printing its lines; any failure raises and exits non-zero:
               biceps_full x56 (1,034,600 particles): prepare time, ms/step
               of 100 monodomain-only steps, peak memory; the Laplacian
               kernel's bound
+ 16. v3/v5    the v3 (hash9) and v5 (slab) bookkeeping on the card equals
+              the CPU's; the hash9 sweep A / B kernels and the v5 slab
+              sweep A / B kernels against their plain versions on the
+              biceps_full step-0 inputs, per column
+ 17. v3/v5    run_protocol(500 steps, chunk 100) on build_scene(
+              "biceps_full", fused_impl="v3") and ("v5"), exact launch
+              counts; a forced v5 regrow on the slice (pack_cap before and
+              after, launches including the redone steps)
+ 18. v3/v5    6 slice steps, card against CPU, for v3 and for v5
+ 19. timing   the four new kernels and their plain versions, v3 / v4 / v5
+              ms/step in this call, the slab packing, the bounds
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -84,7 +95,10 @@ from sph_sm_monodomain_tpu_torch.ops.grid import (auto_cell_capacity,
                                                   auto_window_capacity)
 from sph_sm_monodomain_tpu_torch.ops.shape_matching import (
     corrected_velocity, sm_invariants)
-from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
+from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
+                                                    sweep_bookkeeping2,
+                                                    sweep_bookkeeping3,
+                                                    sweep_bookkeeping5)
 from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
 
 # kernel vs plain version: |kernel - plain| <= KERNEL_TOL * max(1, max|plain
@@ -126,6 +140,14 @@ KERNELS = (
      "sph_sm_monodomain_tpu/ops/fused_adjoint.py:94", fad),
     ("sweep_bwd_b", "sph_sm_monodomain_tpu_torch/csrc/fused_adjoint.cu",
      "sph_sm_monodomain_tpu/ops/fused_adjoint.py:173", fad),
+    ("sweep_a3_hash9", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:498", fst),
+    ("sweep_b3_hash9", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:576", fst),
+    ("sweep_a5", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:855", fst),
+    ("sweep_b5", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:930", fst),
 )
 # Bound: the larger of the kernel's FLOPs over the fp32 peak outside the
 # tensor cores and its bytes (each input read once, each output written
@@ -145,6 +167,10 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #   lap:     16 for 1e-12 < r^2 < 4h^2 (rsqrt, r, r/h, the q >= 2 test,
 #            the relu-form B-spline W2 with its constant (8), vol*W2, two
 #            accumulations (3))
+# The v3 (hash9) and v5 (slab) sweeps compute sweep A's and sweep B's
+# functions: the pairs they need do not depend on the enumeration (hash9's
+# wrap pairs lie outside every support and add exactly 0), so they take K1's
+# and K2's pair counts and FLOPs.
 PAIR_FLOPS = {
     "sweep_a3": (("full", 10), ("h", 15)),
     "sweep_b3": (("full", 10), ("2h", 40)),
@@ -152,6 +178,15 @@ PAIR_FLOPS = {
     "sweep_bwd_a": (("full", 10), ("h", 43)),
     "sweep_bwd_b": (("full", 10), ("2h", 129)),
 }
+PAIR_FLOPS.update(sweep_a3_hash9=PAIR_FLOPS["sweep_a3"],
+                  sweep_a5=PAIR_FLOPS["sweep_a3"],
+                  sweep_b3_hash9=PAIR_FLOPS["sweep_b3"],
+                  sweep_b5=PAIR_FLOPS["sweep_b3"])
+# the forced v5 regrow on the slice: sub-block rows and a starting slab
+# capacity its 32-row unions overflow
+REGROW_SUB_Q, REGROW_CAP = 32, 128
+# steps of the v3 / v4 / v5 ms/step comparison
+IMPL_TIMING_STEPS = 100
 
 
 def phase(msg: str) -> None:
@@ -216,12 +251,14 @@ def pair_counts(fs, lo, hi, cfg, sub_q):
     return dict(zip(("full", "h", "2h"), acc.tolist()))
 
 
-def bound(name, counts, n_rows):
-    """(bound ms, "bytes" or "operations", FLOPs, bytes) of one launch:
-    (N, 16) query matrix, (16, N) features, window bounds, the 32-slot
-    constants and the (N, 16) output."""
+def bound(name, counts, n_rows, nbytes=None):
+    """(bound ms, "bytes" or "operations", FLOPs, bytes) of one launch.
+    Bytes, unless given: (N, 16) query matrix, (16, N) features, 128-row
+    sub-blocks' window bounds, the 32-slot constants and the (N, 16)
+    output."""
     flops = sum(counts[k] * f for k, f in PAIR_FLOPS[name])
-    nbytes = 4 * (3 * 16 * n_rows + 2 * (n_rows // 128) * 4 + 32)
+    if nbytes is None:
+        nbytes = 4 * (3 * 16 * n_rows + 2 * (n_rows // 128) * 4 + 32)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
@@ -277,15 +314,118 @@ def timed_run(run, steps: int):
     return ms, out["r"]
 
 
-def slice_scene(dev):
+def slice_scene(dev, fused_impl="v4"):
+    """The 462-particle biceps slice (every 40th row of biceps_full) as a
+    scene of the given fused generation, tuned as build_scene tunes it."""
     pts = T.read_cloud_csv(ASSETS_DIR / "biceps_simple_out_18475.csv")[::40]
     cfg = T.SimConfig()
     st = T.stim.turn_on_stim_mesh(T.init_fluid(pts, cfg, device=dev), pts,
                                   cfg)
+    tune = {}
+    if fused_impl in ("v5", "v5s"):
+        sub_q, kb, w_chunk = auto_sweep5_params(pts, cfg)
+        tune = dict(sub_block=sub_q, pack_cap=kb, block_window=w_chunk)
     return T.Scene(state=st, cfg=cfg,
                    cell_capacity=auto_cell_capacity(pts, cfg),
                    neighbor_capacity=auto_window_capacity(pts, cfg),
-                   num_particles=pts.shape[0], name="biceps_every40")
+                   num_particles=pts.shape[0], name="biceps_every40",
+                   fused_impl=fused_impl, **tune)
+
+
+def step0_inputs_v3(scene):
+    """The sorted v3 sweep inputs of the scene's first step: (QM_A,
+    sweep-A features, blk_lo, blk_hi)."""
+    st, cfg = scene.state, scene.cfg
+    order, inv, lo, hi, chash = sweep_bookkeeping2(st.pos, st.active, cfg,
+                                                   scene.sub_block)
+    st = corrected_velocity(st, cfg, sm_inv=sm_invariants(st, cfg))
+    fs, feats_a = fst.build_qm_feats(st, chash, torch.zeros_like(chash),
+                                     order)
+    return fs, feats_a, lo, hi
+
+
+def step0_inputs_v5(scene):
+    """The sorted v5 sweep inputs of the scene's first step: (QM_A, src,
+    trips, overflow)."""
+    st, cfg = scene.state, scene.cfg
+    order, inv, src, trips, over, cf, cm, cs = sweep_bookkeeping5(
+        st.pos, st.active, cfg, scene.sub_block, scene.pack_cap,
+        scene.block_window)
+    st = corrected_velocity(st, cfg, sm_inv=sm_invariants(st, cfg))
+    return fst.build_qm_feats5(st, cf, cm, cs, order), src, trips, over
+
+
+def check_kernel(report, name, got, want):
+    """Hold a kernel's output to its plain version per column; record the
+    max abs error."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    max_err, ratio, per_col = column_errors(got, want)
+    report[name] = {"max_abs_err": max_err}
+    print(f"{name}: max_abs_err {max_err:.6g}, worst column at "
+          f"{ratio:.4g} of the bound {KERNEL_TOL:g}*max(1,max|plain|); "
+          f"per column {[f'{e:.3g}' for e in per_col]}", flush=True)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def check_protocol_run(state, aux, cfg, what):
+    """A 500-step run_protocol's end: finite and in the world box, stim
+    off, no overflow."""
+    check_in_world(state, cfg, what)
+    act = state.active
+    if not (state.stim[act] == -10000.0).all():
+        raise AssertionError(f"{what}: stim != -10000 after stim-off")
+    if int(aux.overflow) != 0:
+        raise AssertionError(f"{what}: overflow {int(aux.overflow)}")
+
+
+def slice_card_vs_cpu(small, label):
+    """6 slice steps (chunk 4, stim off at 3) on the card against the CPU
+    at SLICE_TOLS and SLICE_DENS_RTOL."""
+    sc_cpu = small._replace(state=small.state.to("cpu"))
+    got, _, _ = T.run_protocol(small, num_steps=6, chunk=4, stim_off_step=3)
+    want, _, _ = T.run_protocol(sc_cpu, num_steps=6, chunk=4,
+                                stim_off_step=3)
+    a = want.active.numpy()
+    g, w = T.state_to_numpy(got), T.state_to_numpy(want)
+    for name, atol in SLICE_TOLS.items():
+        err = float(np.abs(g[name][a] - w[name][a]).max())
+        print(f"{label} slice {name}: max abs diff {err:.3g} (tolerance "
+              f"{atol:g})", flush=True)
+        if not err <= atol:
+            raise AssertionError(f"{label} slice {name} diverged")
+    rel = float((np.abs(g["dens"][a] - w["dens"][a]) / np.abs(w["dens"][a]))
+                .max())
+    print(f"{label} slice dens: max rel diff {rel:.3g} (tolerance "
+          f"{SLICE_DENS_RTOL:g})", flush=True)
+    if not rel <= SLICE_DENS_RTOL:
+        raise AssertionError(f"{label} slice dens diverged")
+
+
+def counted_protocol(sc, names, **kw):
+    """run_protocol(sc, **kw) with the launch counts of the kernels `names`
+    set to 0 just before it and read just after, and each chunk's
+    simulate call recorded as (pack_cap, steps): a regrown chunk shows as a
+    call redone with a larger pack_cap. Returns (state, aux, traj,
+    launches, calls, wall seconds)."""
+    calls, real_simulate = [], monodomain.simulate
+
+    def recording_simulate(*args, **skw):
+        calls.append((skw["pack_cap"], skw["num_steps"]))
+        return real_simulate(*args, **skw)
+
+    for nm in names:
+        getattr(fst, nm).launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(monodomain, "simulate", recording_simulate):
+        st, aux, traj = T.run_protocol(sc, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (st, aux, traj, {nm: getattr(fst, nm).launches for nm in names},
+            calls, wall)
 
 
 def main() -> int:
@@ -326,23 +466,13 @@ def main() -> int:
           flush=True)
     fs, feats_a, lo, hi = step0_inputs(scene, dev)
     plain_a = fst.sweep_a3_plain(fs, feats_a, cfg)
-    kern_a = fst.sweep_a3(fs, feats_a, lo, hi, cfg, sub_q=sub_q)
-    feats_b = fst.feats_b(plain_a)  # B compared on the same OUT_A
-    plain_b = fst.sweep_b3_plain(plain_a, feats_b, cfg)
-    kern_b = fst.sweep_b3(plain_a, feats_b, lo, hi, cfg, sub_q=sub_q)
-    torch.cuda.synchronize()
     report = {}
-    for name, got, want in (("sweep_a3", kern_a, plain_a),
-                            ("sweep_b3", kern_b, plain_b)):
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        max_err, ratio, per_col = column_errors(got, want)
-        report[name] = {"max_abs_err": max_err}
-        print(f"{name}: max_abs_err {max_err:.6g}, worst column at "
-              f"{ratio:.4g} of the bound {KERNEL_TOL:g}*max(1,max|plain|); "
-              f"per column {[f'{e:.3g}' for e in per_col]}", flush=True)
-        if not ratio <= 1.0:
-            raise AssertionError(f"{name} disagrees with its plain version")
+    check_kernel(report, "sweep_a3",
+                 fst.sweep_a3(fs, feats_a, lo, hi, cfg, sub_q=sub_q), plain_a)
+    feats_b = fst.feats_b(plain_a)  # B compared on the same OUT_A
+    check_kernel(report, "sweep_b3",
+                 fst.sweep_b3(plain_a, feats_b, lo, hi, cfg, sub_q=sub_q),
+                 fst.sweep_b3_plain(plain_a, feats_b, cfg))
 
     phase(f"4 main path: run_protocol({STEPS} steps, chunk {CHUNK})")
     fst.sweep_a3.launches = 0
@@ -360,17 +490,8 @@ def main() -> int:
     for name, n in launches.items():
         if n != STEPS:
             raise AssertionError(f"{name} launched {n} times, want {STEPS}")
+    check_protocol_run(state, aux, cfg, "run_protocol")
     act = state.active
-    pos = state.pos[act]
-    world = torch.tensor(cfg.world_size, device=dev)
-    if not torch.isfinite(pos).all():
-        raise AssertionError("non-finite positions")
-    if not ((pos >= 0.0) & (pos <= world)).all():
-        raise AssertionError("positions outside the world box")
-    if not (state.stim[act] == -10000.0).all():
-        raise AssertionError("stim != -10000 after stim-off")
-    if int(aux.overflow) != 0:
-        raise AssertionError(f"overflow {int(aux.overflow)}")
     orig = scene.state.orig_pos[act]
     for step in (250, 500):
         d = torch.linalg.vector_norm(traj["pos"][step // 50 - 1][act] - orig,
@@ -380,24 +501,7 @@ def main() -> int:
 
     phase("5 small input: kernels on the card vs plain versions on the CPU")
     small = slice_scene(dev)
-    sc_cpu = small._replace(state=small.state.to("cpu"))
-    got, _, _ = T.run_protocol(small, num_steps=6, chunk=4, stim_off_step=3)
-    want, _, _ = T.run_protocol(sc_cpu, num_steps=6, chunk=4,
-                                stim_off_step=3)
-    a = want.active.numpy()
-    g, w = T.state_to_numpy(got), T.state_to_numpy(want)
-    for name, atol in SLICE_TOLS.items():
-        err = float(np.abs(g[name][a] - w[name][a]).max())
-        print(f"slice {name}: max abs diff {err:.3g} (tolerance {atol:g})",
-              flush=True)
-        if not err <= atol:
-            raise AssertionError(f"slice {name} diverged")
-    rel = float((np.abs(g["dens"][a] - w["dens"][a]) / np.abs(w["dens"][a]))
-                .max())
-    print(f"slice dens: max rel diff {rel:.3g} (tolerance "
-          f"{SLICE_DENS_RTOL:g})", flush=True)
-    if not rel <= SLICE_DENS_RTOL:
-        raise AssertionError("slice dens diverged")
+    slice_card_vs_cpu(small, "v4")
 
     phase("6 timing (CUDA events)")
     st0 = scene.state
@@ -452,16 +556,7 @@ def main() -> int:
             ("sweep_bwd_b",
              fad.sweep_bwd_b(qm_b, feats_bb, lo, hi, cfg, sub_q),
              fad.sweep_bwd_b_plain(qm_b, feats_bb, cfg))):
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        max_err, ratio, per_col = column_errors(got, want)
-        report[name] = {"max_abs_err": max_err}
-        print(f"{name}: max_abs_err {max_err:.6g}, worst column at "
-              f"{ratio:.4g} of the bound {KERNEL_TOL:g}*max(1,max|plain|); "
-              f"per column {[f'{e:.3g}' for e in per_col]}", flush=True)
-        if not ratio <= 1.0:
-            raise AssertionError(f"{name} disagrees with its plain version")
+        check_kernel(report, name, got, want)
 
     phase(f"8 gradient: {GRAD_STEPS}-step checkpointed rollout on the "
           "slice, card vs CPU")
@@ -516,7 +611,9 @@ def main() -> int:
             "sweep_b3": FIT_STEPS * (1 + 2 * FIT_ITERS),
             "sweep_lap3": 0,
             "sweep_bwd_a": FIT_STEPS * FIT_ITERS,
-            "sweep_bwd_b": FIT_STEPS * FIT_ITERS}
+            "sweep_bwd_b": FIT_STEPS * FIT_ITERS,
+            "sweep_a3_hash9": 0, "sweep_b3_hash9": 0, "sweep_a5": 0,
+            "sweep_b5": 0}
     if fit_launches != want:
         raise AssertionError(f"fit launches {fit_launches}, want {want}")
     launches.update(sweep_bwd_a=fit_launches["sweep_bwd_a"],
@@ -834,6 +931,177 @@ def main() -> int:
           f"bound {b_ms * 1e3:.4f} us ({by}), kernel at "
           f"{b_ms / times['sweep_lap3'][0] * 100:.3f}% of it", flush=True)
 
+    phase("16 v3 / v5 kernels vs plain versions (biceps_full step-0 inputs)")
+    t0 = time.perf_counter()
+    scene3 = T.build_scene("biceps_full", fused_impl="v3", device=dev)
+    scene5 = T.build_scene("biceps_full", fused_impl="v5", device=dev)
+    torch.cuda.synchronize()
+    sq3, sq5, kb5 = scene3.sub_block, scene5.sub_block, scene5.pack_cap
+    kw5 = dict(sub_q=sq5, w_chunk=scene5.block_window)
+    print(f"v3 scene: sub_block {sq3}; v5 scene: sub_block {sq5}, pack_cap "
+          f"{kb5}, w_chunk {scene5.block_window}; both built in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for label, fn, sc, args in (
+            ("bookkeeping2", sweep_bookkeeping2, scene3, (sq3,)),
+            ("bookkeeping5", sweep_bookkeeping5, scene5,
+             (sq5, kb5, scene5.block_window))):
+        on_card = fn(sc.state.pos, sc.state.active, cfg, *args)
+        on_cpu = fn(sc.state.pos.cpu(), sc.state.active.cpu(), cfg, *args)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+            raise AssertionError(f"{label} differs card vs CPU")
+    print("bookkeeping2 / bookkeeping5: card == CPU exactly (order, inv, "
+          "windows / slots, trips, overflow, cells)", flush=True)
+    fs3, fa3, lo3, hi3 = step0_inputs_v3(scene3)
+    plain_a3h = fst.sweep_a3_plain(fs3, fa3, cfg, stencil="hash9")
+    check_kernel(report, "sweep_a3_hash9",
+                 fst.sweep_a3_hash9(fs3, fa3, lo3, hi3, cfg, sub_q=sq3),
+                 plain_a3h)
+    fb3 = fst.feats_b(plain_a3h)  # B compared on the same OUT_A
+    check_kernel(report, "sweep_b3_hash9",
+                 fst.sweep_b3_hash9(plain_a3h, fb3, lo3, hi3, cfg, sub_q=sq3),
+                 fst.sweep_b3_plain(plain_a3h, fb3, cfg, stencil="hash9"))
+    fs5, src5, trips5, over5 = step0_inputs_v5(scene5)
+    if int(over5) != 0:
+        raise AssertionError(f"v5 step 0 overflows pack_cap {kb5}")
+    pa5 = fst.pack_feats_a5(fs5, src5, kb5)
+    plain_a5 = fst.sweep_a5_plain(fs5, pa5, cfg)
+    kern_a5 = fst.sweep_a5(fs5, pa5, trips5, cfg, **kw5)
+    check_kernel(report, "sweep_a5", kern_a5, plain_a5)
+    pb5 = fst.pack_feats_b5(plain_a5, fst.vol_now(plain_a5), src5, kb5)
+    check_kernel(report, "sweep_b5",
+                 fst.sweep_b5(plain_a5, pb5, trips5, cfg, **kw5),
+                 fst.sweep_b5_plain(plain_a5, pb5, cfg))
+    whole = fst.sweep_a5(fs5, pa5, trips5, cfg, static_trips=True, **kw5)
+    torch.cuda.synchronize()
+    print(f"sweep_a5 over the whole slab (v5s) vs over the trips: max abs "
+          f"diff {float((whole - kern_a5).abs().max()):.3g}", flush=True)
+    if not torch.equal(whole, kern_a5):
+        raise AssertionError("v5s and v5 sweep A differ: a padding slot "
+                             "was not inert")
+
+    phase(f"17 v3 / v5 main paths: run_protocol({STEPS} steps, chunk "
+          f"{CHUNK}) on biceps_full; a forced v5 regrow on the slice")
+    ends, runs = {}, {}
+    for label, sc, names in (("v3", scene3, ("sweep_a3_hash9",
+                                             "sweep_b3_hash9")),
+                             ("v5", scene5, ("sweep_a5", "sweep_b5"))):
+        st_r, aux_r, traj_r, got, calls, wall = counted_protocol(
+            sc, names, num_steps=STEPS, chunk=CHUNK, record_every=50)
+        run_steps = sum(n for _, n in calls)
+        runs[label] = {"steps_run": run_steps, "simulate_calls": calls,
+                       "wall_s": wall}
+        print(f"{label}: {STEPS} steps in {wall:.3f} s wall, {run_steps} "
+              f"run (simulate calls (pack_cap, steps) {calls}), launches "
+              f"{got}", flush=True)
+        if run_steps < STEPS or any(n != run_steps for n in got.values()):
+            raise AssertionError(f"{label} launches {got}, want "
+                                 f"{run_steps}")
+        launches.update(got)
+        check_protocol_run(st_r, aux_r, cfg, f"{label} run_protocol")
+        orig = sc.state.orig_pos[act]
+        for step in (250, 500):
+            d = torch.linalg.vector_norm(
+                traj_r["pos"][step // 50 - 1][act] - orig, dim=-1)
+            print(f"{label} mean displacement at step {step}: "
+                  f"{float(d.mean()):.6g} (max {float(d.max()):.6g})",
+                  flush=True)
+        ends[label] = st_r
+    for label in ("v3", "v5"):
+        diff = (ends[label].pos[act] - state.pos[act]).abs().max()
+        print(f"after {STEPS} steps, {label} vs v4 positions: max abs diff "
+              f"{float(diff):.6g}", flush=True)
+    small5 =slice_scene(dev, "v5")._replace(sub_block=REGROW_SUB_Q,
+                                             pack_cap=REGROW_CAP)
+    st_g, aux_g, _, got, calls, _ = counted_protocol(
+        small5, ("sweep_a5", "sweep_b5"), num_steps=6, chunk=4,
+        stim_off_step=3)
+    run_steps = sum(n for _, n in calls)
+    regrow = {"pack_cap_before": calls[0][0], "pack_cap_after": calls[-1][0],
+              "simulate_calls": calls, "steps_run": run_steps,
+              "launches": got}
+    print(f"forced v5 regrow on the slice (sub_block {REGROW_SUB_Q}): "
+          f"pack_cap {regrow['pack_cap_before']} -> "
+          f"{regrow['pack_cap_after']}; simulate calls (pack_cap, steps) "
+          f"{calls}; launches {got} for {run_steps} steps run, 6 kept; "
+          f"overflow {int(aux_g.overflow)}", flush=True)
+    check_in_world(st_g, small5.cfg, "v5 regrow")
+    if not (regrow["pack_cap_after"] > regrow["pack_cap_before"]
+            and len(calls) > 2 and run_steps > 6
+            and all(n == run_steps for n in got.values())
+            and int(aux_g.overflow) == 0):
+        raise AssertionError(f"v5 regrow: {regrow}")
+
+    phase("18 v3 / v5 small input: kernels on the card vs plain versions "
+          "on the CPU")
+    for label in ("v3", "v5"):
+        slice_card_vs_cpu(slice_scene(dev, label), label)
+
+    phase("19 timing: the v3 / v5 kernels, v3 / v4 / v5 ms/step, slab "
+          "packing, bounds")
+    times["sweep_a3_hash9"] = (
+        cuda_ms(lambda: fst.sweep_a3_hash9(fs3, fa3, lo3, hi3, cfg,
+                                           sub_q=sq3), 200),
+        cuda_ms(lambda: fst.sweep_a3_plain(fs3, fa3, cfg, stencil="hash9"),
+                5))
+    times["sweep_b3_hash9"] = (
+        cuda_ms(lambda: fst.sweep_b3_hash9(plain_a3h, fb3, lo3, hi3, cfg,
+                                           sub_q=sq3), 200),
+        cuda_ms(lambda: fst.sweep_b3_plain(plain_a3h, fb3, cfg,
+                                           stencil="hash9"), 5))
+    times["sweep_a5"] = (
+        cuda_ms(lambda: fst.sweep_a5(fs5, pa5, trips5, cfg, **kw5), 200),
+        cuda_ms(lambda: fst.sweep_a5_plain(fs5, pa5, cfg), 5))
+    times["sweep_b5"] = (
+        cuda_ms(lambda: fst.sweep_b5(plain_a5, pb5, trips5, cfg, **kw5), 200),
+        cuda_ms(lambda: fst.sweep_b5_plain(plain_a5, pb5, cfg), 5))
+    for name in ("sweep_a3_hash9", "sweep_b3_hash9", "sweep_a5", "sweep_b5"):
+        print(f"{name}: kernel {times[name][0]:.4f} ms, plain "
+              f"{times[name][1]:.4f} ms", flush=True)
+    pack_ms = {
+        "a": cuda_ms(lambda: fst.pack_feats_a5(fs5, src5, kb5), 50),
+        "b": cuda_ms(lambda: fst.pack_feats_b5(
+            plain_a5, fst.vol_now(plain_a5), src5, kb5), 50)}
+    print(f"slab packing ({kb5} slots x {fs5.shape[0] // sq5} blocks, "
+          f"{pa5.numel() * 4 / 1e6:.1f} MB a slab): sweep A "
+          f"{pack_ms['a']:.4f} ms, sweep B {pack_ms['b']:.4f} ms", flush=True)
+    impl_ms = {"v3": [], "v4": [], "v5": []}
+    with torch.no_grad():
+        for label in ("v4", "v3", "v5", "v5", "v3", "v4"):
+            sc = {"v3": scene3, "v4": scene, "v5": scene5}[label]
+            impl_ms[label].append(timed_run(
+                lambda k, sc=sc: T.simulate(
+                    sc.state, sc.cfg, k, sub_q=sc.sub_block,
+                    impl=sc.fused_impl, pack_cap=sc.pack_cap,
+                    w_chunk=sc.block_window), IMPL_TIMING_STEPS)[0])
+    print(f"ms/step over {IMPL_TIMING_STEPS} steps, in the order v4 v3 v5 "
+          f"v5 v3 v4: {impl_ms}", flush=True)
+    slots5 = int((src5 < fs5.shape[0]).sum())
+    new_bytes = {
+        # queries, features, 16 window bounds a sub-block, constants, out
+        "sweep_a3_hash9": 4 * (3 * 16 * n_rows + 2 * 16 * (n_rows // sq3)
+                               + 32),
+        # the function's bytes: queries, their (16, N) features, trips,
+        # constants, out; the slabs are an intermediate the step builds
+        # from the features (their packing is timed above)
+        "sweep_a5": 4 * (3 * 16 * n_rows + n_rows // sq5 + 32)}
+    new_bytes["sweep_b3_hash9"] = new_bytes["sweep_a3_hash9"]
+    new_bytes["sweep_b5"] = new_bytes["sweep_a5"]
+    for name, nb in new_bytes.items():
+        bounds[name] = bound(name, counts, n_rows, nb)
+        b_ms, by, flops, nbytes = bounds[name]
+        print(f"{name}: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB, "
+              f"bound {b_ms * 1e3:.4f} us ({by}), kernel at "
+              f"{b_ms / times[name][0] * 100:.3f}% of it", flush=True)
+    print(f"v5 slab slots the unions fill: {slots5} of "
+          f"{pa5.shape[0] * kb5}", flush=True)
+    # candidates each generation's kernels walk per query row at step 0
+    walked = {
+        "v4": float((hi - lo).sum()) / (n_rows // sub_q),
+        "v3": float((hi3 - lo3).sum()) / (n_rows // sq3),
+        "v5": float(torch.clamp(trips5 * scene5.block_window, max=kb5)
+                    .sum()) / (n_rows // sq5)}
+    print(f"candidates walked per query row (step 0): {walked}", flush=True)
+
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -847,6 +1115,9 @@ def main() -> int:
         "fit_fwd_ms_per_step": fwd_ms, "fit_grad_ms_per_step": grad_ms,
         "fit_peak_gib": peak / 2**30,
         "mode_ms_per_step": mode_ms,
+        "impl_ms_per_step": impl_ms, "slab_pack_ms": pack_ms,
+        "walked_per_row": walked,
+        "v3_v5_runs": runs, "v5_regrow": regrow,
         "replicate": {"particles": big.num_particles,
                       "prepare_s": prep_big_s, "ms_per_step": big_ms,
                       "lap_kernel_ms": big_lap_ms,

@@ -1,33 +1,46 @@
-// Neighbor sweeps of the v4 fused coupled step and of the frozen-cloud
-// monodomain mode, hand-written for Hopper (sm_90a). Plain C interface,
-// loaded through ctypes (sph_sm_monodomain_tpu_torch/ops/cuda_lib.py); the
-// Python wrappers are sweep_a3 / sweep_b3 / sweep_lap3 in
-// ops/fused_step.py, beside their plain PyTorch versions sweep_a3_plain /
-// sweep_b3_plain / sweep_lap3_plain.
+// Neighbor sweeps of the fused coupled step (v4, v3 and v5 forms) and of the
+// frozen-cloud monodomain mode, hand-written for Hopper (sm_90a). Plain C
+// interface, loaded through ctypes (sph_sm_monodomain_tpu_torch/ops/
+// cuda_lib.py); the Python wrappers are sweep_a3 / sweep_b3 /
+// sweep_a3_hash9 / sweep_b3_hash9 / sweep_a5 / sweep_b5 / sweep_lap3 in
+// ops/fused_step.py, beside their plain PyTorch versions (sweep_*_plain).
 //
-// Replaces the Pallas TPU kernels _kernel_a3 (sweep A), _kernel_b3 (sweep
-// B) and _kernel_lap3 (the Laplacian-only sweep) of
-// sph_sm_monodomain_tpu/ops/fused_step.py with stencil="xyz3" (enumeration
-// _gather_loop4).
+// Replaces the Pallas TPU kernels of sph_sm_monodomain_tpu/ops/fused_step.py:
+//   _kernel_a3 / _kernel_b3 with stencil="xyz3" (enumeration _gather_loop4)
+//     -> sweep_a3_kernel / sweep_b3_kernel<Stencil::kXyz3>   (K1, K2)
+//   _kernel_a3 / _kernel_b3 with stencil="hash9" (enumeration _gather_loop)
+//     -> sweep_a3_kernel / sweep_b3_kernel<Stencil::kHash9>  (K6)
+//   _kernel_a5 / _kernel_b5 (packed slabs)
+//     -> sweep_a5_kernel / sweep_b5_kernel                   (K7)
+//   _kernel_lap3 (the Laplacian-only sweep) -> sweep_lap3_kernel (K3)
 //
 // Design. One thread block per bookkeeping sub-block of `sub_q` sorted query
-// rows (sub_q = 128 on every scene the port builds), one thread per query
-// row, the three slow-plane windows staged through shared memory and masked
-// per window by the exact cell stencil (sweep_common.cuh,
-// for_each_neighbor); every thread accumulates its pair sums in fp32
-// registers. The windows are iterated exactly; the TPU's 128-row start
-// alignment, VMEM/HBM split, chunked DMA and feature padding are not needed
-// here.
+// rows, one thread per query row; the candidates are staged through shared
+// memory in tiles of sub_q rows and masked per candidate by the exact
+// stencil of the generation (sweep_common.cuh); every thread accumulates its
+// pair sums in fp32 registers, then runs the pointwise epilogue of its row.
+// The v4 and v3 sweeps share one kernel template per sweep and differ only
+// in the window loop; the v5 sweeps walk the block's own packed slab with
+// the same accumulators and epilogues. The windows and slabs are iterated
+// exactly; the TPU's 128-row start alignment, VMEM/HBM split, chunked DMA,
+// feature padding and SMEM budgets are not needed here.
 //
-// What bounds it on the H100: not memory. The candidate features of a step
+// v5 launch shape: sub_q threads per block as for the other sweeps, so a
+// sub-block of 16 rows (the tuner's choice on small clouds) is a block of
+// half a warp. The tuner picks 32 on biceps_full, one full warp per block
+// and 580 blocks. Packing several sub-blocks into one 128-thread block would
+// fill the warps at sub_q 16; it is left to a later optimisation.
+//
+// What bounds them on the H100: not memory. The candidate features of a step
 // (16 x 18,560 f32 = 1.2 MB on biceps_full) stay in the 50 MB L2, and each
-// block reads about 2,300 candidate rows per sweep. The limit is instruction
-// issue at low occupancy: 145 blocks of 4 warps on 132 SMs, each thread a
-// serial loop over its block's candidates. The shared-memory tiles broadcast
-// each candidate to all threads (no bank conflicts), and the cell mask
-// rejects most enumerated candidates (~80% on biceps_full) before any pair
-// math. Raising occupancy (several threads per query row, or smaller
-// sub-blocks) is the first lead for a later optimisation.
+// v4 block reads about 2,300 candidate rows per sweep (v3 about 1,700 over
+// nine windows; v5 about 880 slab slots per row from 71 MB of slabs). The
+// limit is instruction issue at low occupancy: a few warps per SM, each
+// thread a serial loop over its block's candidates. The shared-memory tiles
+// broadcast each candidate to all threads (no bank conflicts), and the mask
+// rejects most enumerated candidates before any pair math. Raising
+// occupancy (several threads per query row, or smaller sub-blocks) is the
+// first lead for a later optimisation.
 //
 // Numerics: fp32 throughout, IEEE division and sqrt (no --use_fast_math).
 // The pair distance uses rsqrtf (maximum error 2 ulp, CUDA math API) where
@@ -42,63 +55,94 @@ namespace {
 using namespace sph;
 
 // Staged candidate feature rows:
-//   sweep A: pos3 | cvel3 | vol_prev | mass | cx | cyz
+//   sweep A: pos3 | cvel3 | vol_prev | mass | cx | cyz   (v3: hash | 0)
 //   sweep B: pos3 | ivel3 | vol | pres | vm | cx | cyz
 using RowsA = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13>;
 using RowsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
+//   v5 slabs: the same rows, then cf | cm | cs
+using RowsA5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13, 14>;
+using RowsB5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14>;
 //   Laplacian sweep: pos3 | vol | vm | cx | cyz
 using RowsL = Rows<0, 1, 2, 3, 4, 12, 13>;
 
-// Sweep A (replaces _kernel_a3): XSPH velocity sum + Poly6 density
-// (_pair_step_a), then the EOS / stim gate / FHN epilogue (_a_epilogue).
-__global__ void sweep_a3_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ blk_lo,
-                                const int* __restrict__ blk_hi,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n, int with_ep,
-                                int mask_full, int g_mid, int q_double,
-                                int q_gate, int q_acc) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
-  const float* q = qm + row * 16;
-  const float qx = q[0], qy = q[1], qz = q[2];
-  const float qvx = q[3], qvy = q[4], qvz = q[5];
-  const float qcx = q[12], qcyz = q[13];
-  // dead rows (cx sentinel) keep zero sums, like the plain version
-  const bool qlive = qcx >= 0.0f;
-  const float h2 = prm[H2], p6c = prm[POLY6];
-  const float* s_x = tile;
-  const float* s_y = tile + T;
-  const float* s_z = tile + 2 * T;
-  const float* s_vx = tile + 3 * T;
-  const float* s_vy = tile + 4 * T;
-  const float* s_vz = tile + 5 * T;
-  const float* s_vol = tile + 6 * T;
-  const float* s_mass = tile + 7 * T;
-
+// Sweep A's pair sums (_pair_step_a): XSPH velocity sum + Poly6 density in
+// the reference's per-pair difference form (cpp:483, 688-695), reading the
+// staged rows 0-7 of a tile of width T.
+struct PairSumsA {
+  float qx, qy, qz, qvx, qvy, qvz, h2, p6c;
   float a_d = 0.0f, a_x = 0.0f, a_y = 0.0f, a_z = 0.0f;
-  for_each_neighbor(RowsA{}, tile, feats, blk_lo, blk_hi, n, g_mid, qcx,
-                    qcyz, qlive, mask_full, [&](int k) {
-    const float dx = qx - s_x[k], dy = qy - s_y[k], dz = qz - s_z[k];
+
+  __device__ PairSumsA(const float* q, const float* prm)
+      : qx(q[0]), qy(q[1]), qz(q[2]), qvx(q[3]), qvy(q[4]), qvz(q[5]),
+        h2(prm[H2]), p6c(prm[POLY6]) {}
+
+  __device__ __forceinline__ void add(const float* tile, int T, int k) {
+    const float dx = qx - tile[k], dy = qy - tile[T + k],
+                dz = qz - tile[2 * T + k];
     const float r2 = dx * dx + dy * dy + dz * dz;
     // Poly6 support folded into the weight: t == 0 adds exactly 0
     const float t = fmaxf(h2 - r2, 0.0f);
     if (t == 0.0f) return;
     const float w6 = p6c * t * t * t;
-    const float wv = w6 * s_vol[k];
-    a_d += w6 * s_mass[k];
-    a_x += wv * (s_vx[k] - qvx);
-    a_y += wv * (s_vy[k] - qvy);
-    a_z += wv * (s_vz[k] - qvz);
-  });
+    const float wv = w6 * tile[6 * T + k];
+    a_d += w6 * tile[7 * T + k];
+    a_x += wv * (tile[3 * T + k] - qvx);
+    a_y += wv * (tile[4 * T + k] - qvy);
+    a_z += wv * (tile[5 * T + k] - qvz);
+  }
+};
 
-  // epilogue (_a_epilogue, cpp:483-503, 575-593, 699)
+// Sweep B's pair sums (_pair_step_b): Spiky pressure + viscosity and the
+// B-spline-2 Vm Laplacian (cpp:546-563), reading the staged rows 0-8.
+struct PairSumsB {
+  float qx, qy, qz, qivx, qivy, qivz, qp, qvm, h, inv_h, spiky_c, bs_c, mu;
+  int with_ep;
+  float a_ax = 0.0f, a_ay = 0.0f, a_az = 0.0f, a_lap = 0.0f;
+
+  __device__ PairSumsB(const float* q, const float* prm, int with_ep_)
+      : qx(q[0]), qy(q[1]), qz(q[2]), qivx(q[3]), qivy(q[4]), qivz(q[5]),
+        qp(q[6]), qvm(q[7]), h(prm[KERNEL_H]), inv_h(prm[INV_H]),
+        spiky_c(prm[SPIKY]), bs_c(prm[BSPLINE]), mu(prm[MU_VISCOSITY]),
+        with_ep(with_ep_) {}
+
+  __device__ __forceinline__ void add(const float* tile, int T, int k) {
+    const float dx = qx - tile[k], dy = qy - tile[T + k],
+                dz = qz - tile[2 * T + k];
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (!(r2 > kPairEps)) return;  // cpp:546
+    const float inv_rr = rsqrtf(r2);
+    const float rr = r2 * inv_rr;
+    const float vol = tile[6 * T + k];
+    // spiky support [0, h] via relu(h - r)
+    const float hr = fmaxf(h - rr, 0.0f);
+    const float common = vol * (spiky_c * hr);
+    const float f_p =
+        common * (hr * (-0.5f) * inv_rr) * (qp + tile[7 * T + k]);
+    const float f_v = mu * common;
+    a_ax += f_v * (tile[3 * T + k] - qivx) - f_p * dx;
+    a_ay += f_v * (tile[4 * T + k] - qivy) - f_p * dy;
+    a_az += f_v * (tile[5 * T + k] - qivz) - f_p * dz;
+    if (with_ep) {
+      // B_spline_2 (cpp:186-196) in relu form
+      const float qr = rr * inv_h;
+      const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
+                               6.0f * fmaxf(1.0f - qr, 0.0f));
+      a_lap += (vol * w2) * (tile[8 * T + k] - qvm);
+    }
+  }
+};
+
+// Sweep A's epilogue (_a_epilogue, cpp:483-503, 575-593, 699): the OUT_A row
+// `o` from the QM_A row `q` and the pair sums. Columns 12-14 (the cell
+// features: cx cyz -, hash 0 -, or cf cm cs) are copied through.
+__device__ __forceinline__ void epilogue_a(const float* q, const PairSumsA& s,
+                                           const float* prm, int with_ep,
+                                           int q_double, int q_gate,
+                                           int q_acc, float* o) {
   const float mass = q[6], vm = q[8], stim = q[9], iion = q[10], w = q[11];
   const float vmix = prm[VELOCITY_MIXING];
-  float dens = a_d;
-  if (q_double) dens = dens + mass * (p6c * h2 * h2 * h2);
+  float dens = s.a_d;
+  if (q_double) dens = dens + mass * (s.p6c * s.h2 * s.h2 * s.h2);
   float pres = prm[K_STIFFNESS] * (dens - prm[STAND_DENSITY]);
   if (with_ep) pres = pres - vm * prm[VOLTAGE_CONSTANT];
   const float pres_c = clampf(pres, -prm[MAX_PRESSURE], prm[MAX_PRESSURE]);
@@ -117,98 +161,42 @@ __global__ void sweep_a3_kernel(const float* __restrict__ qm,
     w_n = w + dt * prm[FH_C3] * (u - prm[FH_C4] * w) / mass;
     react = (iion_n - stim * (dt / mass)) / prm[CM_CAPACITANCE];
   }
-  float* o = out + row * 16;
-  o[0] = qx;
-  o[1] = qy;
-  o[2] = qz;
-  o[3] = qvx + a_x * vmix;
-  o[4] = qvy + a_y * vmix;
-  o[5] = qvz + a_z * vmix;
+  o[0] = s.qx;
+  o[1] = s.qy;
+  o[2] = s.qz;
+  o[3] = s.qvx + s.a_x * vmix;
+  o[4] = s.qvy + s.a_y * vmix;
+  o[5] = s.qvz + s.a_z * vmix;
   o[6] = pres;
   o[7] = vm;
   o[8] = dens;
   o[9] = react;
   o[10] = mass;
   o[11] = iion_n;
-  o[12] = qcx;
-  o[13] = qcyz;
+  o[12] = q[12];
+  o[13] = q[13];
   o[14] = q[14];
   o[15] = w_n;
 }
 
-// Sweep B (replaces _kernel_b3): Spiky pressure + viscosity and the
-// B-spline-2 Vm Laplacian (_pair_step_b) under the full 27-cell mask, then
-// the integration epilogue (_b_epilogue).
-__global__ void sweep_b3_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ blk_lo,
-                                const int* __restrict__ blk_hi,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n, int with_ep,
-                                int g_mid) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
-  const float* q = qm + row * 16;
-  const float qx = q[0], qy = q[1], qz = q[2];
-  const float qivx = q[3], qivy = q[4], qivz = q[5];
-  const float qp = q[6], qvm = q[7];
-  const float qcx = q[12], qcyz = q[13];
-  const bool qlive = qcx >= 0.0f;
-  const float h = prm[KERNEL_H], inv_h = prm[INV_H];
-  const float spiky_c = prm[SPIKY], bs_c = prm[BSPLINE];
-  const float mu = prm[MU_VISCOSITY];
-  const float* s_x = tile;
-  const float* s_y = tile + T;
-  const float* s_z = tile + 2 * T;
-  const float* s_vx = tile + 3 * T;
-  const float* s_vy = tile + 4 * T;
-  const float* s_vz = tile + 5 * T;
-  const float* s_vol = tile + 6 * T;
-  const float* s_pres = tile + 7 * T;
-  const float* s_vm = tile + 8 * T;
-
-  float a_ax = 0.0f, a_ay = 0.0f, a_az = 0.0f, a_lap = 0.0f;
-  for_each_neighbor(RowsB{}, tile, feats, blk_lo, blk_hi, n, g_mid, qcx,
-                    qcyz, qlive, true, [&](int k) {
-    const float dx = qx - s_x[k], dy = qy - s_y[k], dz = qz - s_z[k];
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    if (!(r2 > kPairEps)) return;  // cpp:546
-    const float inv_rr = rsqrtf(r2);
-    const float rr = r2 * inv_rr;
-    const float vol = s_vol[k];
-    // spiky support [0, h] via relu(h - r)
-    const float hr = fmaxf(h - rr, 0.0f);
-    const float common = vol * (spiky_c * hr);
-    const float f_p = common * (hr * (-0.5f) * inv_rr) * (qp + s_pres[k]);
-    const float f_v = mu * common;
-    a_ax += f_v * (s_vx[k] - qivx) - f_p * dx;
-    a_ay += f_v * (s_vy[k] - qivy) - f_p * dy;
-    a_az += f_v * (s_vz[k] - qivz) - f_p * dz;
-    if (with_ep) {
-      // B_spline_2 (cpp:186-196) in relu form
-      const float qr = rr * inv_h;
-      const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
-                               6.0f * fmaxf(1.0f - qr, 0.0f));
-      a_lap += (vol * w2) * (s_vm[k] - qvm);
-    }
-  });
-
-  // epilogue (_b_epilogue, cpp:568-571, 596-651)
+// Sweep B's epilogue (_b_epilogue, cpp:568-571, 596-651): acceleration,
+// voltage update, semi-implicit Euler, walls and the AABB clamp.
+__device__ __forceinline__ void epilogue_b(const float* q, const PairSumsB& s,
+                                           const float* prm, float* o) {
   const float dens = q[8], react = q[9], mass = q[10];
   const float dt = prm[DT];
   const float dens_g = dens > 0.0f ? dens : 1.0f;
-  const float acc[3] = {a_ax / dens_g, a_ay / dens_g, a_az / dens_g};
+  const float acc[3] = {s.a_ax / dens_g, s.a_ay / dens_g, s.a_az / dens_g};
   const float dtm = dt / mass;
-  float inter_vm = 0.0f, vm_new = qvm;
-  if (with_ep) {
-    inter_vm = a_lap + prm[VM_SCALE] * a_lap - react;
-    vm_new = clampf(qvm + inter_vm * dtm, -prm[MAX_VOLTAGE], prm[MAX_VOLTAGE]);
+  float inter_vm = 0.0f, vm_new = s.qvm;
+  if (s.with_ep) {
+    inter_vm = s.a_lap + prm[VM_SCALE] * s.a_lap - react;
+    vm_new = clampf(s.qvm + inter_vm * dtm, -prm[MAX_VOLTAGE],
+                    prm[MAX_VOLTAGE]);
   }
   const float wall_hit = prm[WALL_HIT];
-  const float qpos[3] = {qx, qy, qz};
-  const float qiv[3] = {qivx, qivy, qivz};
-  float* o = out + row * 16;
+  const float qpos[3] = {s.qx, s.qy, s.qz};
+  const float qiv[3] = {s.qivx, s.qivy, s.qivz};
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
     const float wlim = prm[WORLD_X + ax];
@@ -225,11 +213,110 @@ __global__ void sweep_b3_kernel(const float* __restrict__ qm,
   }
   o[6] = vm_new;
   o[7] = dens;
-  o[8] = qp;
+  o[8] = s.qp;
   o[9] = q[11];   // iion'
   o[10] = q[15];  // w'
   o[11] = inter_vm;
   o[15] = 0.0f;
+}
+
+// Sweep A (replaces _kernel_a3): XSPH + density gather over the sub-block's
+// windows, then the EOS / stim gate / FHN epilogue. v4: the "yz" half of the
+// mask when Poly6's support is within one cell (mask_full false), dead
+// candidates inert by their zero mass and volume; v3: the full hash mask.
+template <Stencil S>
+__global__ void sweep_a3_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ feats,
+                                const int* __restrict__ blk_lo,
+                                const int* __restrict__ blk_hi,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int n, int with_ep,
+                                int mask_full, GridDims g, int q_double,
+                                int q_gate, int q_acc) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  const float qcx = q[12], qcyz = q[13];
+  // dead rows (cell sentinel) keep zero sums, like the plain version
+  const bool qlive = qcx >= 0.0f;
+  PairSumsA s(q, prm);
+  for_each_window_candidate<S>(RowsA{}, tile, feats, blk_lo, blk_hi, n, g,
+                               qcx, qcyz, qlive, mask_full,
+                               [&](int k) { s.add(tile, T, k); });
+  epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
+}
+
+// Sweep B (replaces _kernel_b3): force + Vm Laplacian gather under the full
+// mask (v4 per-axis, v3 hash), then the integration epilogue.
+template <Stencil S>
+__global__ void sweep_b3_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ feats,
+                                const int* __restrict__ blk_lo,
+                                const int* __restrict__ blk_hi,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int n, int with_ep,
+                                GridDims g) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  const float qcx = q[12], qcyz = q[13];
+  const bool qlive = qcx >= 0.0f;
+  PairSumsB s(q, prm, with_ep);
+  for_each_window_candidate<S>(RowsB{}, tile, feats, blk_lo, blk_hi, n, g,
+                               qcx, qcyz, qlive, true,
+                               [&](int k) { s.add(tile, T, k); });
+  epilogue_b(q, s, prm, out + row * 16);
+}
+
+// Slots of block b's slab a v5 sweep walks: its union's w_chunk-wide chunks
+// (the trip count of sweep_bookkeeping5, clipped to kb), or the whole slab
+// (v5s, static_trips). Both give the same sums: the padding slots are inert.
+__device__ __forceinline__ int slab_count(const int* trips, int kb,
+                                          int w_chunk, int static_trips) {
+  return static_trips ? kb : min(trips[blockIdx.x] * w_chunk, kb);
+}
+
+// Sweep A over packed slabs (replaces _kernel_a5): the pair sums of sweep A
+// over the block's slab under the per-axis cell mask, then sweep A's
+// epilogue with the constants of the config.
+__global__ void sweep_a5_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ slab,
+                                const int* __restrict__ trips,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int kb, int w_chunk,
+                                int static_trips, int with_ep, int q_double,
+                                int q_gate, int q_acc) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  PairSumsA s(q, prm);
+  for_each_slab_candidate(RowsA5{}, tile, slab + (size_t)blockIdx.x * 16 * kb,
+                          kb, slab_count(trips, kb, w_chunk, static_trips),
+                          q[12], q[13], q[14],
+                          [&](int k) { s.add(tile, T, k); });
+  epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
+}
+
+// Sweep B over packed slabs (replaces _kernel_b5).
+__global__ void sweep_b5_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ slab,
+                                const int* __restrict__ trips,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int kb, int w_chunk,
+                                int static_trips, int with_ep) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  PairSumsB s(q, prm, with_ep);
+  for_each_slab_candidate(RowsB5{}, tile, slab + (size_t)blockIdx.x * 16 * kb,
+                          kb, slab_count(trips, kb, w_chunk, static_trips),
+                          q[12], q[13], q[14],
+                          [&](int k) { s.add(tile, T, k); });
+  epilogue_b(q, s, prm, out + row * 16);
 }
 
 // Laplacian-only sweep (replaces _kernel_lap3): the Vm diffusion half of
@@ -284,6 +371,28 @@ __global__ void sweep_lap3_kernel(const float* __restrict__ qm,
   for (int c = 1; c < 16; ++c) o[c] = 0.0f;
 }
 
+template <Stencil S>
+int launch_a3(const float* qm, const float* feats, const int* blk_lo,
+              const int* blk_hi, const float* prm, float* out, int n,
+              int sub_q, int with_ep, int mask_full, GridDims g, int q_double,
+              int q_gate, int q_acc, void* stream) {
+  const size_t smem = RowsA::count * (size_t)sub_q * sizeof(float);
+  sweep_a3_kernel<S><<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, mask_full, g,
+      q_double, q_gate, q_acc);
+  return (int)cudaGetLastError();
+}
+
+template <Stencil S>
+int launch_b3(const float* qm, const float* feats, const int* blk_lo,
+              const int* blk_hi, const float* prm, float* out, int n,
+              int sub_q, int with_ep, GridDims g, void* stream) {
+  const size_t smem = RowsB::count * (size_t)sub_q * sizeof(float);
+  sweep_b3_kernel<S><<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -293,20 +402,60 @@ int sph_sweep_a3(const float* qm, const float* feats, const int* blk_lo,
                  int sub_q, int with_ep, int mask_full, int g_mid,
                  int quirk_double_self_density, int quirk_pressure_stim_gate,
                  int quirk_iion_accumulate, void* stream) {
-  const size_t smem = RowsA::count * (size_t)sub_q * sizeof(float);
-  sweep_a3_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, mask_full, g_mid,
-      quirk_double_self_density, quirk_pressure_stim_gate,
-      quirk_iion_accumulate);
-  return (int)cudaGetLastError();
+  return launch_a3<Stencil::kXyz3>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, sub_q, with_ep, mask_full,
+      GridDims{g_mid, 0, 0}, quirk_double_self_density,
+      quirk_pressure_stim_gate, quirk_iion_accumulate, stream);
 }
 
 int sph_sweep_b3(const float* qm, const float* feats, const int* blk_lo,
                  const int* blk_hi, const float* prm, float* out, int n,
                  int sub_q, int with_ep, int g_mid, void* stream) {
-  const size_t smem = RowsB::count * (size_t)sub_q * sizeof(float);
-  sweep_b3_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, g_mid);
+  return launch_b3<Stencil::kXyz3>(qm, feats, blk_lo, blk_hi, prm, out, n,
+                                   sub_q, with_ep, GridDims{g_mid, 0, 0},
+                                   stream);
+}
+
+int sph_sweep_a3_hash9(const float* qm, const float* feats,
+                       const int* blk_lo, const int* blk_hi, const float* prm,
+                       float* out, int n, int sub_q, int with_ep, int gx,
+                       int gy, int quirk_double_self_density,
+                       int quirk_pressure_stim_gate,
+                       int quirk_iion_accumulate, void* stream) {
+  return launch_a3<Stencil::kHash9>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, sub_q, with_ep, 1,
+      GridDims{0, gx, gy}, quirk_double_self_density,
+      quirk_pressure_stim_gate, quirk_iion_accumulate, stream);
+}
+
+int sph_sweep_b3_hash9(const float* qm, const float* feats,
+                       const int* blk_lo, const int* blk_hi, const float* prm,
+                       float* out, int n, int sub_q, int with_ep, int gx,
+                       int gy, void* stream) {
+  return launch_b3<Stencil::kHash9>(qm, feats, blk_lo, blk_hi, prm, out, n,
+                                    sub_q, with_ep, GridDims{0, gx, gy},
+                                    stream);
+}
+
+int sph_sweep_a5(const float* qm, const float* slab, const int* trips,
+                 const float* prm, float* out, int n, int sub_q, int kb,
+                 int w_chunk, int static_trips, int with_ep,
+                 int quirk_double_self_density, int quirk_pressure_stim_gate,
+                 int quirk_iion_accumulate, void* stream) {
+  const size_t smem = RowsA5::count * (size_t)sub_q * sizeof(float);
+  sweep_a5_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, slab, trips, prm, out, kb, w_chunk, static_trips, with_ep,
+      quirk_double_self_density, quirk_pressure_stim_gate,
+      quirk_iion_accumulate);
+  return (int)cudaGetLastError();
+}
+
+int sph_sweep_b5(const float* qm, const float* slab, const int* trips,
+                 const float* prm, float* out, int n, int sub_q, int kb,
+                 int w_chunk, int static_trips, int with_ep, void* stream) {
+  const size_t smem = RowsB5::count * (size_t)sub_q * sizeof(float);
+  sweep_b5_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, slab, trips, prm, out, kb, w_chunk, static_trips, with_ep);
   return (int)cudaGetLastError();
 }
 

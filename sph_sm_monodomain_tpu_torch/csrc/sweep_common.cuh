@@ -1,16 +1,23 @@
 // Shared pieces of the port's neighbor-sweep kernels (fused_sweeps.cu:
-// sweep A / sweep B; fused_adjoint.cu: their backward sweeps): the slots of
-// the physics-constant vector, the staging of candidate features into shared
-// memory, and the window loop with its exact cell mask.
+// sweep A / sweep B in their v4, v3 and v5 forms; fused_adjoint.cu: their
+// backward sweeps): the slots of the physics-constant vector, the staging of
+// candidate features into shared memory, and the three candidate loops with
+// their exact masks.
 //
 // Every sweep runs one thread block per bookkeeping sub-block of `sub_q`
-// sorted query rows, one thread per query row. For each of the block's three
-// slow-plane windows [lo, hi) the threads stage tiles of sub_q candidate rows
-// from the (16, N) feature matrix into shared memory (one coalesced load per
-// staged feature row); then every live query thread walks the tile and calls
-// the kernel's pair function for each candidate that passes the cell mask
-// |qcyz + (r-1)*G_mid - ccyz| <= 1 for window r (plus |qcx - ccx| <= 1 for
-// the full mask). A pair passes under one window only, even where sparse
+// sorted query rows, one thread per query row. The block stages tiles of
+// sub_q candidate rows into shared memory (one coalesced load per staged
+// feature row); then every query thread walks the tile and calls the
+// kernel's pair function for each candidate that passes the mask.
+//   v4 (for_each_neighbor): the three slow-plane windows [lo, hi) of the
+//     (16, N) feature matrix, mask |qcyz + (r-1)*G_mid - ccyz| <= 1 for
+//     window r, plus |qcx - ccx| <= 1 for the full mask.
+//   v3 (for_each_neighbor_hash9): the nine (dy, dz) run windows, mask
+//     |qh + d_r - ch| <= 1 on the linear cell hash, d_r = Gx*(dy + Gy*dz).
+//   v5 (for_each_slab_candidate): the first `count` slots of the block's own
+//     packed (16, kb) slab, mask |dcf|, |dcm|, |dcs| <= 1 on the per-axis
+//     cell coordinates.
+// Under v4 and v3 a pair passes under one window only, even where sparse
 // blocks' windows overlap, and the windows are iterated exactly.
 
 #pragma once
@@ -32,8 +39,10 @@ enum Slot {
 
 constexpr float kPairEps = 1e-12f;  // INF guard, SPH_SM_monodomain.h:24
 
-// The feature rows a sweep stages, in slot order; the last two must be the
-// cell features cx (row 12) and cyz (row 13).
+// The feature rows a sweep stages, in slot order; the last ones must be the
+// cell features: cx (row 12) and cyz (row 13) for the v4 loop, the hash
+// (row 12) then row 13 for the v3 loop, cf cm cs (rows 12-14) for the v5
+// loop.
 template <int... R>
 struct Rows {
   static constexpr int count = sizeof...(R);
@@ -87,6 +96,87 @@ __device__ __forceinline__ void for_each_neighbor(
       }
       __syncthreads();
     }
+  }
+}
+
+// The v3 window loop: nine run windows per sub-block at stride 16 of the
+// bounds, in the JAX package's _RUN_OFFSETS order (dy fast, dz slow), each
+// masked by |qh + d_r - ch| <= 1 on the staged hash row. The hash admits
+// wrap pairs across a world edge that the per-axis stencil excludes; they
+// lie far outside every kernel support and add exactly 0. Same contract as
+// for_each_neighbor.
+template <class RowList, class Pair>
+__device__ __forceinline__ void for_each_neighbor_hash9(
+    RowList rows, float* tile, const float* feats, const int* blk_lo,
+    const int* blk_hi, int n, int gx, int gy, float qh, bool qlive,
+    Pair&& pair) {
+  const int T = blockDim.x;
+  const int b = blockIdx.x;
+  const float* s_h = tile + (RowList::count - 2) * T;
+  for (int r = 0; r < 9; ++r) {
+    const int lo = blk_lo[b * 16 + r], hi = blk_hi[b * 16 + r];
+    const float qd = qh + (float)(gx * (r % 3 - 1 + gy * (r / 3 - 1)));
+    for (int base = lo; base < hi; base += T) {
+      stage_rows(rows, tile, feats, n, base, hi);
+      __syncthreads();
+      const int cnt = min(T, hi - base);
+      if (qlive) {
+        for (int k = 0; k < cnt; ++k) {
+          if (!(fabsf(qd - s_h[k]) <= 1.0f)) continue;
+          pair(k);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Which window loop a v4 / v3 sweep runs.
+enum class Stencil { kXyz3, kHash9 };
+
+// Grid extents the window loops need: G_mid for v4, Gx and Gy for v3.
+struct GridDims {
+  int g_mid, gx, gy;
+};
+
+template <Stencil S, class RowList, class Pair>
+__device__ __forceinline__ void for_each_window_candidate(
+    RowList rows, float* tile, const float* feats, const int* blk_lo,
+    const int* blk_hi, int n, GridDims g, float qcx, float qcyz, bool qlive,
+    bool mask_full, Pair&& pair) {
+  if constexpr (S == Stencil::kXyz3)
+    for_each_neighbor(rows, tile, feats, blk_lo, blk_hi, n, g.g_mid, qcx,
+                      qcyz, qlive, mask_full, pair);
+  else
+    for_each_neighbor_hash9(rows, tile, feats, blk_lo, blk_hi, n, g.gx, g.gy,
+                            qcx, qlive, pair);
+}
+
+// The v5 slab loop: pair(k) for each of the first `count` slots of the
+// block's own packed slab (16, kb), row f of slot j at slab[f*kb + j], that
+// passes the per-axis cell mask. Empty slots hold a zero row with a sentinel
+// cf, which no live query passes and which adds exactly 0 to a dead one
+// (zero volume and mass), so `count` may be any number of slots from the
+// block's union up to kb. All threads of the block must call it.
+template <class RowList, class Pair>
+__device__ __forceinline__ void for_each_slab_candidate(
+    RowList rows, float* tile, const float* slab, int kb, int count,
+    float qcf, float qcm, float qcs, Pair&& pair) {
+  const int T = blockDim.x;
+  const float* s_cf = tile + (RowList::count - 3) * T;
+  const float* s_cm = tile + (RowList::count - 2) * T;
+  const float* s_cs = tile + (RowList::count - 1) * T;
+  for (int base = 0; base < count; base += T) {
+    stage_rows(rows, tile, slab, kb, base, count);
+    __syncthreads();
+    const int cnt = min(T, count - base);
+    for (int k = 0; k < cnt; ++k) {
+      if (!(fabsf(qcf - s_cf[k]) <= 1.0f)) continue;
+      if (!(fabsf(qcm - s_cm[k]) <= 1.0f)) continue;
+      if (!(fabsf(qcs - s_cs[k]) <= 1.0f)) continue;
+      pair(k);
+    }
+    __syncthreads();
   }
 }
 

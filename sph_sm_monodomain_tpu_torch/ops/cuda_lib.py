@@ -37,6 +37,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sph_sweep_a3": [_P] * 6 + [_I] * 8 + [_P],
     "sph_sweep_b3": [_P] * 6 + [_I] * 4 + [_P],
+    "sph_sweep_a3_hash9": [_P] * 6 + [_I] * 8 + [_P],
+    "sph_sweep_b3_hash9": [_P] * 6 + [_I] * 5 + [_P],
+    "sph_sweep_a5": [_P] * 5 + [_I] * 9 + [_P],
+    "sph_sweep_b5": [_P] * 5 + [_I] * 6 + [_P],
     "sph_sweep_lap3": [_P] * 6 + [_I] * 3 + [_P],
     "sph_sweep_bwd_a": [_P] * 6 + [_I] * 3 + [_P],
     "sph_sweep_bwd_b": [_P] * 6 + [_I] * 3 + [_P],

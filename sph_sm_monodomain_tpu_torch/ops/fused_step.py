@@ -1,5 +1,13 @@
-"""v4 fused coupled step: two neighbor sweeps with fused pointwise epilogues
-(mirror of `sph_sm_monodomain_tpu.ops.fused_step` for `stencil="xyz3"`).
+"""Fused coupled step: two neighbor sweeps with fused pointwise epilogues
+(mirror of `sph_sm_monodomain_tpu.ops.fused_step`), in three generations
+that differ only in how a sub-block enumerates its candidates:
+  v4 (`sweep_a3` / `sweep_b3`, stencil "xyz3"): three merged slow-plane
+      windows, per-axis (cx, cyz) mask;
+  v3 (`sweep_a3_hash9` / `sweep_b3_hash9`, stencil "hash9"): nine (dy, dz)
+      run windows, linear-hash mask;
+  v5 (`sweep_a5` / `sweep_b5`): the sub-block's own packed candidate slab
+      (`pack_feats_a5` / `pack_feats_b5`), per-axis (cf, cm, cs) mask,
+      constants baked from the config.
 
   sweep A: XSPH + density gather (calculate_intermediate_velocity
       cpp:669-701 + Compute_Density_SingPressure cpp:448-513), epilogue:
@@ -15,9 +23,9 @@
 
 On a CUDA tensor each sweep is one hand-written kernel
 (csrc/fused_sweeps.cu); on a CPU tensor the wrapper runs the plain PyTorch
-version in this module (`sweep_a3_plain` / `sweep_b3_plain` /
-`sweep_lap3_plain`), which the tests hold to the JAX package and
-chip_smoke.py holds the kernels to.
+version in this module (`sweep_a3_plain` / `sweep_b3_plain` with their
+`stencil`, `sweep_a5_plain` / `sweep_b5_plain`, `sweep_lap3_plain`), which
+the tests hold to the JAX package and chip_smoke.py holds the kernels to.
 `_epi_a` / `_epi_b` are each sweep's epilogue as a function of its pair
 sums; ops/fused_adjoint.py takes their VJP with autograd.
 
@@ -31,6 +39,9 @@ Layouts (16 f32 columns per particle, sorted order), as in the JAX package:
 Candidate feature rows (16, N):
   sweep A: [pos3 | cvel3 | vol_prev | mass | - - - - | cx | cyz | - -]
   sweep B: [pos3 | ivel3 | vol | pres | vm | - - - | cx | cyz | - -]
+The cell-feature columns 12-14 are (cx, cyz, -) under v4, (hash, 0, -)
+under v3 and (cf, cm, cs) under v5; the v5 slabs (B, 16, kb) carry the
+candidate rows above with cf cm cs in rows 12-14.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ import torch
 from ..config import SimConfig
 from . import cuda_lib
 from .constants import const_tensor
-from .sweeps import _PAIR_EPS, hash_axis_perm
+from .sweeps import _COORD_SENTINEL, _PAIR_EPS, RUN_OFFSETS, hash_axis_perm
 
 # --- physics constants ------------------------------------------------------
 # The kernels (and the plain versions) read every physics scalar from one
@@ -223,17 +234,51 @@ def _rows_per_chunk(n: int, device: torch.device) -> int:
     return max(1, budget // max(n, 1))
 
 
+def _qcol(q, i: int):
+    """Column i of query rows q (..., R, 16) as (..., R, 1)."""
+    return q[..., i:i + 1]
+
+
+def _crow(c, i: int):
+    """Feature row i of candidates c (..., 16, C) as (..., 1, C)."""
+    return c[..., i:i + 1, :]
+
+
 def _stencil(q, c, gm: float, full: bool) -> torch.Tensor:
-    """Exact v4 cell stencil between query rows `q` (rows, 16) and all
-    candidates `c` (16, N): the cyz test of any of the three slow-plane
-    windows, the cx test when `full`, both rows live. A pair passes under
-    at most one window (G_mid >= 3), so 'any' counts it once."""
-    qcyz, ccyz = q[:, 13:14], c[13][None, :]
+    """Exact v4 cell stencil between query rows `q` (..., R, 16) and
+    candidates `c` (..., 16, C): the cyz test of any of the three
+    slow-plane windows, the cx test when `full`, both rows live. A pair
+    passes under at most one window (G_mid >= 3), so 'any' counts it
+    once."""
+    qcyz, ccyz = _qcol(q, 13), _crow(c, 13)
     m = ((qcyz - gm - ccyz).abs() <= 1.0) | ((qcyz - ccyz).abs() <= 1.0) \
         | ((qcyz + gm - ccyz).abs() <= 1.0)
     if full:
-        m &= (q[:, 12:13] - c[12][None, :]).abs() <= 1.0
-    return m & (q[:, 12:13] >= 0.0) & (c[12] >= 0.0)[None, :]
+        m &= (_qcol(q, 12) - _crow(c, 12)).abs() <= 1.0
+    return m & (_qcol(q, 12) >= 0.0) & (_crow(c, 12) >= 0.0)
+
+
+def _stencil_hash9(q, c, gx: int, gy: int) -> torch.Tensor:
+    """Exact v3 stencil: |qh + d_r - ch| <= 1 on the linear cell hash (row
+    and column 12) for one of the nine run offsets d_r = Gx*(dy + Gy*dz),
+    both rows live. The offsets differ by >= Gx > 2, so a pair passes
+    under at most one of them."""
+    qh, ch = _qcol(q, 12), _crow(c, 12)
+    m = torch.zeros(torch.broadcast_shapes(qh.shape, ch.shape),
+                    dtype=torch.bool, device=q.device)
+    for dy, dz in RUN_OFFSETS:
+        m |= ((qh + float(gx * (dy + gy * dz))) - ch).abs() <= 1.0
+    return m & (qh >= 0.0) & (ch >= 0.0)
+
+
+def _stencil_cells(q, c) -> torch.Tensor:
+    """Exact v5 stencil: |dcf|, |dcm|, |dcs| <= 1 on the per-axis cell
+    coordinates in rows and columns 12-14 (dead rows carry a cf
+    sentinel)."""
+    m = (_qcol(q, 12) - _crow(c, 12)).abs() <= 1.0
+    for i in (13, 14):
+        m = m & ((_qcol(q, i) - _crow(c, i)).abs() <= 1.0)
+    return m
 
 
 def _g_mid(cfg: SimConfig) -> int:
@@ -241,98 +286,152 @@ def _g_mid(cfg: SimConfig) -> int:
 
 
 def _mask_a_full(cfg: SimConfig) -> bool:
-    """Sweep A's mask: the cyz half alone when Poly6's support (h) is within
-    one cell (cells >= 2 apart are > h apart, so the weight itself is 0);
-    the full 27-cell mask on a finer grid."""
+    """Sweep A's v4 mask: the cyz half alone when Poly6's support (h) is
+    within one cell (cells >= 2 apart are > h apart, so the weight itself
+    is 0); the full 27-cell mask on a finer grid."""
     return cfg.cell_size < cfg.kernel_h
 
 
-def _pair_sums_a(fs, feats, cfg: SimConfig, P: _Phys):
-    """(a_d, a_x, a_y, a_z) (N, 1) each: Poly6 density and XSPH sums in the
-    reference's per-pair difference form (cpp:483, 688-695)."""
-    n = fs.shape[0]
-    gm, full = float(_g_mid(cfg)), _mask_a_full(cfg)
-    c = feats
-    sums = []
-    rows = _rows_per_chunk(n, fs.device)
-    for s in range(0, n, rows):
-        q = fs[s:s + rows]
-        dx = q[:, 0:1] - c[0][None, :]
-        dy = q[:, 1:2] - c[1][None, :]
-        dz = q[:, 2:3] - c[2][None, :]
-        r2 = dx * dx + dy * dy + dz * dz
-        t = torch.clamp(P.h2 - r2, min=0.0)
-        w6 = torch.where(_stencil(q, c, gm, full), P.poly6 * t * t * t,
-                         torch.zeros_like(t))
-        wv = w6 * c[6][None, :]                          # * vol_prev_j
-        sums.append(torch.stack([
-            (w6 * c[7][None, :]).sum(1),
-            (wv * (c[3][None, :] - q[:, 3:4])).sum(1),
-            (wv * (c[4][None, :] - q[:, 4:5])).sum(1),
-            (wv * (c[5][None, :] - q[:, 5:6])).sum(1)], dim=1))
-    return torch.cat(sums).unbind(1)
+def _window_mask(cfg: SimConfig, stencil: str, sweep_a: bool):
+    """mask(q, c) of the v4 ("xyz3") or v3 ("hash9") sweeps. Under hash9
+    sweep A takes the full hash mask: the "yz" shortcut is xyz3's."""
+    if stencil == "xyz3":
+        gm = float(_g_mid(cfg))
+        full = not sweep_a or _mask_a_full(cfg)
+        return lambda q, c: _stencil(q, c, gm, full)
+    if stencil == "hash9":
+        gx, gy, _ = cfg.grid_size
+        return lambda q, c: _stencil_hash9(q, c, gx, gy)
+    raise ValueError(f"unknown stencil {stencil!r} (expected xyz3 / hash9)")
 
 
-def _pair_sums_b(qm, feats, cfg: SimConfig, with_ep: bool, P: _Phys):
-    """(a_ax, a_ay, a_az, a_lap): Spiky pressure + viscosity and the
-    B-spline-2 Vm Laplacian (cpp:546-563), full 27-cell mask, r^2 > 1e-12
-    pair guard."""
-    n = qm.shape[0]
-    gm = float(_g_mid(cfg))
-    c = feats
-    sums = []
-    rows = _rows_per_chunk(n, qm.device)
-    for s in range(0, n, rows):
-        q = qm[s:s + rows]
-        dx = q[:, 0:1] - c[0][None, :]
-        dy = q[:, 1:2] - c[1][None, :]
-        dz = q[:, 2:3] - c[2][None, :]
-        r2 = dx * dx + dy * dy + dz * dz
-        p = _stencil(q, c, gm, True) & (r2 > _PAIR_EPS)
-        inv_rr = torch.rsqrt(torch.where(p, r2, torch.ones_like(r2)))
-        rr = r2 * inv_rr
-        volm = torch.where(p, c[6][None, :], torch.zeros_like(r2))
-        hr = torch.clamp(P.kernel_h - rr, min=0.0)
-        common = volm * (P.spiky * hr)
-        f_p = common * (hr * (-0.5) * inv_rr) * (q[:, 6:7] + c[7][None, :])
-        f_v = P.mu_viscosity * common
-        cols = [(f_v * (c[3 + k][None, :] - q[:, 3 + k:4 + k])
-                 - f_p * d).sum(1) for k, d in enumerate((dx, dy, dz))]
-        if with_ep:
-            qr = rr * P.inv_h
-            w2 = P.bspline * (1.5 * torch.clamp(2.0 - qr, min=0.0)
-                              - 6.0 * torch.clamp(1.0 - qr, min=0.0))
-            cols.append(((volm * w2) * (c[8][None, :] - q[:, 7:8])).sum(1))
-        else:
-            cols.append(torch.zeros_like(cols[0]))
-        sums.append(torch.stack(cols, dim=1))
-    return torch.cat(sums).unbind(1)
+def _terms_a(q, c, m, P: _Phys) -> torch.Tensor:
+    """(..., R, 4) [a_d, a_x, a_y, a_z]: Poly6 density and XSPH sums of
+    query rows q (..., R, 16) over candidates c (..., 16, C) under the mask
+    m, in the reference's per-pair difference form (cpp:483, 688-695)."""
+    dx = _qcol(q, 0) - _crow(c, 0)
+    dy = _qcol(q, 1) - _crow(c, 1)
+    dz = _qcol(q, 2) - _crow(c, 2)
+    r2 = dx * dx + dy * dy + dz * dz
+    t = torch.clamp(P.h2 - r2, min=0.0)
+    w6 = torch.where(m, P.poly6 * t * t * t, torch.zeros_like(t))
+    wv = w6 * _crow(c, 6)                                # * vol_prev_j
+    return torch.stack([
+        (w6 * _crow(c, 7)).sum(-1),
+        (wv * (_crow(c, 3) - _qcol(q, 3))).sum(-1),
+        (wv * (_crow(c, 4) - _qcol(q, 4))).sum(-1),
+        (wv * (_crow(c, 5) - _qcol(q, 5))).sum(-1)], dim=-1)
+
+
+def _terms_b(q, c, m, P: _Phys, with_ep: bool) -> torch.Tensor:
+    """(..., R, 4) [a_ax, a_ay, a_az, a_lap]: Spiky pressure + viscosity
+    and the B-spline-2 Vm Laplacian (cpp:546-563) under the mask m with the
+    r^2 > 1e-12 pair guard."""
+    dx = _qcol(q, 0) - _crow(c, 0)
+    dy = _qcol(q, 1) - _crow(c, 1)
+    dz = _qcol(q, 2) - _crow(c, 2)
+    r2 = dx * dx + dy * dy + dz * dz
+    p = m & (r2 > _PAIR_EPS)
+    inv_rr = torch.rsqrt(torch.where(p, r2, torch.ones_like(r2)))
+    rr = r2 * inv_rr
+    volm = torch.where(p, _crow(c, 6), torch.zeros_like(r2))
+    hr = torch.clamp(P.kernel_h - rr, min=0.0)
+    common = volm * (P.spiky * hr)
+    f_p = common * (hr * (-0.5) * inv_rr) * (_qcol(q, 6) + _crow(c, 7))
+    f_v = P.mu_viscosity * common
+    cols = [(f_v * (_crow(c, 3 + k) - _qcol(q, 3 + k)) - f_p * d).sum(-1)
+            for k, d in enumerate((dx, dy, dz))]
+    if with_ep:
+        qr = rr * P.inv_h
+        w2 = P.bspline * (1.5 * torch.clamp(2.0 - qr, min=0.0)
+                          - 6.0 * torch.clamp(1.0 - qr, min=0.0))
+        cols.append(((volm * w2) * (_crow(c, 8) - _qcol(q, 7))).sum(-1))
+    else:
+        cols.append(torch.zeros_like(cols[0]))
+    return torch.stack(cols, dim=-1)
+
+
+def _dense_sums(qm, feats, mask, terms) -> torch.Tensor:
+    """(N, 4) pair sums of every query row of qm (N, 16) over all
+    candidates feats (16, N), in row chunks: terms(q, feats, mask(q,
+    feats))."""
+    rows = _rows_per_chunk(qm.shape[0], qm.device)
+    return torch.cat([terms(q, feats, mask(q, feats))
+                      for q in qm.split(rows)])
+
+
+def _slab_sums(qm, slabs, terms) -> torch.Tensor:
+    """(N, 4) pair sums of each sub-block of qm (N, 16) over its own packed
+    slab of slabs (B, 16, kb) under the v5 cell mask, in chunks of
+    blocks."""
+    b, _, kb = slabs.shape
+    q = qm.reshape(b, -1, 16)
+    per = max(1, _rows_per_chunk(q.shape[1] * kb, qm.device))
+    return torch.cat([terms(qb, sb, _stencil_cells(qb, sb))
+                      for qb, sb in zip(q.split(per), slabs.split(per))]
+                     ).reshape(-1, 4)
 
 
 def sweep_a3_plain(fs, feats_a, cfg: SimConfig, with_ep: bool = True,
-                   dynp=None) -> torch.Tensor:
+                   dynp=None, stencil: str = "xyz3") -> torch.Tensor:
     """Plain PyTorch sweep A: QM_A (N,16) + sweep-A features (16,N) ->
-    OUT_A (N,16). Dense over all candidates (no window bounds); dead query
-    rows (cx sentinel) get zero sums."""
+    OUT_A (N,16). Dense over all candidates (no window bounds) under the
+    v4 ("xyz3") or v3 ("hash9") stencil; dead query rows (cell sentinel in
+    column 12) get zero sums."""
     P = _Phys(kernel_params(cfg, dynp, fs.device))
-    a_d, a_x, a_y, a_z = _pair_sums_a(fs, feats_a, cfg, P)
-    return _epi_a(cfg, a_d, torch.stack([a_x, a_y, a_z], dim=1), fs, dynp,
-                  with_ep)
+    s = _dense_sums(fs, feats_a, _window_mask(cfg, stencil, True),
+                    lambda q, c, m: _terms_a(q, c, m, P))
+    return _epi_a(cfg, s[:, 0], s[:, 1:4], fs, dynp, with_ep)
 
 
 def sweep_b3_plain(out_a, feats_b, cfg: SimConfig, with_ep: bool = True,
-                   dynp=None) -> torch.Tensor:
+                   dynp=None, stencil: str = "xyz3") -> torch.Tensor:
     """Plain PyTorch sweep B: OUT_A (N,16) + sweep-B features (16,N) ->
     OUT_B (N,16)."""
     P = _Phys(kernel_params(cfg, dynp, out_a.device))
-    a_ax, a_ay, a_az, a_lap = _pair_sums_b(out_a, feats_b, cfg, with_ep, P)
-    return _epi_b(cfg, torch.stack([a_ax, a_ay, a_az], dim=1), a_lap, out_a,
-                  dynp, with_ep)
+    s = _dense_sums(out_a, feats_b, _window_mask(cfg, stencil, False),
+                    lambda q, c, m: _terms_b(q, c, m, P, with_ep))
+    return _epi_b(cfg, s[:, 0:3], s[:, 3], out_a, dynp, with_ep)
+
+
+def sweep_a5_plain(fs, packed_a, cfg: SimConfig,
+                   with_ep: bool = True) -> torch.Tensor:
+    """Plain PyTorch v5 sweep A: QM_A (N,16) with cf cm cs in columns
+    12-14 + the sub-blocks' packed slabs (B,16,kb) -> OUT_A (N,16), each
+    sub-block of N/B rows over its whole slab under the per-axis cell mask
+    (the padding slots add exactly 0), constants from `cfg`."""
+    P = _Phys(kernel_params(cfg, None, fs.device))
+    s = _slab_sums(fs, packed_a, lambda q, c, m: _terms_a(q, c, m, P))
+    return _epi_a(cfg, s[:, 0], s[:, 1:4], fs, None, with_ep)
+
+
+def sweep_b5_plain(out_a, packed_b, cfg: SimConfig,
+                   with_ep: bool = True) -> torch.Tensor:
+    """Plain PyTorch v5 sweep B: OUT_A (N,16) + packed slabs (B,16,kb) ->
+    OUT_B (N,16)."""
+    P = _Phys(kernel_params(cfg, None, out_a.device))
+    s = _slab_sums(out_a, packed_b,
+                   lambda q, c, m: _terms_b(q, c, m, P, with_ep))
+    return _epi_b(cfg, s[:, 0:3], s[:, 3], out_a, None, with_ep)
 
 
 # --- wrappers ----------------------------------------------------------------
 
-def _check_sweep_inputs(qm, feats, blk_lo, blk_hi, sub_q: int) -> None:
+def _check_cuda_operands(qm, *operands) -> None:
+    """On a CUDA query matrix: qm and every (name, tensor, dtype) operand
+    contiguous, of that dtype, on qm's device."""
+    if qm.device.type == "cpu":
+        return
+    for name, t, dt in (("qm", qm, torch.float32),) + operands:
+        if t.device != qm.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
+                             f"{qm.device}, got {t.dtype} on {t.device}")
+
+
+def _check_sweep_inputs(qm, feats, blk_lo, blk_hi, sub_q: int,
+                        stride: int = 4) -> None:
+    """Shapes of a window sweep: `stride` bounds per sub-block (4 for the
+    v4 windows, 16 for the v3 runs)."""
     n = qm.shape[0]
     if qm.dim() != 2 or qm.shape[1] != 16:
         raise ValueError(f"query matrix must be (N, 16), got {tuple(qm.shape)}")
@@ -342,55 +441,86 @@ def _check_sweep_inputs(qm, feats, blk_lo, blk_hi, sub_q: int) -> None:
     if tuple(feats.shape) != (16, n):
         raise ValueError(f"features must be (16, {n}), got "
                          f"{tuple(feats.shape)}")
-    want = (n // sub_q) * 4
+    want = (n // sub_q) * stride
     for name, t in (("blk_lo", blk_lo), ("blk_hi", blk_hi)):
         if tuple(t.shape) != (want,):
             raise ValueError(f"{name} must be ({want},), got "
                              f"{tuple(t.shape)}")
-    if qm.device.type != "cpu":
-        for name, t, dt in (("qm", qm, torch.float32),
-                            ("feats", feats, torch.float32),
-                            ("blk_lo", blk_lo, torch.int32),
-                            ("blk_hi", blk_hi, torch.int32)):
-            if t.device != qm.device or t.dtype != dt \
-                    or not t.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous {dt} tensor "
-                                 f"on {qm.device}, got {t.dtype} on "
-                                 f"{t.device}")
+    _check_cuda_operands(qm, ("feats", feats, torch.float32),
+                         ("blk_lo", blk_lo, torch.int32),
+                         ("blk_hi", blk_hi, torch.int32))
 
 
-def _launch(fn, qm, feats, blk_lo, blk_hi, prm, *ints) -> torch.Tensor:
+def _check_slab_inputs(qm, slabs, trips, sub_q: int, w_chunk: int) -> None:
+    """Shapes of a v5 sweep: (N, 16) queries, one (16, kb) slab and one
+    trip count per sub-block of `sub_q` rows, kb a multiple of w_chunk."""
+    n = qm.shape[0]
+    if qm.dim() != 2 or qm.shape[1] != 16:
+        raise ValueError(f"query matrix must be (N, 16), got {tuple(qm.shape)}")
+    if n == 0 or not 1 <= sub_q <= 1024 or n % sub_q:
+        raise ValueError(f"{n} query rows must be a positive multiple of "
+                         f"sub_q={sub_q} (in [1, 1024])")
+    b = n // sub_q
+    if slabs.dim() != 3 or tuple(slabs.shape[:2]) != (b, 16):
+        raise ValueError(f"slabs must be ({b}, 16, kb), got "
+                         f"{tuple(slabs.shape)}")
+    if w_chunk <= 0 or slabs.shape[2] % w_chunk:
+        raise ValueError(f"kb={slabs.shape[2]} must be a multiple of "
+                         f"w_chunk={w_chunk}")
+    if tuple(trips.shape) != (b,):
+        raise ValueError(f"trips must be ({b},), got {tuple(trips.shape)}")
+    _check_cuda_operands(qm, ("slabs", slabs, torch.float32),
+                         ("trips", trips, torch.int32))
+
+
+def _launch(fn, qm, *operands) -> torch.Tensor:
+    """Launch fn(qm, *tensors, out, N, *ints, stream) on qm's device and
+    stream: `operands` are the tensor inputs after qm, then the int
+    arguments. Raises on a CPU tensor and on a launch error."""
     if qm.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {qm.device}")
+    tensors = [t.data_ptr() for t in operands if torch.is_tensor(t)]
+    ints = [i for i in operands if not torch.is_tensor(i)]
     out = torch.empty_like(qm)
     with torch.cuda.device(qm.device):
         stream = torch.cuda.current_stream(qm.device).cuda_stream
-        rc = fn(qm.data_ptr(), feats.data_ptr(), blk_lo.data_ptr(),
-                blk_hi.data_ptr(), prm.data_ptr(), out.data_ptr(),
-                qm.shape[0], *ints, stream)
+        rc = fn(qm.data_ptr(), *tensors, out.data_ptr(), qm.shape[0], *ints,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {rc} "
                            f"({cuda_lib.error_string(rc)})")
     return out
 
 
+def _quirks(cfg: SimConfig) -> tuple:
+    return (int(cfg.quirk_double_self_density),
+            int(cfg.quirk_pressure_stim_gate),
+            int(cfg.quirk_iion_accumulate))
+
+
 def sweep_a3(fs, feats_a, blk_lo, blk_hi, cfg: SimConfig,
-             with_ep: bool = True, sub_q: int = 128, dynp=None):
+             with_ep: bool = True, sub_q: int = 128, dynp=None,
+             stencil: str = "xyz3"):
     """QM_A (N,16) + sweep-A features (16,N) -> OUT_A (N,16), sorted order,
     over the three merged windows per sub-block of `sub_q` rows
     (blk_lo/blk_hi from sweeps.sweep_bookkeeping3). `dynp`: optional
     (1, 16) dynamic physics constants (build_dynp). On a CUDA tensor this
-    launches the sweep-A kernel; on a CPU tensor it runs sweep_a3_plain."""
+    launches the sweep-A kernel; on a CPU tensor it runs sweep_a3_plain.
+    stencil="hash9" runs sweep_a3_hash9 (the v3 run windows) instead: the
+    JAX package's signature, kept so code written against it ports as is;
+    the step calls sweep_a3_hash9 directly."""
+    if stencil == "hash9":
+        return sweep_a3_hash9(fs, feats_a, blk_lo, blk_hi, cfg, with_ep,
+                              sub_q, dynp)
+    if stencil != "xyz3":
+        raise ValueError(f"unknown stencil {stencil!r}")
     _check_sweep_inputs(fs, feats_a, blk_lo, blk_hi, sub_q)
     if fs.device.type == "cpu":
         return sweep_a3_plain(fs, feats_a, cfg, with_ep, dynp)
     lib = cuda_lib.load()
     out = _launch(lib.sph_sweep_a3, fs, feats_a, blk_lo, blk_hi,
                   kernel_params(cfg, dynp, fs.device), sub_q, int(with_ep),
-                  int(_mask_a_full(cfg)), _g_mid(cfg),
-                  int(cfg.quirk_double_self_density),
-                  int(cfg.quirk_pressure_stim_gate),
-                  int(cfg.quirk_iion_accumulate))
+                  int(_mask_a_full(cfg)), _g_mid(cfg), *_quirks(cfg))
     sweep_a3.launches += 1
     return out
 
@@ -399,10 +529,17 @@ sweep_a3.launches = 0
 
 
 def sweep_b3(out_a, feats_b, blk_lo, blk_hi, cfg: SimConfig,
-             with_ep: bool = True, sub_q: int = 128, dynp=None):
+             with_ep: bool = True, sub_q: int = 128, dynp=None,
+             stencil: str = "xyz3"):
     """OUT_A (N,16) + sweep-B features (16,N) -> OUT_B (N,16), sorted order.
     On a CUDA tensor this launches the sweep-B kernel; on a CPU tensor it
-    runs sweep_b3_plain."""
+    runs sweep_b3_plain. stencil="hash9" runs sweep_b3_hash9 instead (the
+    JAX package's signature, as in sweep_a3)."""
+    if stencil == "hash9":
+        return sweep_b3_hash9(out_a, feats_b, blk_lo, blk_hi, cfg, with_ep,
+                              sub_q, dynp)
+    if stencil != "xyz3":
+        raise ValueError(f"unknown stencil {stencil!r}")
     _check_sweep_inputs(out_a, feats_b, blk_lo, blk_hi, sub_q)
     if out_a.device.type == "cpu":
         return sweep_b3_plain(out_a, feats_b, cfg, with_ep, dynp)
@@ -415,6 +552,92 @@ def sweep_b3(out_a, feats_b, blk_lo, blk_hi, cfg: SimConfig,
 
 
 sweep_b3.launches = 0
+
+
+# --- the v3 sweeps: nine hash run windows (sweeps.sweep_bookkeeping2) --------
+
+def sweep_a3_hash9(fs, feats_a, blk_lo, blk_hi, cfg: SimConfig,
+                   with_ep: bool = True, sub_q: int = 64, dynp=None):
+    """Sweep A over the nine run windows per sub-block (blk_lo/blk_hi, 9
+    used of each 16, from sweeps.sweep_bookkeeping2) with the linear-hash
+    mask; QM_A carries the hash in column 12 and 0 in column 13. On a CUDA
+    tensor this launches the hash9 sweep-A kernel; on a CPU tensor it runs
+    sweep_a3_plain(stencil="hash9")."""
+    _check_sweep_inputs(fs, feats_a, blk_lo, blk_hi, sub_q, stride=16)
+    if fs.device.type == "cpu":
+        return sweep_a3_plain(fs, feats_a, cfg, with_ep, dynp, "hash9")
+    gx, gy, _ = cfg.grid_size
+    out = _launch(cuda_lib.load().sph_sweep_a3_hash9, fs, feats_a, blk_lo,
+                  blk_hi, kernel_params(cfg, dynp, fs.device), sub_q,
+                  int(with_ep), gx, gy, *_quirks(cfg))
+    sweep_a3_hash9.launches += 1
+    return out
+
+
+sweep_a3_hash9.launches = 0
+
+
+def sweep_b3_hash9(out_a, feats_b, blk_lo, blk_hi, cfg: SimConfig,
+                   with_ep: bool = True, sub_q: int = 64, dynp=None):
+    """Sweep B over the nine run windows per sub-block with the
+    linear-hash mask. On a CUDA tensor this launches the hash9 sweep-B
+    kernel; on a CPU tensor it runs sweep_b3_plain(stencil="hash9")."""
+    _check_sweep_inputs(out_a, feats_b, blk_lo, blk_hi, sub_q, stride=16)
+    if out_a.device.type == "cpu":
+        return sweep_b3_plain(out_a, feats_b, cfg, with_ep, dynp, "hash9")
+    gx, gy, _ = cfg.grid_size
+    out = _launch(cuda_lib.load().sph_sweep_b3_hash9, out_a, feats_b, blk_lo,
+                  blk_hi, kernel_params(cfg, dynp, out_a.device), sub_q,
+                  int(with_ep), gx, gy)
+    sweep_b3_hash9.launches += 1
+    return out
+
+
+sweep_b3_hash9.launches = 0
+
+
+# --- the v5 sweeps: per-sub-block packed slabs (sweeps.sweep_bookkeeping5) ---
+
+def sweep_a5(fs, packed_a, trips, cfg: SimConfig, with_ep: bool = True,
+             sub_q: int = 32, w_chunk: int = 128,
+             static_trips: bool = False):
+    """QM_A (N,16) + packed slabs (B,16,kb) -> OUT_A (N,16), sorted order:
+    each sub-block of `sub_q` rows over the first trips[b]*w_chunk slots of
+    its slab (the whole slab with `static_trips`, the v5s form), constants
+    baked from `cfg`. On a CUDA tensor this launches the v5 sweep-A kernel;
+    on a CPU tensor it runs sweep_a5_plain."""
+    _check_slab_inputs(fs, packed_a, trips, sub_q, w_chunk)
+    if fs.device.type == "cpu":
+        return sweep_a5_plain(fs, packed_a, cfg, with_ep)
+    out = _launch(cuda_lib.load().sph_sweep_a5, fs, packed_a, trips,
+                  kernel_params(cfg, None, fs.device), sub_q,
+                  packed_a.shape[2], w_chunk, int(static_trips),
+                  int(with_ep), *_quirks(cfg))
+    sweep_a5.launches += 1
+    return out
+
+
+sweep_a5.launches = 0
+
+
+def sweep_b5(out_a, packed_b, trips, cfg: SimConfig, with_ep: bool = True,
+             sub_q: int = 32, w_chunk: int = 128,
+             static_trips: bool = False):
+    """OUT_A (N,16) + packed slabs (B,16,kb) -> OUT_B (N,16). On a CUDA
+    tensor this launches the v5 sweep-B kernel; on a CPU tensor it runs
+    sweep_b5_plain."""
+    _check_slab_inputs(out_a, packed_b, trips, sub_q, w_chunk)
+    if out_a.device.type == "cpu":
+        return sweep_b5_plain(out_a, packed_b, cfg, with_ep)
+    out = _launch(cuda_lib.load().sph_sweep_b5, out_a, packed_b, trips,
+                  kernel_params(cfg, None, out_a.device), sub_q,
+                  packed_b.shape[2], w_chunk, int(static_trips),
+                  int(with_ep))
+    sweep_b5.launches += 1
+    return out
+
+
+sweep_b5.launches = 0
 
 
 # --- the Laplacian-only sweep (frozen-cloud monodomain mode) ------------------
@@ -486,8 +709,7 @@ def _safe_div(num, den, ok):
 def feats_b(out_a):
     """(16, N) sweep-B candidate features of OUT_A, with the current
     volume mass / dens (0 where dens <= 0)."""
-    return feats_from_out_a(out_a, _safe_div(out_a[:, 10], out_a[:, 8],
-                                             out_a[:, 8] > 0.0))
+    return feats_from_out_a(out_a, vol_now(out_a))
 
 
 def feats_from_out_a(out_a, vol):
@@ -527,6 +749,61 @@ def feats_a_from_fs(fs):
     return torch.stack([fs[:, 0], fs[:, 1], fs[:, 2], fs[:, 3], fs[:, 4],
                         fs[:, 5], vol_prev, mass_c, z, z, z, z,
                         fs[:, 12], fs[:, 13], z, z], dim=0)
+
+
+def build_qm_feats5(state, cf, cm, cs, order):
+    """Sorted QM_A (N,16) for the v5 step: the build_qm_feats layout with
+    the three per-axis cell coordinates (ORIGINAL order in, from
+    sweeps.sweep_bookkeeping5) at columns 12-14."""
+    n = state.pos.shape[0]
+    fields = torch.cat([
+        state.pos, state.corrected_vel, state.mass[:, None],
+        state.dens[:, None], state.vm[:, None], state.stim[:, None],
+        state.iion[:, None], state.w[:, None], cf[:, None], cm[:, None],
+        cs[:, None], torch.zeros((n, 1), dtype=state.pos.dtype,
+                                 device=state.device)], dim=1)
+    return fields[order]
+
+
+def _pack_candidates(cols, src, kb: int) -> torch.Tensor:
+    """Row-gather 16 candidate feature columns (N,) each, SORTED order,
+    into per-sub-block slabs (B, 16, kb): slot k of block b holds row
+    src[b*kb + k]. The sentinel src = N selects a zero row with a sentinel
+    cf (row 12), which fails every live query's mask and carries zero
+    volume and mass."""
+    feats = torch.stack(cols, dim=0)                          # (16, N)
+    pad = torch.zeros((16, 1), dtype=feats.dtype, device=feats.device)
+    pad[12] = _COORD_SENTINEL
+    feats = torch.cat([feats, pad], dim=1)
+    b = src.shape[0] // kb
+    return feats[:, src].reshape(16, b, kb).transpose(0, 1).contiguous()
+
+
+def pack_feats_a5(fs, src, kb: int) -> torch.Tensor:
+    """Sweep-A candidate slabs from the sorted v5 QM_A matrix: [pos3 |
+    cvel3 | vol_prev | mass | - - - - | cf cm cs | -]. No inert-row rule
+    here: the v5 mask tests cf, and dead rows never enter a slab."""
+    vol_prev = _safe_div(fs[:, 6], fs[:, 7], fs[:, 7] > 0.0)
+    z = torch.zeros_like(vol_prev)
+    return _pack_candidates(
+        [fs[:, 0], fs[:, 1], fs[:, 2], fs[:, 3], fs[:, 4], fs[:, 5],
+         vol_prev, fs[:, 6], z, z, z, z, fs[:, 12], fs[:, 13], fs[:, 14], z],
+        src, kb)
+
+
+def pack_feats_b5(out_a, vol_now, src, kb: int) -> torch.Tensor:
+    """Sweep-B candidate slabs from OUT_A: [pos3 | ivel3 | vol | pres | vm
+    | - - - | cf cm cs | -]."""
+    z = torch.zeros_like(vol_now)
+    return _pack_candidates(
+        [out_a[:, 0], out_a[:, 1], out_a[:, 2], out_a[:, 3], out_a[:, 4],
+         out_a[:, 5], vol_now, out_a[:, 6], out_a[:, 7], z, z, z,
+         out_a[:, 12], out_a[:, 13], out_a[:, 14], z], src, kb)
+
+
+def vol_now(out_a) -> torch.Tensor:
+    """Current volume mass / dens of OUT_A rows (0 where dens <= 0)."""
+    return _safe_div(out_a[:, 10], out_a[:, 8], out_a[:, 8] > 0.0)
 
 
 def apply_out_fused(state, out_a, out_b, inv=None):

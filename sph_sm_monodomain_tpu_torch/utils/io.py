@@ -14,7 +14,7 @@ import numpy as np
 from ..config import SimConfig
 from ..state import ParticleState, init_fluid, resolve_device
 from ..ops.grid import auto_cell_capacity, auto_window_capacity
-from ..ops.sweeps import auto_sweep4_params
+from ..ops.sweeps import auto_sweep4_params, auto_sweep5_params
 from ..ops import electrophysiology as ep
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -93,7 +93,7 @@ class Scene(NamedTuple):
     block_window: int = 128  # fused-sweep candidate chunk (TPU tiling; kept for parity)
     sub_block: int = 128     # window-bound granularity = sweep thread-block rows
     fused_impl: str = "v4"   # fused-step kernel generation
-    pack_cap: int = 0        # v5 packed-slab capacity (not ported)
+    pack_cap: int = 0        # v5 packed-slab capacity kb
 
 
 _SCENE_FILES = {
@@ -152,13 +152,20 @@ def build_scene(name: str, cfg: SimConfig | None = None, replicate: int = 1,
     own shape-matching cluster (`sm_clusters`, `sm_tile_rows`) and its own
     tendon anchors. Shape matching with several clusters is not ported
     yet, so such a scene runs the monodomain-only and SPH-only modes
-    (models/variants.py); the coupled and SM-only steps raise on it. Fused
-    kernel generations other than v4 are not ported."""
+    (models/variants.py); the coupled and SM-only steps raise on it.
+
+    `fused_impl`: the fused step's generation, "v4" (default), "v3", "v5"
+    or "v5s". v3 and v4 take 128-row sub-blocks (auto_sweep4_params); v5
+    takes its sub-block size and slab capacity `pack_cap` from
+    auto_sweep5_params over the initial cloud. The v1 / v2 ablation sweeps
+    are not ported."""
     device = resolve_device(device)
     impl = fused_impl or "v4"
-    if impl != "v4":
-        raise NotImplementedError(f"fused_impl={impl!r}: the port has the "
-                                  "v4 sweeps only")
+    if impl in ("v1", "v2"):
+        raise NotImplementedError(f"fused_impl={impl!r}: the v1 / v2 "
+                                  "ablation sweeps are not ported")
+    if impl not in ("v3", "v4", "v5", "v5s"):
+        raise ValueError(f"unknown fused_impl {impl!r}")
     cfg = cfg or SimConfig()
     tile_w = cfg.world_size[0]
     if replicate > 1:
@@ -182,8 +189,12 @@ def build_scene(name: str, cfg: SimConfig | None = None, replicate: int = 1,
                                          tile_width=tw)
     cap = cfg.cell_capacity or auto_cell_capacity(pts, cfg)
     k_nbr = auto_window_capacity(pts, cfg)
-    sub_q, w_chunk = auto_sweep4_params(pts, cfg, sub_q=128)
+    if impl in ("v5", "v5s"):
+        sub_q, pack_cap, w_chunk = auto_sweep5_params(pts, cfg)
+    else:
+        sub_q, w_chunk = auto_sweep4_params(pts, cfg, sub_q=128)
+        pack_cap = 0
     return Scene(state=state, cfg=cfg, cell_capacity=cap,
                  neighbor_capacity=k_nbr, num_particles=int(pts.shape[0]),
                  name=name, q_block=max(128, sub_q), block_window=w_chunk,
-                 sub_block=sub_q, fused_impl=impl, pack_cap=0)
+                 sub_block=sub_q, fused_impl=impl, pack_cap=pack_cap)

@@ -1,7 +1,8 @@
-"""The port's CUDA sweep kernels (forward, backward and the Laplacian-only
-sweep), its differentiable step and the monodomain mode's gradient on the
-card, against their plain PyTorch versions and the CPU path (marker
-`cuda`; skipped where torch sees no GPU).
+"""The port's CUDA sweep kernels (forward in the v4, v3 and v5 forms,
+backward, and the Laplacian-only sweep), its fused steps, its
+differentiable step and the monodomain mode's gradient on the card, against
+their plain PyTorch versions and the CPU path (marker `cuda`; skipped where
+torch sees no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -24,7 +25,10 @@ from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
 from sph_sm_monodomain_tpu_torch.ops.shape_matching import sm_invariants
-from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
+from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
+                                                    sweep_bookkeeping2,
+                                                    sweep_bookkeeping3,
+                                                    sweep_bookkeeping5)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +84,73 @@ def test_kernels_match_plain(device, case):
     _check(got_b, want_b, "OUT_B")
     assert (fst.sweep_a3.launches, fst.sweep_b3.launches) == (n_a + 1,
                                                               n_b + 1)
+
+
+@pytest.mark.parametrize("case", ["hash9", "hash9_dynp", "v5_sub_q16",
+                                  "v5_sub_q32", "v5s", "v5_w512"])
+def test_v3_v5_kernels_match_plain(device, case):
+    """The v3 (hash9) and v5 (slab) sweep kernels against their plain
+    versions on a blob with padding rows, each launched once."""
+    cfg, st = _blob(device)
+    if case.startswith("hash9"):
+        dynp = (fst.build_dynp(T.resolve_params(cfg, {"mu_viscosity": 40.0}),
+                               device) if case == "hash9_dynp" else None)
+        order, inv, lo, hi, chash = sweep_bookkeeping2(st.pos, st.active, cfg,
+                                                       64)
+        fs, fa = fst.build_qm_feats(st, chash, torch.zeros_like(chash), order)
+        kernels = (fst.sweep_a3_hash9, fst.sweep_b3_hash9)
+        run_a = lambda q: fst.sweep_a3_hash9(q, fa, lo, hi, cfg,  # noqa: E731
+                                             sub_q=64, dynp=dynp)
+        want_a = fst.sweep_a3_plain(fs, fa, cfg, dynp=dynp, stencil="hash9")
+        fb = fst.feats_b(want_a)
+        run_b = lambda q: fst.sweep_b3_hash9(q, fb, lo, hi, cfg,  # noqa: E731
+                                             sub_q=64, dynp=dynp)
+        plain_b = lambda q: fst.sweep_b3_plain(  # noqa: E731
+            q, fb, cfg, dynp=dynp, stencil="hash9")
+    else:
+        sub_q = 16 if case == "v5_sub_q16" else 32
+        w_chunk = 512 if case == "v5_w512" else 128
+        kb = auto_sweep5_params(st.pos[st.active].cpu().numpy(), cfg,
+                                sub_qs=(sub_q,))[1]
+        kb = -(-kb // w_chunk) * w_chunk
+        order, inv, src, trips, over, cf, cm, cs = sweep_bookkeeping5(
+            st.pos, st.active, cfg, sub_q, kb, w_chunk)
+        assert int(over) == 0
+        fs = fst.build_qm_feats5(st, cf, cm, cs, order)
+        kw = dict(sub_q=sub_q, w_chunk=w_chunk, static_trips=case == "v5s")
+        kernels = (fst.sweep_a5, fst.sweep_b5)
+        pa = fst.pack_feats_a5(fs, src, kb)
+        run_a = lambda q: fst.sweep_a5(q, pa, trips, cfg, **kw)  # noqa: E731
+        want_a = fst.sweep_a5_plain(fs, pa, cfg)
+        pb = fst.pack_feats_b5(want_a, fst.vol_now(want_a), src, kb)
+        run_b = lambda q: fst.sweep_b5(q, pb, trips, cfg, **kw)  # noqa: E731
+        plain_b = lambda q: fst.sweep_b5_plain(q, pb, cfg)  # noqa: E731
+    before = [k.launches for k in kernels]
+    _check(run_a(fs), want_a, f"{case} OUT_A")
+    got_b = run_b(want_a)
+    torch.cuda.synchronize()
+    _check(got_b, plain_b(want_a), f"{case} OUT_B")
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1]
+
+
+@pytest.mark.parametrize("impl", ["v3", "v5"])
+def test_v3_v5_step_on_card_matches_cpu(device, impl):
+    """Two v3 / v5 steps on the card (kernels) against the CPU (plain
+    versions), at the JAX suite's fused-step tolerances."""
+    cfg, st = _blob(device, n=600, seed=3)
+    kw = dict(impl=impl, pack_cap=1024 if impl == "v5" else 0)
+    got, want = st, st.to("cpu")
+    for _ in range(2):
+        got, aux = T.step_fused(got, cfg, **kw)
+        want, _ = T.step_fused(want, cfg, **kw)
+        assert int(aux.overflow) == 0
+    g, w = T.state_to_numpy(got), T.state_to_numpy(want)
+    act = w["active"]
+    for name, atol in (("pos", 5e-5), ("vel", 5e-3), ("vm", 5e-3),
+                       ("iion", 1e-5), ("w", 1e-6)):
+        np.testing.assert_allclose(g[name][act], w[name][act], atol=atol,
+                                   err_msg=name)
+    np.testing.assert_allclose(g["dens"][act], w["dens"][act], rtol=1e-5)
 
 
 def test_wrappers_reject_bad_inputs(device):

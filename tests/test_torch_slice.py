@@ -15,44 +15,10 @@ import pytest
 
 import sph_sm_monodomain_tpu as J
 import sph_sm_monodomain_tpu_torch as T
-from sph_sm_monodomain_tpu.ops import grid as jgrid
 
-from torch_parity import (assert_bit_equal, biceps_slice_points,
-                          jax_state_arrays, torch_cfg)
-
-TOLS = {"pos": 5e-5, "vel": 5e-3, "vm": 5e-3, "iion": 1e-5, "w": 1e-6}
-
-
-def _scenes():
-    pts = biceps_slice_points(every=40)
-    assert pts.shape == (462, 3)
-    jcfg = J.SimConfig()
-    js = J.init_fluid(pts, jcfg)
-    js = J.stim.turn_on_stim_mesh(js, pts, jcfg)
-    common = dict(cell_capacity=jgrid.auto_cell_capacity(pts, jcfg),
-                  neighbor_capacity=jgrid.auto_window_capacity(pts, jcfg),
-                  num_particles=pts.shape[0], name="biceps_every40",
-                  q_block=128, block_window=128, sub_block=128,
-                  fused_impl="v4")
-    jsc = J.Scene(state=js, cfg=jcfg, **common)
-    tcfg = torch_cfg(jcfg)
-    ts = T.stim.turn_on_stim_mesh(T.init_fluid(pts, tcfg, device="cpu"), pts,
-                                  tcfg)
-    tsc = T.Scene(state=ts, cfg=tcfg, **common)
-    for k, v in jax_state_arrays(js).items():
-        assert_bit_equal(T.state_to_numpy(ts)[k], v, k)
-    assert int(np.asarray(js.fixed).sum()) > 0
-    return jsc, tsc
-
-
-def _assert_states_close(ts, js, act):
-    got = T.state_to_numpy(ts)
-    for name, atol in TOLS.items():
-        np.testing.assert_allclose(got[name][act],
-                                   np.asarray(getattr(js, name))[act],
-                                   atol=atol, err_msg=name)
-    np.testing.assert_allclose(got["dens"][act], np.asarray(js.dens)[act],
-                               rtol=1e-5, err_msg="dens")
+from torch_parity import STEP_TOLS as TOLS
+from torch_parity import assert_states_close as _assert_states_close
+from torch_parity import slice_scenes as _scenes
 
 
 def test_run_protocol_matches_jax():
@@ -127,14 +93,15 @@ def test_run_protocol_callback_commands(cmd):
 
 
 def test_unported_paths_raise():
-    """What the port does not have yet raises: fused kernel generations
-    other than v4, and shape matching over several clusters (the coupled
+    """What the port does not have yet raises: the v1 / v2 ablation sweep
+    generations, and shape matching over several clusters (the coupled
     step on a replicated, multi-muscle scene)."""
     _, tsc = _scenes()
-    with pytest.raises(NotImplementedError):
-        T.step_fused(tsc.state, tsc.cfg, impl="v5")
-    with pytest.raises(NotImplementedError):
-        T.build_scene("susane", fused_impl="v5", device="cpu")
+    for impl in ("v1", "v2"):
+        with pytest.raises(NotImplementedError):
+            T.step_fused(tsc.state, tsc.cfg, impl=impl)
+        with pytest.raises(NotImplementedError):
+            T.build_scene("susane", fused_impl=impl, device="cpu")
     rep = T.build_scene("susane", replicate=2, device="cpu")
     with pytest.raises(NotImplementedError):
         T.run_protocol(rep, num_steps=1)

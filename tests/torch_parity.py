@@ -63,3 +63,46 @@ def biceps_slice_points(every: int = 40) -> np.ndarray:
     pts = J.read_cloud_csv(J.utils.io.ASSETS_DIR
                            / "biceps_simple_out_18475.csv")
     return pts[::every]
+
+
+def slice_scenes(**fields):
+    """(JAX Scene, port Scene) of the 462-particle biceps slice (every 40th
+    row of biceps_full, tendon anchors fixed, stim on), with bit-equal
+    states. `fields` override the Scene fields (fused_impl, sub_block,
+    pack_cap, ...); the defaults are the v4 ones."""
+    from sph_sm_monodomain_tpu.ops import grid as jgrid
+    pts = biceps_slice_points(every=40)
+    assert pts.shape == (462, 3)
+    jcfg = J.SimConfig()
+    js = J.stim.turn_on_stim_mesh(J.init_fluid(pts, jcfg), pts, jcfg)
+    common = dict(cell_capacity=jgrid.auto_cell_capacity(pts, jcfg),
+                  neighbor_capacity=jgrid.auto_window_capacity(pts, jcfg),
+                  num_particles=pts.shape[0], name="biceps_every40",
+                  q_block=128, block_window=128, sub_block=128,
+                  fused_impl="v4")
+    common.update(fields)
+    tcfg = torch_cfg(jcfg)
+    ts = T.stim.turn_on_stim_mesh(T.init_fluid(pts, tcfg, device="cpu"), pts,
+                                  tcfg)
+    for k, v in jax_state_arrays(js).items():
+        assert_bit_equal(T.state_to_numpy(ts)[k], v, k)
+    assert int(np.asarray(js.fixed).sum()) > 0
+    return (J.Scene(state=js, cfg=jcfg, **common),
+            T.Scene(state=ts, cfg=tcfg, **common))
+
+
+# fused-step tolerances of the JAX suite (tests/test_pallas_sweeps.py): pos,
+# vel, vm, iion, w absolute; dens relative 1e-5
+STEP_TOLS = {"pos": 5e-5, "vel": 5e-3, "vm": 5e-3, "iion": 1e-5, "w": 1e-6}
+
+
+def assert_states_close(ts, js, rows, tols=STEP_TOLS, dens_rtol=1e-5):
+    """The port's state against the JAX one on the rows `rows` (a bool
+    mask), at the fused-step tolerances."""
+    got = T.state_to_numpy(ts)
+    for name, atol in tols.items():
+        np.testing.assert_allclose(got[name][rows],
+                                   np.asarray(getattr(js, name))[rows],
+                                   atol=atol, err_msg=name)
+    np.testing.assert_allclose(got["dens"][rows], np.asarray(js.dens)[rows],
+                               rtol=dens_rtol, err_msg="dens")
