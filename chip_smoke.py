@@ -4,11 +4,13 @@
 
 Drives the port's paths on the card at the full width of
 `build_scene("biceps_full")` (18,475 particles): the chunked `run_protocol`
-of the v4 fused step, through the two hand-written CUDA sweep kernels; the
+of the v4 fused step, through the two hand-written CUDA sweep kernels, and
+of its v3, v5, v2 and v1 generations through theirs; the
 flagship (K, mu) material fit through the differentiable step, whose
 backward pass runs the two hand-written backward sweep kernels; the
 frozen-cloud monodomain mode on the hand-written Laplacian kernel, forward
-and backward; and the SPH-only, SM-only and unfused modes. Phases, each
+and backward; the SPH-only, SM-only and unfused modes; and the roofline
+tool, whose FMA-chain probe measures the card's fp32 peak. Phases, each
 printing its lines; any failure raises and exits non-zero:
 
   1. device   needs torch.cuda; prints the card's name and power limit
@@ -66,6 +68,17 @@ printing its lines; any failure raises and exits non-zero:
  18. v3/v5    6 slice steps, card against CPU, for v3 and for v5
  19. timing   the four new kernels and their plain versions, v3 / v4 / v5
               ms/step in this call, the slab packing, the bounds
+ 20. v1/v2    the v1 run bookkeeping on the card equals the CPU's; the v1
+              (K8) and v2 (K9) raw-sum sweep kernels against their plain
+              versions on the biceps_full step-0 inputs the step gives them,
+              per column
+ 21. v1/v2    run_protocol(500 steps, chunk 100) on build_scene(
+              "biceps_full", fused_impl="v1") and ("v2"), exact launch counts
+ 22. v1/v2    6 slice steps, card against CPU, for v1 and for v2
+ 23. timing   K8, K9 and their plain versions; the roofline tool on
+              biceps_full, whose FMA-chain probe (K10) measures the fp32
+              peak; K10 against its plain version; v1 / v2 / v4 ms/step in
+              this call; the bounds
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -74,7 +87,6 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 import warnings
@@ -84,6 +96,8 @@ import numpy as np
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.ablation import legacy_steps
+from sph_sm_monodomain_tpu_torch.ablation import legacy_sweeps as tls
 from sph_sm_monodomain_tpu_torch.examples import fit_fhn_fused_demo as fhn
 from sph_sm_monodomain_tpu_torch.examples import fit_material_flagship as fit
 from sph_sm_monodomain_tpu_torch.models import monodomain
@@ -99,6 +113,9 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping2,
                                                     sweep_bookkeeping3,
                                                     sweep_bookkeeping5)
+from sph_sm_monodomain_tpu_torch.tools import roofline
+from sph_sm_monodomain_tpu_torch.tools.roofline import (PEAK_BYTES,
+                                                        PEAK_FLOPS)
 from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
 
 # kernel vs plain version: |kernel - plain| <= KERNEL_TOL * max(1, max|plain
@@ -148,59 +165,40 @@ KERNELS = (
      "sph_sm_monodomain_tpu/ops/fused_step.py:855", fst),
     ("sweep_b5", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
      "sph_sm_monodomain_tpu/ops/fused_step.py:930", fst),
+    ("sweep_a", "sph_sm_monodomain_tpu_torch/csrc/legacy_sweeps.cu",
+     "sph_sm_monodomain_tpu/ablation/legacy_sweeps.py:119", tls),
+    ("sweep_b", "sph_sm_monodomain_tpu_torch/csrc/legacy_sweeps.cu",
+     "sph_sm_monodomain_tpu/ablation/legacy_sweeps.py:187", tls),
+    ("sweep_a2", "sph_sm_monodomain_tpu_torch/csrc/legacy_sweeps.cu",
+     "sph_sm_monodomain_tpu/ablation/legacy_sweeps.py:408", tls),
+    ("sweep_b2", "sph_sm_monodomain_tpu_torch/csrc/legacy_sweeps.cu",
+     "sph_sm_monodomain_tpu/ablation/legacy_sweeps.py:487", tls),
+    ("fma_chains", "sph_sm_monodomain_tpu_torch/csrc/roofline.cu",
+     "tools/roofline.py:79", roofline),
 )
+KERNEL_MODULE = {name: mod for name, _, _, mod in KERNELS}
 # Bound: the larger of the kernel's FLOPs over the fp32 peak outside the
 # tensor cores and its bytes (each input read once, each output written
-# once) over the memory rate; H100 SXM data-sheet peaks at 700 W.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-# FLOPs per pair of each kernel body (csrc/*.cu; a fused multiply-add
-# counts 2, rsqrtf, fmaxf and a compare-select 1), charged only to the
-# pairs the function needs: every pair that passes the full per-axis cell
-# mask pays its distance and support test (8 + 2); then, inside the support
-# of the kernel's weights (a pair outside it adds exactly 0):
-#   sweep A: 15 for r < h (Poly6 density + XSPH)
-#   sweep B: 40 for 1e-12 < r^2 < 4h^2 (rsqrt, Spiky pressure + viscosity,
-#            B-spline Vm Laplacian)
-#   bwd A:   43 for r < h (9 accumulators, both pair roles)
-#   bwd B:   129 for 1e-12 < r^2 < 4h^2 (rsqrt, r, r/h, then 10
-#            accumulators, both pair roles)
-#   lap:     16 for 1e-12 < r^2 < 4h^2 (rsqrt, r, r/h, the q >= 2 test,
-#            the relu-form B-spline W2 with its constant (8), vol*W2, two
-#            accumulations (3))
-# The v3 (hash9) and v5 (slab) sweeps compute sweep A's and sweep B's
-# functions: the pairs they need do not depend on the enumeration (hash9's
-# wrap pairs lie outside every support and add exactly 0), so they take K1's
-# and K2's pair counts and FLOPs.
-PAIR_FLOPS = {
-    "sweep_a3": (("full", 10), ("h", 15)),
-    "sweep_b3": (("full", 10), ("2h", 40)),
-    "sweep_lap3": (("full", 10), ("2h", 16)),
-    "sweep_bwd_a": (("full", 10), ("h", 43)),
-    "sweep_bwd_b": (("full", 10), ("2h", 129)),
-}
-PAIR_FLOPS.update(sweep_a3_hash9=PAIR_FLOPS["sweep_a3"],
-                  sweep_a5=PAIR_FLOPS["sweep_a3"],
-                  sweep_b3_hash9=PAIR_FLOPS["sweep_b3"],
-                  sweep_b5=PAIR_FLOPS["sweep_b3"])
+# once) over the memory rate: PEAK_FLOPS, PEAK_BYTES (H100 SXM data sheet,
+# 700 W), the pairs the sweeps need (pair_counts) and the FLOPs per needed
+# pair of each sweep body (pair_flops), all from the roofline tool
+# (sph_sm_monodomain_tpu_torch/tools/roofline.py).
 # the forced v5 regrow on the slice: sub-block rows and a starting slab
 # capacity its 32-row unions overflow
 REGROW_SUB_Q, REGROW_CAP = 32, 128
-# steps of the v3 / v4 / v5 ms/step comparison
+# steps of the v3 / v4 / v5 and v1 / v2 / v4 ms/step comparisons
 IMPL_TIMING_STEPS = 100
+# the K10 comparison with its plain version, at the probe's input shape:
+# chain iterations (the plain version runs two PyTorch ops each); the
+# tolerance is roofline.FMA_ULP_TOL float32 ulps (both round each chain
+# step once, as fmaf does)
+FMA_CMP_ITERS = 4096
+# steps the roofline tool times on biceps_full
+ROOFLINE_STEPS = 50
 
 
 def phase(msg: str) -> None:
     print(f"== {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    if not out:
-        raise RuntimeError("nvidia-smi reported no GPU")
-    return out[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -224,39 +222,12 @@ def step0_inputs(scene, dev):
     return fs, feats_a, lo, hi
 
 
-def pair_counts(fs, lo, hi, cfg, sub_q):
-    """Pairs the sweeps need on these inputs, counted on the card from the
-    sub-blocks' windows and the exact full cell mask (query and candidate
-    live): {"full": every pair the mask passes, "h": of those, r^2 < h^2,
-    "2h": 1e-12 < r^2 < 4h^2}."""
-    gm = float(fst._g_mid(cfg))
-    h2 = cfg.kernel_h * cfg.kernel_h
-    lo_l, hi_l = lo.tolist(), hi.tolist()
-    acc = torch.zeros(3, dtype=torch.int64, device=fs.device)
-    for b in range(fs.shape[0] // sub_q):
-        q = fs[b * sub_q:(b + 1) * sub_q, None, :]
-        for r in range(3):
-            w_lo, w_hi = lo_l[4 * b + r], hi_l[4 * b + r]
-            if w_hi <= w_lo:
-                continue
-            c = fs[None, w_lo:w_hi]
-            full = ((q[..., 13] + (r - 1) * gm - c[..., 13]).abs() <= 1.0) \
-                & ((q[..., 12] - c[..., 12]).abs() <= 1.0) \
-                & (q[..., 12] >= 0.0) & (c[..., 12] >= 0.0)
-            d = q[..., 0:3] - c[..., 0:3]
-            r2 = (d * d).sum(-1)
-            acc += torch.stack([full.sum(), (full & (r2 < h2)).sum(),
-                                (full & (r2 > 1e-12)
-                                 & (r2 < 4.0 * h2)).sum()])
-    return dict(zip(("full", "h", "2h"), acc.tolist()))
-
-
 def bound(name, counts, n_rows, nbytes=None):
     """(bound ms, "bytes" or "operations", FLOPs, bytes) of one launch.
     Bytes, unless given: (N, 16) query matrix, (16, N) features, 128-row
     sub-blocks' window bounds, the 32-slot constants and the (N, 16)
     output."""
-    flops = sum(counts[k] * f for k, f in PAIR_FLOPS[name])
+    flops = roofline.pair_flops(name, counts)
     if nbytes is None:
         nbytes = 4 * (3 * 16 * n_rows + 2 * (n_rows // 128) * 4 + 32)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -417,15 +388,214 @@ def counted_protocol(sc, names, **kw):
         return real_simulate(*args, **skw)
 
     for nm in names:
-        getattr(fst, nm).launches = 0
+        getattr(KERNEL_MODULE[nm], nm).launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with mock.patch.object(monodomain, "simulate", recording_simulate):
         st, aux, traj = T.run_protocol(sc, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (st, aux, traj, {nm: getattr(fst, nm).launches for nm in names},
+    return (st, aux, traj,
+            {nm: getattr(KERNEL_MODULE[nm], nm).launches for nm in names},
             calls, wall)
+
+
+# the v1 / v2 generations' raw-sum sweeps (ablation/legacy_sweeps.py), and
+# how many leading arguments of a recorded call are fields: sweep A's pos,
+# cvel, vol, mass, sweep B's pos, ivel, vol, pres, vm, and v2's hash; the
+# two bounds arrays follow (v1: qstart, qend; v2: blk_lo, blk_hi)
+RAW_SWEEPS = {"v1": ("sweep_a", "sweep_b"), "v2": ("sweep_a2", "sweep_b2")}
+RAW_FIELDS = {"sweep_a": 4, "sweep_b": 5, "sweep_a2": 5, "sweep_b2": 6}
+
+
+def stack4(sums):
+    """A raw sweep's (dens, xsph) or (acc, lap) as one (N, 4) tensor."""
+    return torch.cat([t if t.dim() == 2 else t[:, None] for t in sums], dim=1)
+
+
+def raw_sweep_calls(scene):
+    """The raw-sum sweeps' calls of a v1 / v2 scene's first fused step on
+    the card, as the step makes them (all positional): {name: args}.
+    Recording launches each kernel once."""
+    calls = {}
+
+    def recorder(name):
+        real = getattr(tls, name)
+
+        def record(*args):
+            calls[name] = args
+            return real(*args)
+        return record
+
+    names = RAW_SWEEPS[scene.fused_impl]
+    with mock.patch.multiple(legacy_steps, **{n: recorder(n) for n in names}):
+        T.step_fused(scene.state, scene.cfg, scene.sub_block,
+                     impl=scene.fused_impl)
+    return calls
+
+
+def raw_launchers(name, args):
+    """(kernel, plain) callables of raw sweep `name` on a recorded call's
+    inputs, each returning the (N, 4) sums. The kernel is launched directly
+    on (N, 16) queries and (16, N) features built once (no launch count, no
+    input glue); the plain sums run on the same matrices."""
+    cfg = next(a for a in args if isinstance(a, T.SimConfig))
+    nf = RAW_FIELDS[name]
+    build = tls._inputs_a if name in ("sweep_a", "sweep_a2") else tls._inputs_b
+    hash_s = args[nf - 1] if name in ("sweep_a2", "sweep_b2") else None
+    qm, feats = build(*args[:nf - (hash_s is not None)], hash_s)
+    b0, b1 = args[nf:nf + 2]
+    if name == "sweep_a":
+        return (lambda: tls._run_sweep("sph_sweep_a1", qm, feats, b0, b1,
+                                       cfg),
+                lambda: tls._plain_a1(qm, feats, b0, b1, cfg))
+    if name == "sweep_b":
+        return (lambda: tls._run_sweep("sph_sweep_b1", qm, feats, b0, b1,
+                                       cfg),
+                lambda: tls._plain_b1(qm, feats, b0, b1, cfg))
+    plain = tls._plain_a2 if name == "sweep_a2" else tls._plain_b2
+    return (lambda: tls._window_sweep(f"sph_{name}", qm, feats, b0, b1, cfg,
+                                      args[-1]),
+            lambda: plain(qm, feats, cfg))
+
+
+def phase_raw_kernels(dev, report):
+    """Phase 20: the v1 bookkeeping card == CPU; K8 and K9 against their
+    plain versions on the step-0 inputs the biceps_full step gives them.
+    Returns {impl: (scene, recorded calls)}."""
+    raw = {}
+    for impl in RAW_SWEEPS:
+        sc = T.build_scene("biceps_full", fused_impl=impl, device=dev)
+        raw[impl] = (sc, raw_sweep_calls(sc))
+    sc, st = raw["v1"][0], raw["v1"][0].state
+    on_card = tls.sweep_bookkeeping(st.pos, st.active, sc.cfg, sc.sub_block)
+    on_cpu = tls.sweep_bookkeeping(st.pos.cpu(), st.active.cpu(), sc.cfg,
+                                   sc.sub_block)
+    for name, a, b in zip(("order", "inv", "qstart", "qend", "blk_start",
+                           "blk_len"), on_card, on_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"v1 bookkeeping {name} differs card vs CPU")
+    print(f"v1 bookkeeping (sub_block {sc.sub_block}): card == CPU exactly "
+          "(order, inv, per-query runs, block windows)", flush=True)
+    for impl, (sc, calls) in raw.items():
+        for name in RAW_SWEEPS[impl]:
+            args = calls[name]
+            nb = RAW_FIELDS[name] + 2 * (impl == "v1")
+            check_kernel(report, name, stack4(getattr(tls, name)(*args)),
+                         stack4(getattr(tls, f"{name}_plain")(
+                             *args[:nb], sc.cfg)))
+    return raw
+
+
+def phase_raw_protocol(raw, v4_end, launches) -> dict:
+    """Phase 21: 500-step run_protocol of the v1 and v2 scenes, each kernel
+    launched exactly once a step; positions beside v4's."""
+    runs = {}
+    for impl, (sc, _) in raw.items():
+        st_r, aux_r, _, got, calls, wall = counted_protocol(
+            sc, RAW_SWEEPS[impl], num_steps=STEPS, chunk=CHUNK)
+        run_steps = sum(n for _, n in calls)
+        act = sc.state.active
+        diff = float((st_r.pos[act] - v4_end.pos[act]).abs().max())
+        print(f"{impl}: {STEPS} steps in {wall:.3f} s wall, launches {got}; "
+              f"positions vs v4's after {STEPS} steps: max abs diff "
+              f"{diff:.6g}", flush=True)
+        if run_steps != STEPS or any(n != STEPS for n in got.values()):
+            raise AssertionError(f"{impl} launches {got} over {run_steps} "
+                                 f"steps, want {STEPS}")
+        check_protocol_run(st_r, aux_r, sc.cfg, f"{impl} run_protocol")
+        launches.update(got)
+        runs[impl] = {"wall_s": wall, "pos_vs_v4": diff}
+    return runs
+
+
+def phase_raw_timing(dev, raw, scene, counts, times, bounds, launches,
+                     report) -> dict:
+    """Phase 23: K8 and K9 against their plain versions; the roofline tool
+    on biceps_full, whose FMA-chain probe (K10) is the path that launches
+    K10; K10 against its plain version; v1 / v2 / v4 ms/step; the bounds.
+    Returns the numbers for the JSON line."""
+    n_rows = scene.state.capacity
+    for impl, (sc, calls) in raw.items():
+        for name in RAW_SWEEPS[impl]:
+            kern, plain = raw_launchers(name, calls[name])
+            times[name] = (cuda_ms(kern, 200), cuda_ms(plain, 5))
+            print(f"{name}: kernel {times[name][0]:.4f} ms, plain "
+                  f"{times[name][1]:.4f} ms", flush=True)
+
+    roofline.fma_chains.launches = 0
+    torch.cuda.synchronize()
+    roof = roofline.report("biceps_full", None, ROOFLINE_STEPS)
+    torch.cuda.synchronize()
+    launches["fma_chains"] = roofline.fma_chains.launches
+    if not (launches["fma_chains"] > 0 and roof["peak_flops"] > 0.0):
+        raise AssertionError(f"roofline: {launches['fma_chains']} K10 "
+                             f"launches, peak {roof['peak_flops']}")
+    if roof["pairs"] != counts:
+        raise AssertionError(f"roofline pairs {roof['pairs']} differ from "
+                             f"the bounds' {counts}")
+    x = roofline.fma_probe_input(dev)
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        x.numel()).astype(np.float32)).to(dev)
+    got = roofline.fma_chains(x, FMA_CMP_ITERS)
+    want = roofline.fma_chains_plain(x, FMA_CMP_ITERS)
+    torch.cuda.synchronize()
+    ulps = roofline.ulp_error(got, want)
+    report["fma_chains"] = {"max_abs_err": float((got - want).abs().max())}
+    print(f"fma_chains ({x.numel()} threads x {roofline.FMA_CHAINS} chains, "
+          f"{FMA_CMP_ITERS} iterations): max_abs_err "
+          f"{report['fma_chains']['max_abs_err']:.6g}, {ulps:.3g} ulp "
+          f"(tolerance {roofline.FMA_ULP_TOL:g}); probe peak "
+          f"{roof['peak_flops'] / 1e12:.4f} TFLOP/s against the data sheet's "
+          f"{PEAK_FLOPS / 1e12:.0f}", flush=True)
+    if not (torch.isfinite(got).all() and ulps <= roofline.FMA_ULP_TOL):
+        raise AssertionError("fma_chains disagrees with its plain version")
+    # timed at the probe's longer chain, where launch and tail are small
+    iters = roofline.FMA_ITERS[1]
+    times["fma_chains"] = (
+        cuda_ms(lambda: roofline.fma_chains(x, iters), 5),
+        cuda_ms(lambda: roofline.fma_chains_plain(x, iters), 1))
+    print(f"fma_chains at {iters} iterations: kernel "
+          f"{times['fma_chains'][0]:.4f} ms, plain "
+          f"{times['fma_chains'][1]:.4f} ms", flush=True)
+
+    impl_ms = {"v1": [], "v2": [], "v4": []}
+    scenes = {"v1": raw["v1"][0], "v2": raw["v2"][0], "v4": scene}
+    with torch.no_grad():
+        for label in ("v4", "v1", "v2", "v2", "v1", "v4"):
+            sc = scenes[label]
+            impl_ms[label].append(timed_run(
+                lambda k, sc=sc: T.simulate(sc.state, sc.cfg, k,
+                                            sub_q=sc.sub_block,
+                                            impl=sc.fused_impl),
+                IMPL_TIMING_STEPS)[0])
+    print(f"ms/step over {IMPL_TIMING_STEPS} steps, in the order v4 v1 v2 "
+          f"v2 v1 v4: {impl_ms}", flush=True)
+
+    # bytes: queries, features, the run or window bounds, constants, out
+    blocks2 = n_rows // raw["v2"][0].sub_block
+    nbytes = {"sweep_a": 4 * (2 * 16 * n_rows + 2 * 16 * n_rows
+                              + 4 * n_rows + 32),
+              "sweep_a2": 4 * (2 * 16 * n_rows + 2 * 16 * blocks2
+                               + 4 * n_rows + 32)}
+    nbytes.update(sweep_b=nbytes["sweep_a"], sweep_b2=nbytes["sweep_a2"])
+    for name, nb in nbytes.items():
+        bounds[name] = bound(name, counts, n_rows, nb)
+    flops = 2.0 * iters * roofline.FMA_CHAINS * x.numel()
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, 8 * x.numel() / PEAK_BYTES * 1e3
+    bounds["fma_chains"] = (max(t_ops, t_bytes), "operations"
+                            if t_ops >= t_bytes else "bytes", flops,
+                            8 * x.numel())
+    for name in list(nbytes) + ["fma_chains"]:
+        b_ms, by, fl, nb = bounds[name]
+        print(f"{name}: {fl / 1e6:.3f} MFLOP, {nb / 1e6:.3f} MB, bound "
+              f"{b_ms * 1e3:.4f} us ({by}), kernel at "
+              f"{b_ms / times[name][0] * 100:.3f}% of it", flush=True)
+    walked = {impl: roofline.walked_per_row(sc) for impl, (sc, _) in
+              raw.items()}
+    print(f"candidates walked per query row (step 0): {walked}", flush=True)
+    return {"raw_impl_ms_per_step": impl_ms, "roofline": roof,
+            "raw_walked_per_row": walked}
 
 
 def main() -> int:
@@ -436,7 +606,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    print(card_line(), flush=True)
+    print(roofline.card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} ({kind})", flush=True)
     monodomain.ensure_fp32()
@@ -613,7 +783,8 @@ def main() -> int:
             "sweep_bwd_a": FIT_STEPS * FIT_ITERS,
             "sweep_bwd_b": FIT_STEPS * FIT_ITERS,
             "sweep_a3_hash9": 0, "sweep_b3_hash9": 0, "sweep_a5": 0,
-            "sweep_b5": 0}
+            "sweep_b5": 0, "sweep_a": 0, "sweep_b": 0, "sweep_a2": 0,
+            "sweep_b2": 0, "fma_chains": 0}
     if fit_launches != want:
         raise AssertionError(f"fit launches {fit_launches}, want {want}")
     launches.update(sweep_bwd_a=fit_launches["sweep_bwd_a"],
@@ -644,7 +815,7 @@ def main() -> int:
           f"max_memory_allocated {peak / 2**30:.4f} GiB "
           f"({(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} "
           f"MiB held before the grad call)", flush=True)
-    counts = pair_counts(fs, lo, hi, cfg, sub_q)
+    counts = roofline.pair_counts(fs, lo, hi, cfg, sub_q)
     print(f"pairs the sweeps need (biceps_full step 0): {counts}",
           flush=True)
     bounds = {}
@@ -923,7 +1094,8 @@ def main() -> int:
           f"above the {base / 2**20:.1f} MiB held before the prepare); vm "
           f"max {float(bvm.max()):.6g}", flush=True)
 
-    lap_counts = pair_counts(qm_f, tab.blk_lo, tab.blk_hi, cfg, sub_q)
+    lap_counts = roofline.pair_counts(qm_f, tab.blk_lo, tab.blk_hi, cfg,
+                                      sub_q)
     bounds["sweep_lap3"] = bound("sweep_lap3", lap_counts, n_rows)
     b_ms, by, flops, nbytes = bounds["sweep_lap3"]
     print(f"pairs the Laplacian kernel needs (biceps_full): {lap_counts}; "
@@ -1095,12 +1267,24 @@ def main() -> int:
     print(f"v5 slab slots the unions fill: {slots5} of "
           f"{pa5.shape[0] * kb5}", flush=True)
     # candidates each generation's kernels walk per query row at step 0
-    walked = {
-        "v4": float((hi - lo).sum()) / (n_rows // sub_q),
-        "v3": float((hi3 - lo3).sum()) / (n_rows // sq3),
-        "v5": float(torch.clamp(trips5 * scene5.block_window, max=kb5)
-                    .sum()) / (n_rows // sq5)}
+    walked = {impl: roofline.walked_per_row(sc) for impl, sc in (
+        ("v4", scene), ("v3", scene3), ("v5", scene5))}
     print(f"candidates walked per query row (step 0): {walked}", flush=True)
+
+    phase("20 v1 / v2 kernels vs plain versions (biceps_full step-0 "
+          "inputs)")
+    raw = phase_raw_kernels(dev, report)
+    phase(f"21 v1 / v2 main paths: run_protocol({STEPS} steps, chunk "
+          f"{CHUNK}) on biceps_full")
+    raw_runs = phase_raw_protocol(raw, state, launches)
+    phase("22 v1 / v2 small input: kernels on the card vs plain versions "
+          "on the CPU")
+    for label in RAW_SWEEPS:
+        slice_card_vs_cpu(slice_scene(dev, label), label)
+    phase("23 timing: K8, K9, the roofline tool and K10, v1 / v2 / v4 "
+          "ms/step, bounds")
+    raw_timing = phase_raw_timing(dev, raw, scene, counts, times, bounds,
+                                  launches, report)
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
@@ -1117,7 +1301,8 @@ def main() -> int:
         "mode_ms_per_step": mode_ms,
         "impl_ms_per_step": impl_ms, "slab_pack_ms": pack_ms,
         "walked_per_row": walked,
-        "v3_v5_runs": runs, "v5_regrow": regrow,
+        "v3_v5_runs": runs, "v5_regrow": regrow, "v1_v2_runs": raw_runs,
+        **raw_timing,
         "replicate": {"particles": big.num_particles,
                       "prepare_s": prep_big_s, "ms_per_step": big_ms,
                       "lap_kernel_ms": big_lap_ms,

@@ -8,8 +8,11 @@ versions that run on the CPU), its differentiable form `step_fused_diff`
 (two hand-written backward sweep kernels, csrc/fused_adjoint.cu), the
 unfused reference step `step`, the chunked run loops, and the variant
 modes of `variants` (SPH-only, SM-only, and the frozen-cloud monodomain
-mode on a hand-written Laplacian kernel, forward and backward). Entry
-points build on the card unless given device="cpu". The JAX package is the reference this port is tested
+mode on a hand-written Laplacian kernel, forward and backward), the v3 /
+v5 generations of the fused step and the v1 / v2 ablation baselines
+(`ablation/`), each on its own hand-written sweep kernels, and the roofline
+tool (`tools/roofline.py`, whose FMA-chain probe measures the card's fp32
+peak). Entry points build on the card unless given device="cpu". The JAX package is the reference this port is tested
 against; this package imports neither jax nor sph_sm_monodomain_tpu.
 """
 

@@ -65,73 +65,6 @@ using RowsB5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14>;
 //   Laplacian sweep: pos3 | vol | vm | cx | cyz
 using RowsL = Rows<0, 1, 2, 3, 4, 12, 13>;
 
-// Sweep A's pair sums (_pair_step_a): XSPH velocity sum + Poly6 density in
-// the reference's per-pair difference form (cpp:483, 688-695), reading the
-// staged rows 0-7 of a tile of width T.
-struct PairSumsA {
-  float qx, qy, qz, qvx, qvy, qvz, h2, p6c;
-  float a_d = 0.0f, a_x = 0.0f, a_y = 0.0f, a_z = 0.0f;
-
-  __device__ PairSumsA(const float* q, const float* prm)
-      : qx(q[0]), qy(q[1]), qz(q[2]), qvx(q[3]), qvy(q[4]), qvz(q[5]),
-        h2(prm[H2]), p6c(prm[POLY6]) {}
-
-  __device__ __forceinline__ void add(const float* tile, int T, int k) {
-    const float dx = qx - tile[k], dy = qy - tile[T + k],
-                dz = qz - tile[2 * T + k];
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    // Poly6 support folded into the weight: t == 0 adds exactly 0
-    const float t = fmaxf(h2 - r2, 0.0f);
-    if (t == 0.0f) return;
-    const float w6 = p6c * t * t * t;
-    const float wv = w6 * tile[6 * T + k];
-    a_d += w6 * tile[7 * T + k];
-    a_x += wv * (tile[3 * T + k] - qvx);
-    a_y += wv * (tile[4 * T + k] - qvy);
-    a_z += wv * (tile[5 * T + k] - qvz);
-  }
-};
-
-// Sweep B's pair sums (_pair_step_b): Spiky pressure + viscosity and the
-// B-spline-2 Vm Laplacian (cpp:546-563), reading the staged rows 0-8.
-struct PairSumsB {
-  float qx, qy, qz, qivx, qivy, qivz, qp, qvm, h, inv_h, spiky_c, bs_c, mu;
-  int with_ep;
-  float a_ax = 0.0f, a_ay = 0.0f, a_az = 0.0f, a_lap = 0.0f;
-
-  __device__ PairSumsB(const float* q, const float* prm, int with_ep_)
-      : qx(q[0]), qy(q[1]), qz(q[2]), qivx(q[3]), qivy(q[4]), qivz(q[5]),
-        qp(q[6]), qvm(q[7]), h(prm[KERNEL_H]), inv_h(prm[INV_H]),
-        spiky_c(prm[SPIKY]), bs_c(prm[BSPLINE]), mu(prm[MU_VISCOSITY]),
-        with_ep(with_ep_) {}
-
-  __device__ __forceinline__ void add(const float* tile, int T, int k) {
-    const float dx = qx - tile[k], dy = qy - tile[T + k],
-                dz = qz - tile[2 * T + k];
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    if (!(r2 > kPairEps)) return;  // cpp:546
-    const float inv_rr = rsqrtf(r2);
-    const float rr = r2 * inv_rr;
-    const float vol = tile[6 * T + k];
-    // spiky support [0, h] via relu(h - r)
-    const float hr = fmaxf(h - rr, 0.0f);
-    const float common = vol * (spiky_c * hr);
-    const float f_p =
-        common * (hr * (-0.5f) * inv_rr) * (qp + tile[7 * T + k]);
-    const float f_v = mu * common;
-    a_ax += f_v * (tile[3 * T + k] - qivx) - f_p * dx;
-    a_ay += f_v * (tile[4 * T + k] - qivy) - f_p * dy;
-    a_az += f_v * (tile[5 * T + k] - qivz) - f_p * dz;
-    if (with_ep) {
-      // B_spline_2 (cpp:186-196) in relu form
-      const float qr = rr * inv_h;
-      const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
-                               6.0f * fmaxf(1.0f - qr, 0.0f));
-      a_lap += (vol * w2) * (tile[8 * T + k] - qvm);
-    }
-  }
-};
-
 // Sweep A's epilogue (_a_epilogue, cpp:483-503, 575-593, 699): the OUT_A row
 // `o` from the QM_A row `q` and the pair sums. Columns 12-14 (the cell
 // features: cx cyz -, hash 0 -, or cf cm cs) are copied through.

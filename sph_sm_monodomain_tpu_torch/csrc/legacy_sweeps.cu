@@ -1,0 +1,242 @@
+// The v1 and v2 raw-sum neighbor sweeps, hand-written for Hopper (sm_90a):
+// the ablation baselines of the fused step. Plain C interface, loaded through
+// ctypes (sph_sm_monodomain_tpu_torch/ops/cuda_lib.py); the Python wrappers
+// are sweep_a / sweep_b / sweep_a2 / sweep_b2 in ablation/legacy_sweeps.py,
+// beside their plain PyTorch versions (sweep_*_plain).
+//
+// Replaces the Pallas TPU kernels of
+// sph_sm_monodomain_tpu/ablation/legacy_sweeps.py:
+//   _sweep_a_kernel / _sweep_b_kernel (v1)   -> sweep_a1_kernel / sweep_b1_kernel
+//                                               (K8)
+//   _sweep_a2_kernel / _sweep_b2_kernel (v2) -> sweep_a2_kernel / sweep_b2_kernel
+//                                               (K9)
+// Each writes the raw pair sums of a sorted query row, (N, 4) f32, with no
+// epilogue: sweep A [dens, xsph3] (the query's own row counted in the
+// density), sweep B [acc_raw3 (before the division by the query's density),
+// lap]. The step's glue (ablation/legacy_steps.py) runs the pointwise phases
+// in PyTorch.
+//
+// K8 design. One thread per sorted query row walks its own nine exact runs
+// [qstart[i, r], qend[i, r]) (sweep_bookkeeping: the x-neighbour cells of
+// one (dy, dz) row of its 27-cell stencil) straight from the (16, N) feature
+// matrix in global memory: 1.2 MB at biceps_full, so it sits in the 50 MB L2.
+// The runs are exact, so there is no shared-memory tile and no cell mask,
+// and a dead query has empty runs. The TPU kernel walks each sub-block's
+// 128-aligned block windows and masks every candidate by the query's runs;
+// the block windows are supersets of their queries' runs, so walking the
+// runs computes the same function, and the kernel does not read them. The
+// 32 sorted rows of a warp mostly share a cell and so its runs: their loads
+// broadcast; lanes diverge where their runs differ in length.
+//
+// K9 design. K6's enumeration (sweep_common.cuh for_each_neighbor_hash9):
+// one thread block per bookkeeping sub-block of sub_q rows stages each of
+// its nine run windows [lo, hi) (sweep_bookkeeping2) through shared memory,
+// exactly (the TPU's 128-aligned start only adds rows the hash test
+// rejects), with the mask |qh + d_r - ch| <= 1 on the linear cell hash in
+// row / column 12; the pair sums are K1's / K2's (PairSumsA / PairSumsB).
+//
+// Pair arithmetic. K8 A and both K9 sweeps use PairSumsA / PairSumsB. K8 B
+// keeps v1's own (PairSumsB1): r = sqrtf(r^2) and 1/r a division (IEEE:
+// no --use_fast_math), Spiky support r <= h, the B-spline in its piecewise
+// form with support q < 2, and q = r * (1/h) with 1/h an fp32 division.
+// Every sum is accumulated per pair in difference form, f * (x_j - x_i), not
+// the TPU's sum-then-subtract x_i * sum f - sum f * x_j: that form is the
+// layout of the MXU output contraction (_dotT), and it loses about |x|/|dx|
+// of relative precision; this card runs fp32 without tensor cores.
+//
+// What bounds them on the H100: not memory (the features and run bounds are
+// a few MB and stay in L2) but instruction issue at low occupancy: 18,560
+// rows make 580 warps, about 4.4 per SM, each thread a serial loop over its
+// candidates (about 554 in its runs for K8, its block's ~1,700 window rows
+// for K9).
+
+#include "sweep_common.cuh"
+
+namespace {
+
+using namespace sph;
+
+// Staged candidate feature rows of the v2 sweeps (the hash in row 12, zero in
+// row 13):
+//   sweep A: pos3 | cvel3 | vol_prev | mass | hash | 0
+//   sweep B: pos3 | ivel3 | vol | pres | vm | hash | 0
+using RowsA2 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13>;
+using RowsB2 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
+
+constexpr int kRunThreads = 32;  // K8 rows per block: 580 blocks at 18,560
+
+// v1 sweep B's pair sums (legacy_sweeps.py:239-272), reading rows 0-8 of
+// candidate k of the (16, T) feature matrix.
+struct PairSumsB1 {
+  float qx, qy, qz, qivx, qivy, qivz, qp, qvm, h, inv_h, spiky_c, bs_c, mu;
+  float a_ax = 0.0f, a_ay = 0.0f, a_az = 0.0f, a_lap = 0.0f;
+
+  __device__ PairSumsB1(const float* q, const float* prm)
+      : qx(q[0]), qy(q[1]), qz(q[2]), qivx(q[3]), qivy(q[4]), qivz(q[5]),
+        qp(q[6]), qvm(q[7]), h(prm[KERNEL_H]), inv_h(1.0f / prm[KERNEL_H]),
+        spiky_c(prm[SPIKY]), bs_c(prm[BSPLINE]), mu(prm[MU_VISCOSITY]) {}
+
+  __device__ __forceinline__ void add(const float* f, int T, int k) {
+    const float dx = qx - f[k], dy = qy - f[T + k], dz = qz - f[2 * T + k];
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (!(r2 > kPairEps)) return;  // cpp:546
+    const float rr = sqrtf(r2);
+    const float inv_rr = 1.0f / rr;
+    const float vol = f[6 * T + k];
+    if (rr <= h) {
+      // pressure (cpp:550-554) and viscosity (cpp:556-560) share the
+      // support [0, h] and the factor vol * Spiky_c * (h - r)
+      const float hr = h - rr;
+      const float common = vol * (spiky_c * hr);
+      const float f_p =
+          common * (hr * (-0.5f) * inv_rr) * (qp + f[7 * T + k]);
+      const float f_v = mu * common;
+      a_ax += f_v * (f[3 * T + k] - qivx) - f_p * dx;
+      a_ay += f_v * (f[4 * T + k] - qivy) - f_p * dy;
+      a_az += f_v * (f[5 * T + k] - qivz) - f_p * dz;
+    }
+    // monodomain Laplacian (cpp:562-563): B_spline_2 on [0, 2h)
+    const float qr = rr * inv_h;
+    const float w2 = qr < 1.0f   ? bs_c * (-3.0f + 4.5f * qr)
+                     : qr < 2.0f ? bs_c * 1.5f * (2.0f - qr)
+                                 : 0.0f;
+    a_lap += (vol * w2) * (f[8 * T + k] - qvm);
+  }
+};
+
+// Walk the nine exact runs of sorted query row `row`, calling pair.add on
+// the (16, n) features for each candidate row.
+template <class Pair>
+__device__ __forceinline__ void walk_runs(Pair& pair, const float* feats,
+                                          const int* qstart, const int* qend,
+                                          size_t row, int n) {
+  for (int r = 0; r < 9; ++r) {
+    const int lo = qstart[row * 16 + r], hi = qend[row * 16 + r];
+    for (int j = lo; j < hi; ++j) pair.add(feats, n, j);
+  }
+}
+
+// v1 sweep A (replaces _sweep_a_kernel): Poly6 density + XSPH over the runs.
+__global__ void sweep_a1_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ feats,
+                                const int* __restrict__ qstart,
+                                const int* __restrict__ qend,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int n) {
+  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= (size_t)n) return;
+  PairSumsA s(qm + row * 16, prm);
+  walk_runs(s, feats, qstart, qend, row, n);
+  float* o = out + row * 4;
+  o[0] = s.a_d;
+  o[1] = s.a_x;
+  o[2] = s.a_y;
+  o[3] = s.a_z;
+}
+
+// v1 sweep B (replaces _sweep_b_kernel): forces + Vm Laplacian over the runs.
+__global__ void sweep_b1_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ feats,
+                                const int* __restrict__ qstart,
+                                const int* __restrict__ qend,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int n) {
+  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= (size_t)n) return;
+  PairSumsB1 s(qm + row * 16, prm);
+  walk_runs(s, feats, qstart, qend, row, n);
+  float* o = out + row * 4;
+  o[0] = s.a_ax;
+  o[1] = s.a_ay;
+  o[2] = s.a_az;
+  o[3] = s.a_lap;
+}
+
+// v2 sweep A (replaces _sweep_a2_kernel): K6's run windows and hash mask,
+// raw sums. A dead query (hash sentinel) keeps zero sums.
+__global__ void sweep_a2_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ feats,
+                                const int* __restrict__ blk_lo,
+                                const int* __restrict__ blk_hi,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int n, int gx,
+                                int gy) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  PairSumsA s(q, prm);
+  for_each_neighbor_hash9(RowsA2{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
+                          q[12], q[12] >= 0.0f,
+                          [&](int k) { s.add(tile, T, k); });
+  float* o = out + row * 4;
+  o[0] = s.a_d;
+  o[1] = s.a_x;
+  o[2] = s.a_y;
+  o[3] = s.a_z;
+}
+
+// v2 sweep B (replaces _sweep_b2_kernel).
+__global__ void sweep_b2_kernel(const float* __restrict__ qm,
+                                const float* __restrict__ feats,
+                                const int* __restrict__ blk_lo,
+                                const int* __restrict__ blk_hi,
+                                const float* __restrict__ prm,
+                                float* __restrict__ out, int n, int gx,
+                                int gy) {
+  extern __shared__ float tile[];
+  const int T = blockDim.x;
+  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+  const float* q = qm + row * 16;
+  PairSumsB s(q, prm, 1);
+  for_each_neighbor_hash9(RowsB2{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
+                          q[12], q[12] >= 0.0f,
+                          [&](int k) { s.add(tile, T, k); });
+  float* o = out + row * 4;
+  o[0] = s.a_ax;
+  o[1] = s.a_ay;
+  o[2] = s.a_az;
+  o[3] = s.a_lap;
+}
+
+int run_blocks(int n) { return (n + kRunThreads - 1) / kRunThreads; }
+
+}  // namespace
+
+extern "C" {
+
+int sph_sweep_a1(const float* qm, const float* feats, const int* qstart,
+                 const int* qend, const float* prm, float* out, int n,
+                 void* stream) {
+  sweep_a1_kernel<<<run_blocks(n), kRunThreads, 0, (cudaStream_t)stream>>>(
+      qm, feats, qstart, qend, prm, out, n);
+  return (int)cudaGetLastError();
+}
+
+int sph_sweep_b1(const float* qm, const float* feats, const int* qstart,
+                 const int* qend, const float* prm, float* out, int n,
+                 void* stream) {
+  sweep_b1_kernel<<<run_blocks(n), kRunThreads, 0, (cudaStream_t)stream>>>(
+      qm, feats, qstart, qend, prm, out, n);
+  return (int)cudaGetLastError();
+}
+
+int sph_sweep_a2(const float* qm, const float* feats, const int* blk_lo,
+                 const int* blk_hi, const float* prm, float* out, int n,
+                 int sub_q, int gx, int gy, void* stream) {
+  const size_t smem = RowsA2::count * (size_t)sub_q * sizeof(float);
+  sweep_a2_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, gx, gy);
+  return (int)cudaGetLastError();
+}
+
+int sph_sweep_b2(const float* qm, const float* feats, const int* blk_lo,
+                 const int* blk_hi, const float* prm, float* out, int n,
+                 int sub_q, int gx, int gy, void* stream) {
+  const size_t smem = RowsB2::count * (size_t)sub_q * sizeof(float);
+  sweep_b2_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, gx, gy);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,8 +1,9 @@
 // Shared pieces of the port's neighbor-sweep kernels (fused_sweeps.cu:
 // sweep A / sweep B in their v4, v3 and v5 forms; fused_adjoint.cu: their
-// backward sweeps): the slots of the physics-constant vector, the staging of
-// candidate features into shared memory, and the three candidate loops with
-// their exact masks.
+// backward sweeps; legacy_sweeps.cu: the v1 / v2 raw-sum sweeps): the slots
+// of the physics-constant vector, the staging of candidate features into
+// shared memory, the pair sums of sweep A and sweep B, and the three
+// candidate loops with their exact masks.
 //
 // Every sweep runs one thread block per bookkeeping sub-block of `sub_q`
 // sorted query rows, one thread per query row. The block stages tiles of
@@ -66,6 +67,74 @@ __device__ __forceinline__ void stage_rows(Rows<R...>, float* tile,
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
+
+// Sweep A's pair sums (_pair_step_a): XSPH velocity sum + Poly6 density in
+// the reference's per-pair difference form (cpp:483, 688-695), reading rows
+// 0-7 of candidate k of a row-major feature block of width T: a staged tile,
+// or the whole (16, N) matrix with T = N.
+struct PairSumsA {
+  float qx, qy, qz, qvx, qvy, qvz, h2, p6c;
+  float a_d = 0.0f, a_x = 0.0f, a_y = 0.0f, a_z = 0.0f;
+
+  __device__ PairSumsA(const float* q, const float* prm)
+      : qx(q[0]), qy(q[1]), qz(q[2]), qvx(q[3]), qvy(q[4]), qvz(q[5]),
+        h2(prm[H2]), p6c(prm[POLY6]) {}
+
+  __device__ __forceinline__ void add(const float* tile, int T, int k) {
+    const float dx = qx - tile[k], dy = qy - tile[T + k],
+                dz = qz - tile[2 * T + k];
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    // Poly6 support folded into the weight: t == 0 adds exactly 0
+    const float t = fmaxf(h2 - r2, 0.0f);
+    if (t == 0.0f) return;
+    const float w6 = p6c * t * t * t;
+    const float wv = w6 * tile[6 * T + k];
+    a_d += w6 * tile[7 * T + k];
+    a_x += wv * (tile[3 * T + k] - qvx);
+    a_y += wv * (tile[4 * T + k] - qvy);
+    a_z += wv * (tile[5 * T + k] - qvz);
+  }
+};
+
+// Sweep B's pair sums (_pair_step_b): Spiky pressure + viscosity and the
+// B-spline-2 Vm Laplacian (cpp:546-563), reading rows 0-8 as PairSumsA does.
+struct PairSumsB {
+  float qx, qy, qz, qivx, qivy, qivz, qp, qvm, h, inv_h, spiky_c, bs_c, mu;
+  int with_ep;
+  float a_ax = 0.0f, a_ay = 0.0f, a_az = 0.0f, a_lap = 0.0f;
+
+  __device__ PairSumsB(const float* q, const float* prm, int with_ep_)
+      : qx(q[0]), qy(q[1]), qz(q[2]), qivx(q[3]), qivy(q[4]), qivz(q[5]),
+        qp(q[6]), qvm(q[7]), h(prm[KERNEL_H]), inv_h(prm[INV_H]),
+        spiky_c(prm[SPIKY]), bs_c(prm[BSPLINE]), mu(prm[MU_VISCOSITY]),
+        with_ep(with_ep_) {}
+
+  __device__ __forceinline__ void add(const float* tile, int T, int k) {
+    const float dx = qx - tile[k], dy = qy - tile[T + k],
+                dz = qz - tile[2 * T + k];
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (!(r2 > kPairEps)) return;  // cpp:546
+    const float inv_rr = rsqrtf(r2);
+    const float rr = r2 * inv_rr;
+    const float vol = tile[6 * T + k];
+    // spiky support [0, h] via relu(h - r)
+    const float hr = fmaxf(h - rr, 0.0f);
+    const float common = vol * (spiky_c * hr);
+    const float f_p =
+        common * (hr * (-0.5f) * inv_rr) * (qp + tile[7 * T + k]);
+    const float f_v = mu * common;
+    a_ax += f_v * (tile[3 * T + k] - qivx) - f_p * dx;
+    a_ay += f_v * (tile[4 * T + k] - qivy) - f_p * dy;
+    a_az += f_v * (tile[5 * T + k] - qivz) - f_p * dz;
+    if (with_ep) {
+      // B_spline_2 (cpp:186-196) in relu form
+      const float qr = rr * inv_h;
+      const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
+                               6.0f * fmaxf(1.0f - qr, 0.0f));
+      a_lap += (vol * w2) * (tile[8 * T + k] - qvm);
+    }
+  }
+};
 
 // The window loop of every sweep: pair(k) runs for each staged candidate k
 // of the tile that passes the cell mask, in window order. All threads of the

@@ -8,8 +8,9 @@ correction, sweep A (XSPH + density + EOS + FHN), sweep B (forces + Vm
 Laplacian + integration + walls), unsort. The generations differ only in
 the bookkeeping and the sweeps' candidate enumeration (ops/fused_step.py);
 v5's packed slabs have a capacity, whose overflow run_protocol regrows.
-`step` is the unfused reference
-form of the same phases over a neighbor table (ops/grid.py, ops/sph.py):
+The v1 / v2 ablation baselines (ablation/legacy_steps.py) run the
+pointwise phases between raw-sum sweeps in PyTorch. `step` is the unfused
+reference form of the same phases over a neighbor table (ops/grid.py, ops/sph.py):
 plain PyTorch everywhere, and the in-package cross-check of the fused step.
 `simulate` is a Python loop over steps; `run_protocol` replays the
 reference app's experiment protocol in chunks. `step_fused_diff` is the
@@ -73,12 +74,15 @@ def step_fused(state: ParticleState, cfg: SimConfig, sub_q: int | None = None,
     `impl`: the sweep generation, as in the JAX package: "v4" (three
     merged windows, the production default), "v3" (nine hash run windows),
     "v5" (per-sub-block packed candidate slabs of `pack_cap` slots, whose
-    overflow StepAux reports) or "v5s" (v5 over each whole slab). `sub_q`:
-    rows per bookkeeping sub-block, which is one thread block of the sweep
-    kernels (None: 64 for v3, 128 for v4, 32 for v5). `w_chunk`: the chunk
-    width the v5 trip counts are counted in (the JAX package's w_window);
-    v3 and v4 take no TPU tiling parameter, since their kernels iterate
-    each window exactly. `sm_inv`: hoisted shape-matching invariants.
+    overflow StepAux reports), "v5s" (v5 over each whole slab), or the
+    ablation baselines "v2" (v3's windows, raw-sum sweeps and PyTorch glue)
+    and "v1" (per-query run bounds, raw-sum sweeps), which
+    ablation/legacy_steps.py runs. `sub_q`: rows per bookkeeping
+    sub-block, which is one thread block of the window sweep kernels
+    (None: 64 for v3, 128 for v4 and v1, 32 for v5 and v2). `w_chunk`: the
+    chunk width the v5 trip counts are counted in (the JAX package's
+    w_window); the other generations take no TPU tiling parameter, since
+    their kernels iterate each window or run exactly. `sm_inv`: hoisted shape-matching invariants.
     `params` (v4 only): per-call physics overrides (config.PARAM_FIELDS)
     that reach the kernels through the physics-constant vector
     (ops.fused_step.build_dynp). `sweeps` (v4 only): a (sweep_a, sweep_b)
@@ -92,9 +96,12 @@ def step_fused(state: ParticleState, cfg: SimConfig, sub_q: int | None = None,
                               sm_inv, static_trips=impl == "v5s")
     if impl == "v3":
         return _step_fused_v3(state, cfg, sub_q or 64, sm_inv)
-    if impl in ("v1", "v2"):
-        raise NotImplementedError(f"impl={impl!r}: the v1 / v2 ablation "
-                                  "sweeps are not ported")
+    if impl == "v2":
+        from ..ablation.legacy_steps import _step_fused_v2
+        return _step_fused_v2(state, cfg, sub_q or 32, sm_inv)
+    if impl == "v1":
+        from ..ablation.legacy_steps import _step_fused_v1
+        return _step_fused_v1(state, cfg, sub_q or 128, sm_inv)
     if impl != "v4":
         raise ValueError(f"unknown fused impl {impl!r} "
                          "(expected v1/v2/v3/v4/v5/v5s)")

@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_sweeps.cu", "fused_adjoint.cu")
+SOURCES = ("fused_sweeps.cu", "fused_adjoint.cu", "legacy_sweeps.cu",
+           "roofline.cu")
 HEADERS = ("sweep_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # no --use_fast_math: IEEE division and sqrt, as the reference computes them
@@ -44,6 +45,11 @@ _SIGNATURES = {
     "sph_sweep_lap3": [_P] * 6 + [_I] * 3 + [_P],
     "sph_sweep_bwd_a": [_P] * 6 + [_I] * 3 + [_P],
     "sph_sweep_bwd_b": [_P] * 6 + [_I] * 3 + [_P],
+    "sph_sweep_a1": [_P] * 6 + [_I] + [_P],
+    "sph_sweep_b1": [_P] * 6 + [_I] + [_P],
+    "sph_sweep_a2": [_P] * 6 + [_I] * 4 + [_P],
+    "sph_sweep_b2": [_P] * 6 + [_I] * 4 + [_P],
+    "sph_fma_chains": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 

@@ -473,15 +473,16 @@ def _check_slab_inputs(qm, slabs, trips, sub_q: int, w_chunk: int) -> None:
                          ("trips", trips, torch.int32))
 
 
-def _launch(fn, qm, *operands) -> torch.Tensor:
+def _launch(fn, qm, *operands, out_cols: int = 16) -> torch.Tensor:
     """Launch fn(qm, *tensors, out, N, *ints, stream) on qm's device and
-    stream: `operands` are the tensor inputs after qm, then the int
-    arguments. Raises on a CPU tensor and on a launch error."""
+    stream into a new (N, out_cols) f32 output: `operands` are the tensor
+    inputs after qm, then the int arguments. Raises on a CPU tensor and on
+    a launch error."""
     if qm.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {qm.device}")
     tensors = [t.data_ptr() for t in operands if torch.is_tensor(t)]
     ints = [i for i in operands if not torch.is_tensor(i)]
-    out = torch.empty_like(qm)
+    out = qm.new_empty((qm.shape[0], out_cols))
     with torch.cuda.device(qm.device):
         stream = torch.cuda.current_stream(qm.device).cuda_stream
         rc = fn(qm.data_ptr(), *tensors, out.data_ptr(), qm.shape[0], *ints,

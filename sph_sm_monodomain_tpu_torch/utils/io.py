@@ -154,17 +154,14 @@ def build_scene(name: str, cfg: SimConfig | None = None, replicate: int = 1,
     yet, so such a scene runs the monodomain-only and SPH-only modes
     (models/variants.py); the coupled and SM-only steps raise on it.
 
-    `fused_impl`: the fused step's generation, "v4" (default), "v3", "v5"
-    or "v5s". v3 and v4 take 128-row sub-blocks (auto_sweep4_params); v5
-    takes its sub-block size and slab capacity `pack_cap` from
-    auto_sweep5_params over the initial cloud. The v1 / v2 ablation sweeps
-    are not ported."""
+    `fused_impl`: the fused step's generation, "v4" (default), "v3", "v5",
+    "v5s", or the ablation baselines "v1" / "v2". v1-v4 take 128-row
+    sub-blocks (auto_sweep4_params), as in the JAX package; v5 takes its
+    sub-block size and slab capacity `pack_cap` from auto_sweep5_params
+    over the initial cloud."""
     device = resolve_device(device)
     impl = fused_impl or "v4"
-    if impl in ("v1", "v2"):
-        raise NotImplementedError(f"fused_impl={impl!r}: the v1 / v2 "
-                                  "ablation sweeps are not ported")
-    if impl not in ("v3", "v4", "v5", "v5s"):
+    if impl not in ("v1", "v2", "v3", "v4", "v5", "v5s"):
         raise ValueError(f"unknown fused_impl {impl!r}")
     cfg = cfg or SimConfig()
     tile_w = cfg.world_size[0]

@@ -1,8 +1,9 @@
 """The port's CUDA sweep kernels (forward in the v4, v3 and v5 forms,
-backward, and the Laplacian-only sweep), its fused steps, its
-differentiable step and the monodomain mode's gradient on the card, against
-their plain PyTorch versions and the CPU path (marker `cuda`; skipped where
-torch sees no GPU).
+backward, the Laplacian-only sweep, and the v1 / v2 raw-sum sweeps), the
+roofline tool's FMA-chain probe, its fused steps, its differentiable step
+and the monodomain mode's gradient on the card, against their plain
+PyTorch versions and the CPU path (marker `cuda`; skipped where torch sees
+no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -10,7 +11,9 @@ machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance: per output column, |kernel - plain| <= 1e-5 * max(1, max|plain
-column|) — both fp32, summed in another order, the kernel with rsqrtf.
+column|) — both fp32, summed in another order, the kernel with rsqrtf. The
+FMA-chain probe: roofline.FMA_ULP_TOL (2) float32 ulps of the chain sum,
+since both round each chain step once, as fmaf does.
 Gradients, card against CPU: rtol 1e-3 (the JAX suite's 3-step bound);
 through the Laplacian kernel, value rtol 1e-5 and gradient atol
 1e-4 * max(1, max|g|) (tests/test_differentiable.py:91-96).
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.ablation import legacy_sweeps as tls
 from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
@@ -29,6 +33,7 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping2,
                                                     sweep_bookkeeping3,
                                                     sweep_bookkeeping5)
+from sph_sm_monodomain_tpu_torch.tools import roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -301,3 +306,87 @@ def test_lap_vm_grad_on_card_matches_cpu(device):
     assert np.abs(gp).max() > 0
     np.testing.assert_allclose(gc, gp, atol=1e-4 * max(1.0,
                                                        np.abs(gp).max()))
+
+
+@pytest.mark.parametrize("case", ["v1", "v1_sub_q32", "v2", "v2_sub_q128"])
+def test_v1_v2_kernels_match_plain(device, case):
+    """The v1 (per-query runs) and v2 (hash9 windows) raw-sum sweep kernels
+    against their plain versions on a blob with padding rows, sweep B on
+    inputs derived from the plain sweep A, each launched once."""
+    impl = case[:2]
+    sub_q = {"v1": 128, "v1_sub_q32": 32, "v2": 32, "v2_sub_q128": 128}[case]
+    cfg, st = _blob(device)
+    if impl == "v1":
+        order, _, qs, qe, bs, bl = tls.sweep_bookkeeping(st.pos, st.active,
+                                                         cfg, sub_q)
+        extra, kbounds, pbounds = (), (qs, qe, bs, bl), (qs, qe)
+        kernels = (tls.sweep_a, tls.sweep_b)
+        plains = (tls.sweep_a_plain, tls.sweep_b_plain)
+    else:
+        order, _, lo, hi, chash = sweep_bookkeeping2(st.pos, st.active, cfg,
+                                                     sub_q)
+        extra, kbounds, pbounds = (chash[order],), (lo, hi), ()
+        kernels = (tls.sweep_a2, tls.sweep_b2)
+        plains = (tls.sweep_a2_plain, tls.sweep_b2_plain)
+    pos, cvel, mass, dens = (st.pos[order], st.corrected_vel[order],
+                             st.mass[order], st.dens[order])
+    vol = fst._safe_div(mass, dens, dens > 0.0)
+    before = [k.launches for k in kernels]
+    a_in = (pos, cvel, vol, mass, *extra)
+    want_a = plains[0](*a_in, *pbounds, cfg)
+    got_a = kernels[0](*a_in, *kbounds, cfg, sub_q=sub_q)
+    cat = lambda d, x: torch.cat([d[:, None], x], dim=1)  # noqa: E731
+    _check(cat(*got_a), cat(*want_a), f"{case} A")
+    d_now, xsph = want_a
+    g = fst._safe_div(mass, d_now, d_now > 0.0)
+    pres = cfg.k_stiffness * (d_now - cfg.stand_density)
+    b_in = (pos, cvel + xsph * cfg.velocity_mixing, g, pres,
+            st.vm[order], *extra)
+    want_b = plains[1](*b_in, *pbounds, cfg)
+    got_b = kernels[1](*b_in, *kbounds, cfg, sub_q=sub_q)
+    torch.cuda.synchronize()
+    cat_b = lambda x, lap: torch.cat([x, lap[:, None]], dim=1)  # noqa: E731
+    _check(cat_b(*got_b), cat_b(*want_b), f"{case} B")
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1]
+
+
+@pytest.mark.parametrize("impl", ["v1", "v2"])
+def test_v1_v2_step_on_card_matches_cpu(device, impl):
+    """Two v1 / v2 steps on the card (kernels) against the CPU (plain
+    versions), at the JAX suite's fused-step tolerances."""
+    cfg, st = _blob(device, n=600, seed=3)
+    got, want = st, st.to("cpu")
+    for _ in range(2):
+        got, aux = T.step_fused(got, cfg, impl=impl)
+        want, _ = T.step_fused(want, cfg, impl=impl)
+        assert int(aux.overflow) == 0
+    g, w = T.state_to_numpy(got), T.state_to_numpy(want)
+    act = w["active"]
+    for name, atol in (("pos", 5e-5), ("vel", 5e-3), ("vm", 5e-3),
+                       ("iion", 1e-5), ("w", 1e-6)):
+        np.testing.assert_allclose(g[name][act], w[name][act], atol=atol,
+                                   err_msg=name)
+    np.testing.assert_allclose(g["dens"][act], w["dens"][act], rtol=1e-5)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 256])
+def test_fma_chains_kernel_matches_plain(device, iters):
+    """The FMA-chain probe (K10) against its plain version at the probe's
+    input shape, within FMA_ULP_TOL float32 ulps."""
+    n = roofline.fma_probe_input(device).numel()
+    x = torch.from_numpy(np.random.default_rng(iters).standard_normal(
+        n).astype(np.float32)).to(device)
+    n0 = roofline.fma_chains.launches
+    got = roofline.fma_chains(x, iters)
+    want = roofline.fma_chains_plain(x, iters)
+    torch.cuda.synchronize()
+    assert roofline.fma_chains.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    ulps = roofline.ulp_error(got, want)
+    assert ulps <= roofline.FMA_ULP_TOL, ulps
+
+
+def test_measure_vpu_peak_on_card(device):
+    """The probe's FLOP/s is positive and below twice the data sheet."""
+    peak = roofline.measure_vpu_peak(device, reps=1)
+    assert 0.0 < peak < 2 * roofline.PEAK_FLOPS

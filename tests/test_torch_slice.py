@@ -93,15 +93,15 @@ def test_run_protocol_callback_commands(cmd):
 
 
 def test_unported_paths_raise():
-    """What the port does not have yet raises: the v1 / v2 ablation sweep
-    generations, and shape matching over several clusters (the coupled
-    step on a replicated, multi-muscle scene)."""
+    """What the port does not have raises: shape matching over several
+    clusters (the coupled step on a replicated, multi-muscle scene), and a
+    fused generation that neither package has. (The v1 / v2 ablation
+    generations are ported: tests/test_torch_v1_v2.py.)"""
     _, tsc = _scenes()
-    for impl in ("v1", "v2"):
-        with pytest.raises(NotImplementedError):
-            T.step_fused(tsc.state, tsc.cfg, impl=impl)
-        with pytest.raises(NotImplementedError):
-            T.build_scene("susane", fused_impl=impl, device="cpu")
+    with pytest.raises(ValueError):
+        T.step_fused(tsc.state, tsc.cfg, impl="v6")
+    with pytest.raises(ValueError):
+        T.build_scene("susane", fused_impl="v6", device="cpu")
     rep = T.build_scene("susane", replicate=2, device="cpu")
     with pytest.raises(NotImplementedError):
         T.run_protocol(rep, num_steps=1)

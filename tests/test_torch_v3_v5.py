@@ -31,50 +31,8 @@ from sph_sm_monodomain_tpu_torch.ops import shape_matching as tsm
 from sph_sm_monodomain_tpu_torch.ops import sweeps as tsw
 
 from torch_parity import (assert_bit_equal, assert_states_close,
-                          biceps_slice_points, random_state, slice_scenes,
+                          named_state as _state, slice_scenes,
                           to_torch_state, torch_cfg)
-
-WIDE_WORLD = (4.5, 1.5, 1.5)
-
-
-def _wide_state(jcfg, rng):
-    """A cloud along x in a stretched world: the v4 / v5 hash axes
-    permute (x is not the fast axis)."""
-    pts = rng.random((220, 3)).astype(np.float32) * [4.3, 0.4, 0.4] \
-        + [0.1, 0.5, 0.5]
-    js = J.init_fluid(pts.astype(np.float32), jcfg)
-    return J.stim.set_stim(js, tuple(pts[0]), 0.5, jcfg.stim_strength, jcfg)
-
-
-def _sparse_state(jcfg, rng):
-    """Two tight clusters far apart along the fast axis, so one sub-block
-    straddles a huge hash gap and its dilated runs overlap
-    (tests/test_pallas_sweeps.py:495-517)."""
-    n = 96
-    pts = np.concatenate([
-        rng.random((n // 2, 3)).astype(np.float32) * 0.08 + 0.05,
-        rng.random((n // 2, 3)).astype(np.float32) * 0.08 + 1.3,
-    ]).astype(np.float32)
-    js = J.init_fluid(pts, jcfg)
-    return J.stim.set_stim(js, tuple(pts[0]), 0.5, jcfg.stim_strength, jcfg)
-
-
-def _state(case):
-    """(JAX config, JAX state) of a named test state."""
-    jcfg = J.SimConfig()
-    rng = np.random.default_rng(7)
-    if case == "padded":
-        js = random_state(jcfg, n=200)         # capacity 256: 56 dead rows
-    elif case == "slice":
-        pts = biceps_slice_points(every=40)
-        js = J.stim.turn_on_stim_mesh(J.init_fluid(pts, jcfg), pts, jcfg)
-    elif case == "wide_world":
-        jcfg = jcfg.replace(world_size=WIDE_WORLD)
-        js = _wide_state(jcfg, rng)
-    else:
-        js = _sparse_state(jcfg, rng)
-    return jcfg, js
-
 
 def _pack_cap(js, cfg, sub_q):
     """The tuner's slab capacity for this cloud at `sub_q`."""

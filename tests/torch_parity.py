@@ -106,3 +106,47 @@ def assert_states_close(ts, js, rows, tols=STEP_TOLS, dens_rtol=1e-5):
                                    atol=atol, err_msg=name)
     np.testing.assert_allclose(got["dens"][rows], np.asarray(js.dens)[rows],
                                rtol=dens_rtol, err_msg="dens")
+
+
+WIDE_WORLD = (4.5, 1.5, 1.5)
+
+
+def _wide_state(jcfg, rng):
+    """A cloud along x in a stretched world: the v4 / v5 hash axes
+    permute (x is not the fast axis)."""
+    pts = rng.random((220, 3)).astype(np.float32) * [4.3, 0.4, 0.4] \
+        + [0.1, 0.5, 0.5]
+    js = J.init_fluid(pts.astype(np.float32), jcfg)
+    return J.stim.set_stim(js, tuple(pts[0]), 0.5, jcfg.stim_strength, jcfg)
+
+
+def _sparse_state(jcfg, rng):
+    """Two tight clusters far apart along the fast axis, so one sub-block
+    straddles a huge hash gap and its dilated runs overlap
+    (tests/test_pallas_sweeps.py:495-517)."""
+    n = 96
+    pts = np.concatenate([
+        rng.random((n // 2, 3)).astype(np.float32) * 0.08 + 0.05,
+        rng.random((n // 2, 3)).astype(np.float32) * 0.08 + 1.3,
+    ]).astype(np.float32)
+    js = J.init_fluid(pts, jcfg)
+    return J.stim.set_stim(js, tuple(pts[0]), 0.5, jcfg.stim_strength, jcfg)
+
+
+def named_state(case):
+    """(JAX config, JAX state) of a named test state: "padded" (200
+    particles, capacity 256: 56 dead rows), "slice" (the biceps slice),
+    "wide_world" (a stretched world) or "sparse" (two far clusters)."""
+    jcfg = J.SimConfig()
+    rng = np.random.default_rng(7)
+    if case == "padded":
+        js = random_state(jcfg, n=200)
+    elif case == "slice":
+        pts = biceps_slice_points(every=40)
+        js = J.stim.turn_on_stim_mesh(J.init_fluid(pts, jcfg), pts, jcfg)
+    elif case == "wide_world":
+        jcfg = jcfg.replace(world_size=WIDE_WORLD)
+        js = _wide_state(jcfg, rng)
+    else:
+        js = _sparse_state(jcfg, rng)
+    return jcfg, js
