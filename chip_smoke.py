@@ -18,7 +18,8 @@ printing its lines; any failure raises and exits non-zero:
               ptxas usage)
   3. kernels  the sort + window bookkeeping on the card equals the CPU's;
               sweep A / sweep B kernels against their plain PyTorch
-              versions on the biceps_full step-0 inputs, per column
+              versions on the biceps_full step-0 inputs, per column; two
+              sweep B launches bitwise equal
   4. main     run_protocol(500 steps, chunk 100, stim off at 250); each
               forward kernel's launch count must be exactly 500
   5. small    6 steps of a 462-particle biceps slice through the kernels on
@@ -40,7 +41,7 @@ printing its lines; any failure raises and exits non-zero:
               kernel's bound from the pairs these inputs need
  11. lap      the Laplacian kernel against its plain version on the
               monodomain tables of biceps_full, forward and backward forms,
-              per column; a CSR SpMV of the same operator (a PyTorch library
+              per column, two launches of each bitwise equal; a CSR SpMV of the same operator (a PyTorch library
               yardstick the port never calls) against its column 0
  12. mono     monodomain_prepare_fused + 500 fused monodomain-only steps on
               biceps_full with exact launch counts; 30 slice steps, card
@@ -55,8 +56,13 @@ printing its lines; any failure raises and exits non-zero:
  15. timing   the Laplacian kernel, its plain version and the SpMV; ms/step
               of every mode; the monodomain value-and-grad ms/step; then
               biceps_full x56 (1,034,600 particles): prepare time, ms/step
-              of 100 monodomain-only steps, peak memory; the Laplacian
-              kernel's bound
+              of 100 monodomain-only steps, peak memory, the Laplacian
+              kernel's time and its bound from that scene's pairs; there
+              the Laplacian kernel (both forms) and sweep B, which launch
+              fewer warp slices than on biceps_full, against their plain
+              versions on sampled rows, two launches of each bitwise
+              equal, sweep B's time; the Laplacian kernel's bound on
+              biceps_full
  16. v3/v5    the v3 (hash9) and v5 (slab) bookkeeping on the card equals
               the CPU's; the hash9 sweep A / B kernels and the v5 slab
               sweep A / B kernels against their plain versions on the
@@ -339,6 +345,75 @@ def check_kernel(report, name, got, want):
           f"per column {[f'{e:.3g}' for e in per_col]}", flush=True)
     if not ratio <= 1.0:
         raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def check_repeatable(name, launch):
+    """Two launches of a kernel on the same inputs give the same bits (its
+    partial sums are added in a fixed order, with no atomics)."""
+    a, b = launch(), launch()
+    torch.cuda.synchronize()
+    print(f"{name}: two launches bitwise equal: {torch.equal(a, b)}",
+          flush=True)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two launches differ")
+
+
+def sampled_rows(n: int, dev, warps: int = 64) -> torch.Tensor:
+    """`warps` whole warps of 32 sorted rows spread evenly over n rows: the
+    rows a kernel is held to its plain version on where the dense plain
+    version of all n rows would take minutes."""
+    w = torch.linspace(0, n // 32 - 1, warps, device=dev).long()
+    return (w[:, None] * 32 + torch.arange(32, device=dev)).reshape(-1)
+
+
+def plain_on_rows(plain, qm, rows):
+    """plain(query rows) on `rows` of qm, 32 rows a call: the plain
+    versions size their chunks by the query count alone, so a few rows
+    against a million candidates would make one chunk of many GiB."""
+    return torch.cat([plain(qm[r]) for r in rows.split(32)])
+
+
+def check_big_kernels(big, btab, dev) -> float:
+    """Sweep B and the Laplacian kernel (forward and backward forms) on a
+    replicated scene, where they launch fewer warp slices than on
+    biceps_full: seeded random vm and cotangent, held to their plain
+    versions on sampled rows, two launches of each bitwise equal. Returns
+    sweep B's time there."""
+    cfg, sq, n = big.cfg, big.sub_block, big.state.capacity
+    rows = sampled_rows(n, dev)
+    rng = np.random.default_rng(56)
+    rand = lambda: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(n).astype(np.float32)).to(dev)
+    scratch = {}
+    vm_r, g_r = rand() * 10.0, rand()
+    geom = (btab.pos_s, btab.cx_s, btab.cyz_s)
+    for form, (qm, ft) in (
+            ("forward", variants._lap_inputs(vm_r, btab.vol_s, vm_r, *geom)),
+            ("backward", variants._lap_inputs(torch.zeros_like(g_r),
+                                              torch.ones_like(g_r), g_r,
+                                              *geom))):
+        launch = lambda: fst.sweep_lap3(qm, ft, btab.blk_lo,   # noqa: E731
+                                        btab.blk_hi, cfg, sq)
+        check_kernel(scratch, f"sweep_lap3 {form} (x{REPLICATE}, "
+                     f"{rows.numel()} sampled rows)", launch()[rows],
+                     plain_on_rows(lambda q, f=ft: fst.sweep_lap3_plain(
+                         q, f, cfg), qm, rows))
+        check_repeatable(f"sweep_lap3 {form} (x{REPLICATE})", launch)
+    st = big.state.replace(vm=rand() * 10.0)
+    order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg, sq)
+    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+    out_a = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
+    fb = fst.feats_b(out_a)
+    launch = lambda: fst.sweep_b3(out_a, fb, lo, hi, cfg,      # noqa: E731
+                                  sub_q=sq)
+    check_kernel(scratch, f"sweep_b3 (x{REPLICATE}, {rows.numel()} sampled "
+                 "rows)", launch()[rows],
+                 plain_on_rows(lambda q: fst.sweep_b3_plain(q, fb, cfg),
+                               out_a, rows))
+    check_repeatable(f"sweep_b3 (x{REPLICATE})", launch)
+    ms = cuda_ms(launch, 20)
+    print(f"sweep_b3 on x{REPLICATE}: kernel {ms:.4f} ms", flush=True)
+    return ms
 
 
 def check_protocol_run(state, aux, cfg, what):
@@ -643,6 +718,8 @@ def main() -> int:
     check_kernel(report, "sweep_b3",
                  fst.sweep_b3(plain_a, feats_b, lo, hi, cfg, sub_q=sub_q),
                  fst.sweep_b3_plain(plain_a, feats_b, cfg))
+    check_repeatable("sweep_b3", lambda: fst.sweep_b3(plain_a, feats_b, lo,
+                                                      hi, cfg, sub_q=sub_q))
 
     phase(f"4 main path: run_protocol({STEPS} steps, chunk {CHUNK})")
     fst.sweep_a3.launches = 0
@@ -853,6 +930,9 @@ def main() -> int:
             raise AssertionError(f"sweep_lap3 {form} disagrees with its "
                                  "plain version")
         lap_out[form] = got
+        check_repeatable(f"sweep_lap3 {form}", lambda q=qm_l, f=feats_l:
+                         fst.sweep_lap3(q, f, tab.blk_lo, tab.blk_hi, cfg,
+                                        sub_q))
     report["sweep_lap3"] = {"max_abs_err": worst}
     t0 = time.perf_counter()
     lap_csr = laplacian_csr(*lap_in["forward"], cfg)
@@ -1093,6 +1173,14 @@ def main() -> int:
           f"{big_peak / 2**30:.4f} GiB ({(big_peak - base) / 2**20:.1f} MiB "
           f"above the {base / 2**20:.1f} MiB held before the prepare); vm "
           f"max {float(bvm.max()):.6g}", flush=True)
+    big_b3_ms = check_big_kernels(big, btab, dev)
+    big_counts = roofline.pair_counts(qm_b, btab.blk_lo, btab.blk_hi,
+                                      big.cfg, big.sub_block)
+    big_bound = bound("sweep_lap3", big_counts, big.state.capacity)
+    print(f"pairs the Laplacian kernel needs (x{REPLICATE}): {big_counts}; "
+          f"{big_bound[2] / 1e6:.3f} MFLOP, {big_bound[3] / 1e6:.3f} MB, "
+          f"bound {big_bound[0] * 1e3:.4f} us ({big_bound[1]}), kernel at "
+          f"{big_bound[0] / big_lap_ms * 100:.3f}% of it", flush=True)
 
     lap_counts = roofline.pair_counts(qm_f, tab.blk_lo, tab.blk_hi, cfg,
                                       sub_q)
@@ -1306,6 +1394,8 @@ def main() -> int:
         "replicate": {"particles": big.num_particles,
                       "prepare_s": prep_big_s, "ms_per_step": big_ms,
                       "lap_kernel_ms": big_lap_ms,
+                      "lap_bound_ms": big_bound[0],
+                      "sweep_b3_ms": big_b3_ms,
                       "peak_gib": big_peak / 2**30}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

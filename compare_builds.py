@@ -1,0 +1,284 @@
+"""Hold this checkout's CUDA kernels against another build of csrc/ on the
+card.
+
+A redesign of some kernels must leave every other kernel bit-identical, and
+its gain is read against the old build in the same call. This script builds
+the checkout's `sph_sm_monodomain_tpu_torch/csrc/` and another copy of that
+directory (for example a parent commit's, unpacked into a git-ignored
+directory with `git archive <commit> sph_sm_monodomain_tpu_torch/csrc | tar
+-x -C build/parent`) side by side, then on the biceps_full step-0 inputs:
+
+  1. holds the warp-sliced sweep B (K2: with and without EP, with dynp) and
+     Laplacian sweep (K3: forward and backward forms) of this build to
+     their plain versions per column within 1e-5 * max(1, max|plain|), and
+     two launches of each to the same bits;
+  2. prints, for every other kernel (K1 also with dynp, K4-K10), whether
+     the two builds give the same bits, and fails where they do not;
+  3. times K2, K3 and a CSR SpMV of K3's operator in both builds in turns
+     (other, this, this, other), then K3 on biceps_full x56 the same way;
+  4. with --slices, also builds this csrc/ with the warp-slice count of K2
+     and K3 fixed to each value, checks each against the plain versions,
+     and times them in turns beside the build's own choice, on biceps_full
+     and on x56;
+  5. reads this build's K2 and K3 and the SpMV once more from a
+     torch.profiler trace: device time only, without the wrappers' host
+     overhead.
+
+Run on the card, from the checkout's root:
+    python3 compare_builds.py --other build/parent/sph_sm_monodomain_tpu_torch/csrc \\
+        [--slices 2 4 8 16]
+Exits non-zero if a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.models import variants
+from sph_sm_monodomain_tpu_torch.ops import cuda_lib
+from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
+from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
+from sph_sm_monodomain_tpu_torch.tools import roofline
+
+OUT_DIR = cuda_lib.BUILD_DIR.parent / "compare"
+# the line of csrc/fused_sweeps.cu warp_slices that --slices overrides
+SLICES_LINE = "  int slices = 2;\n"
+
+
+def fixed_slices_csrc(k: int) -> Path:
+    """A copy of this csrc/ whose K2 and K3 launches take k warp slices."""
+    d = OUT_DIR / f"slices{k}" / "csrc"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(cuda_lib.CSRC_DIR, d)
+    src = (d / "fused_sweeps.cu").read_text()
+    if SLICES_LINE not in src:
+        raise RuntimeError("warp_slices changed: update SLICES_LINE")
+    (d / "fused_sweeps.cu").write_text(src.replace(
+        SLICES_LINE, f"  int slices = {k};\n  if (slices) return slices;\n"))
+    return d
+
+
+def build_all(other: Path, slices) -> dict:
+    """{label: bound library}: this build, the other, and the fixed-slice
+    variants, compiled in parallel."""
+    jobs = {"this": (None, None), "other": (other, OUT_DIR / "other")}
+    jobs.update({k: (fixed_slices_csrc(k), OUT_DIR / f"slices{k}")
+                 for k in slices})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        paths = dict(zip(jobs, pool.map(
+            lambda j: cuda_lib.build(csrc=j[0], build_dir=j[1]),
+            jobs.values())))
+    return {label: cuda_lib.bind(p) for label, p in paths.items()}
+
+
+def run_on(lib, fn):
+    """fn() with every wrapper launching from `lib`, synchronized."""
+    saved, cuda_lib._lib = cuda_lib._lib, lib
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        cuda_lib._lib = saved
+
+
+def flat(out):
+    """A kernel's output, or a tuple of them, as one 1-D tensor."""
+    if torch.is_tensor(out):
+        return out.reshape(-1)
+    return torch.cat([flat(t) for t in out])
+
+
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """Mean device time per call of fn over `reps` calls, from torch.profiler:
+    the CUDA kernels whose name holds `kernel` (all of them if None), so the
+    wrappers' host overhead, which chained CUDA events include once a
+    kernel is as short as it, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0.0)
+             for e in prof.key_averages()
+             if kernel is None or kernel in e.key)
+    return us / reps / 1e3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, required=True,
+                    help="another copy of sph_sm_monodomain_tpu_torch/csrc")
+    ap.add_argument("--slices", type=int, nargs="*", default=[],
+                    choices=[2, 4, 8, 16])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_builds.py needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(roofline.card_line(), flush=True)
+    libs = build_all(args.other.resolve(), args.slices)
+    cuda_lib._lib = libs["this"]
+    fails = []
+
+    def check(name, got, want):
+        _, ratio, _ = cs.column_errors(got, want)
+        ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
+        print(f"{name}: worst column at {ratio:.4g} of the bound -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fails.append(name)
+
+    scene = T.build_scene("biceps_full", device=dev)
+    cfg, sq = scene.cfg, scene.sub_block
+    fs, fa, lo, hi = cs.step0_inputs(scene, dev)
+    out_a = fst.sweep_a3_plain(fs, fa, cfg)
+    fb = fst.feats_b(out_a)
+    dynp = fst.build_dynp(T.resolve_params(cfg, {"k_stiffness": 0.8,
+                                                 "mu_viscosity": 40.0}), dev)
+    rng = np.random.default_rng(0)
+    n = fs.shape[0]
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    tab = variants.monodomain_prepare_fused(scene.state, cfg, sub_q=sq)
+    vm_r, g_r = rand(n) * 10.0, rand(n)
+    geom = (tab.pos_s, tab.cx_s, tab.cyz_s)
+    lap_in = {"forward": variants._lap_inputs(vm_r, tab.vol_s, vm_r, *geom),
+              "backward": variants._lap_inputs(torch.zeros_like(g_r),
+                                               torch.ones_like(g_r), g_r,
+                                               *geom)}
+    k2 = {"K2": {}, "K2 no_ep": {"with_ep": False}, "K2 dynp": {"dynp": dynp}}
+    redesigned = {
+        **{name: (lambda kw=kw: fst.sweep_b3(out_a, fb, lo, hi, cfg,
+                                             sub_q=sq, **kw),
+                  lambda kw=kw: fst.sweep_b3_plain(out_a, fb, cfg, **kw))
+           for name, kw in k2.items()},
+        **{f"K3 {form}": (lambda q=q, f=f: fst.sweep_lap3(
+            q, f, tab.blk_lo, tab.blk_hi, cfg, sq),
+                          lambda q=q, f=f: fst.sweep_lap3_plain(q, f, cfg))
+           for form, (q, f) in lap_in.items()}}
+    for label in ["this"] + args.slices:
+        for name, (kernel, plain) in redesigned.items():
+            a, b = run_on(libs[label], kernel), run_on(libs[label], kernel)
+            tag = name if label == "this" else f"{name} at {label} slices"
+            check(tag, a, plain())
+            if not torch.equal(a, b):
+                fails.append(f"{tag}: two launches differ")
+        if label == "this":
+            for name, (kernel, _) in redesigned.items():
+                d = (run_on(libs["this"], kernel)
+                     - run_on(libs["other"], kernel)).abs().max()
+                print(f"{name}: max abs difference from the other build "
+                      f"{float(d):.4g}", flush=True)
+
+    # every other kernel: the same bits in both builds
+    sc3 = T.build_scene("biceps_full", fused_impl="v3", device=dev)
+    fs3, fa3, lo3, hi3 = cs.step0_inputs_v3(sc3)
+    oa3 = fst.sweep_a3_plain(fs3, fa3, cfg, stencil="hash9")
+    fb3 = fst.feats_b(oa3)
+    sc5 = T.build_scene("biceps_full", fused_impl="v5", device=dev)
+    fs5, src5, trips5, _ = cs.step0_inputs_v5(sc5)
+    pa5 = fst.pack_feats_a5(fs5, src5, sc5.pack_cap)
+    oa5 = fst.sweep_a5_plain(fs5, pa5, cfg)
+    pb5 = fst.pack_feats_b5(oa5, fst.vol_now(oa5), src5, sc5.pack_cap)
+    kw5 = dict(sub_q=sc5.sub_block, w_chunk=sc5.block_window)
+    qa = fad.bwd_a_query(fs, rand(n), rand(n, 3))
+    qb = fad.bwd_b_query(out_a, rand(n, 3), rand(n))
+    fqa, fqb = qa.T.contiguous(), qb.T.contiguous()
+    x = rand(roofline.fma_probe_input(dev).numel())
+    others = {
+        "K1": lambda: fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq),
+        "K1 dynp": lambda: fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq,
+                                        dynp=dynp),
+        "K4": lambda: fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sq),
+        "K5": lambda: fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sq),
+        "K6 A": lambda: fst.sweep_a3_hash9(fs3, fa3, lo3, hi3, cfg,
+                                           sub_q=sc3.sub_block),
+        "K6 B": lambda: fst.sweep_b3_hash9(oa3, fb3, lo3, hi3, cfg,
+                                           sub_q=sc3.sub_block),
+        "K7 A": lambda: fst.sweep_a5(fs5, pa5, trips5, cfg, **kw5),
+        "K7 B": lambda: fst.sweep_b5(oa5, pb5, trips5, cfg, **kw5),
+        "K10": lambda: roofline.fma_chains(x, 4096)}
+    for impl, names in cs.RAW_SWEEPS.items():
+        calls = cs.raw_sweep_calls(T.build_scene("biceps_full",
+                                                 fused_impl=impl,
+                                                 device=dev))
+        for k, name in zip(("A", "B"), names):
+            others[f"K{8 if impl == 'v1' else 9} {k}"] = \
+                cs.raw_launchers(name, calls[name])[0]
+    identical = {}
+    for name, fn in others.items():
+        identical[name] = torch.equal(flat(run_on(libs["this"], fn)),
+                                      flat(run_on(libs["other"], fn)))
+        print(f"{name}: bit-identical to the other build: "
+              f"{identical[name]}", flush=True)
+        if not identical[name]:
+            fails.append(f"{name} differs from the other build")
+
+    # times in turns
+    qm_f, ft_f = lap_in["forward"]
+    csr = cs.laplacian_csr(qm_f, ft_f, cfg)
+    vcol = vm_r[:, None]
+    big = T.build_scene("biceps_full", replicate=cs.REPLICATE, device=dev)
+    bt = variants.monodomain_prepare_fused(big.state, big.cfg,
+                                           sub_q=big.sub_block)
+    vb = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        big.state.capacity).astype(np.float32) * 10.0).to(dev)
+    qb_, fb_ = variants._lap_inputs(vb, bt.vol_s, vb, bt.pos_s, bt.cx_s,
+                                    bt.cyz_s)
+
+    def big_k3():
+        return fst.sweep_lap3(qb_, fb_, bt.blk_lo, bt.blk_hi, big.cfg,
+                              big.sub_block)
+
+    ref = run_on(libs["this"], big_k3)
+    for label in args.slices:
+        d = float((run_on(libs[label], big_k3) - ref).abs().max())
+        print(f"x{cs.REPLICATE} K3 at {label} slices: max abs difference "
+              f"from this build's {d:.4g} (max |K3| "
+              f"{float(ref.abs().max()):.4g})", flush=True)
+    order = (["other", "this", "this", "other"] + args.slices
+             + args.slices[::-1])
+    times = []
+    for label in order:
+        cuda_lib._lib = libs[label]
+        t = {"build": label,
+             "K2": cs.cuda_ms(redesigned["K2"][0], 200),
+             "K3": cs.cuda_ms(redesigned["K3 forward"][0], 200),
+             "SpMV": cs.cuda_ms(lambda: csr @ vcol, 200),
+             f"x{cs.REPLICATE} K3": cs.cuda_ms(big_k3, 20)}
+        times.append(t)
+        name = label if isinstance(label, str) else f"{label} slices"
+        print(f"{name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
+                                      if k != "build"), flush=True)
+    cuda_lib._lib = libs["this"]
+    device = {"K2": device_ms(redesigned["K2"][0], 50, "sweep_b3_xyz3"),
+              "K3": device_ms(redesigned["K3 forward"][0], 50, "sweep_lap3"),
+              "SpMV": device_ms(lambda: csr @ vcol, 50),
+              f"x{cs.REPLICATE} K3": device_ms(big_k3, 10, "sweep_lap3")}
+    print("device time per launch (torch.profiler), this build: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in device.items()),
+          flush=True)
+    print(json.dumps({"fails": fails, "identical": identical,
+                      "times": times, "device_ms": device}), flush=True)
+    return 1 if fails else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -39,6 +39,7 @@ from ..ops.fused_step import (_Phys, _check_cuda_operands,
                               _check_sweep_inputs, _crow, _dense_sums,
                               _launch, _qcol, _rows_per_chunk, _terms_a,
                               _terms_b, _window_mask, kernel_params)
+from ..ops.numerics import sqrt_rn
 from ..ops.sweeps import _PAIR_EPS, RUN_OFFSETS, _sort_cells
 
 
@@ -192,18 +193,6 @@ def _inputs_b(pos_s, ivel_s, vol_s, pres_s, vm_s, hash_s=None):
 
 # --- plain versions --------------------------------------------------------------
 
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """sqrt of x > 0 rounded as IEEE sqrt (CUDA's sqrtf) rounds it: a
-    float64 sqrt refined by two Newton steps, then rounded to x's dtype.
-    The CPU torch.sqrt is not correctly rounded (float32: about 0.65% of
-    inputs 1 ulp off), and in a few fresh processes it returned float32
-    values up to 3.1e-4 relative off on about 12% of a (256, 256) input."""
-    xd = x.double()
-    r = torch.sqrt(xd)
-    r = 0.5 * (r + xd / r)
-    return (0.5 * (r + xd / r)).to(x.dtype)
-
-
 def _terms_b1(q, c, m, P: _Phys) -> torch.Tensor:
     """(..., R, 4) [a_ax, a_ay, a_az, a_lap] of v1's sweep B
     (legacy_sweeps.py:239-272): r from an IEEE sqrt and 1/r from a
@@ -215,7 +204,7 @@ def _terms_b1(q, c, m, P: _Phys) -> torch.Tensor:
     dz = _qcol(q, 2) - _crow(c, 2)
     r2 = dx * dx + dy * dy + dz * dz
     p = m & (r2 > _PAIR_EPS)                                    # cpp:546
-    rr = _sqrt_rn(torch.where(p, r2, torch.ones_like(r2)))
+    rr = sqrt_rn(torch.where(p, r2, torch.ones_like(r2)))
     inv_rr = 1.0 / rr
     vol = _crow(c, 6)
     zero = torch.zeros_like(r2)

@@ -7,18 +7,19 @@
 //
 // Replaces the Pallas TPU kernels of sph_sm_monodomain_tpu/ops/fused_step.py:
 //   _kernel_a3 / _kernel_b3 with stencil="xyz3" (enumeration _gather_loop4)
-//     -> sweep_a3_kernel / sweep_b3_kernel<Stencil::kXyz3>   (K1, K2)
+//     -> sweep_a3_kernel<Stencil::kXyz3> / sweep_b3_xyz3_kernel (K1, K2)
 //   _kernel_a3 / _kernel_b3 with stencil="hash9" (enumeration _gather_loop)
 //     -> sweep_a3_kernel / sweep_b3_kernel<Stencil::kHash9>  (K6)
 //   _kernel_a5 / _kernel_b5 (packed slabs)
 //     -> sweep_a5_kernel / sweep_b5_kernel                   (K7)
 //   _kernel_lap3 (the Laplacian-only sweep) -> sweep_lap3_kernel (K3)
 //
-// Design. One thread block per bookkeeping sub-block of `sub_q` sorted query
-// rows, one thread per query row; the candidates are staged through shared
-// memory in tiles of sub_q rows and masked per candidate by the exact
-// stencil of the generation (sweep_common.cuh); every thread accumulates its
-// pair sums in fp32 registers, then runs the pointwise epilogue of its row.
+// Design (K1, K6, K7). One thread block per bookkeeping sub-block of
+// `sub_q` sorted query rows, one thread per query row; the candidates are
+// staged through shared memory in tiles of sub_q rows and masked per
+// candidate by the exact stencil of the generation (sweep_common.cuh);
+// every thread accumulates its pair sums in fp32 registers, then runs the
+// pointwise epilogue of its row.
 // The v4 and v3 sweeps share one kernel template per sweep and differ only
 // in the window loop; the v5 sweeps walk the block's own packed slab with
 // the same accumulators and epilogues. The windows and slabs are iterated
@@ -31,16 +32,19 @@
 // and 580 blocks. Packing several sub-blocks into one 128-thread block would
 // fill the warps at sub_q 16; it is left to a later optimisation.
 //
-// What bounds them on the H100: not memory. The candidate features of a step
-// (16 x 18,560 f32 = 1.2 MB on biceps_full) stay in the 50 MB L2, and each
-// v4 block reads about 2,300 candidate rows per sweep (v3 about 1,700 over
-// nine windows; v5 about 880 slab slots per row from 71 MB of slabs). The
-// limit is instruction issue at low occupancy: a few warps per SM, each
-// thread a serial loop over its block's candidates. The shared-memory tiles
-// broadcast each candidate to all threads (no bank conflicts), and the mask
-// rejects most enumerated candidates before any pair math. Raising
-// occupancy (several threads per query row, or smaller sub-blocks) is the
-// first lead for a later optimisation.
+// K2 and K3 were redesigned for the card: 2 to 16 warps per 32 query rows,
+// each walking a slice of the windows trimmed to the warp's cell ranges,
+// the slices' sums added in a fixed order (see sweep_b3_xyz3_kernel).
+//
+// What bounds K1, K6 and K7 on the H100: not memory. The candidate features
+// of a step (16 x 18,560 f32 = 1.2 MB on biceps_full) stay in the 50 MB L2,
+// and each v4 block reads about 2,300 candidate rows per sweep (v3 about
+// 1,700 over nine windows; v5 about 880 slab slots per row from 71 MB of
+// slabs). The limit is instruction issue at low occupancy: a few warps per
+// SM, each thread a serial loop over its block's candidates. The
+// shared-memory tiles broadcast each candidate to all threads (no bank
+// conflicts), and the mask rejects most enumerated candidates before any
+// pair math. K2's and K3's redesign is the lead for these too.
 //
 // Numerics: fp32 throughout, IEEE division and sqrt (no --use_fast_math).
 // The pair distance uses rsqrtf (maximum error 2 ulp, CUDA math API) where
@@ -62,8 +66,6 @@ using RowsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
 //   v5 slabs: the same rows, then cf | cm | cs
 using RowsA5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13, 14>;
 using RowsB5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14>;
-//   Laplacian sweep: pos3 | vol | vm | cx | cyz
-using RowsL = Rows<0, 1, 2, 3, 4, 12, 13>;
 
 // Sweep A's epilogue (_a_epilogue, cpp:483-503, 575-593, 699): the OUT_A row
 // `o` from the QM_A row `q` and the pair sums. Columns 12-14 (the cell
@@ -180,8 +182,9 @@ __global__ void sweep_a3_kernel(const float* __restrict__ qm,
   epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
 }
 
-// Sweep B (replaces _kernel_b3): force + Vm Laplacian gather under the full
-// mask (v4 per-axis, v3 hash), then the integration epilogue.
+// Sweep B over the v3 run windows (replaces _kernel_b3 with stencil
+// "hash9"): force + Vm Laplacian gather under the full hash mask, then the
+// integration epilogue. The v4 form is sweep_b3_xyz3_kernel below.
 template <Stencil S>
 __global__ void sweep_b3_kernel(const float* __restrict__ qm,
                                 const float* __restrict__ feats,
@@ -252,6 +255,96 @@ __global__ void sweep_b5_kernel(const float* __restrict__ qm,
   epilogue_b(q, s, prm, out + row * 16);
 }
 
+// The redesigned v4 sweep B (K2) and Laplacian sweep (K3): one block of
+// `Slices` warps per 32 sorted query rows, every warp walking its slice of
+// the sub-block's windows through for_each_warp_candidate (only candidates
+// inside the warp's cell ranges, staged per warp, no block barrier in the
+// walk), its pair sums in registers; then the slices' partial sums are
+// added in slice order through shared memory (no atomics: two launches on
+// the same inputs give the same bits) and warp 0 runs the row's epilogue.
+//
+// What bounded the first form (one block of sub_q threads a sub-block, one
+// thread a row) on the H100: 145 blocks of 4 warps on 132 SMs at
+// biceps_full (one thin wave, ~4 resident warps an SM), each thread walking
+// all 1,876 candidates of its sub-block's windows a row, of which the mask
+// kept 554, with every staged tile between two barriers. This form runs 580
+// blocks of 16 warps there (the card full) and stages only the candidates
+// inside each warp's cell ranges. The bound is the pair arithmetic: 40
+// FLOPs per pair within 2h for sweep B, 16 for the Laplacian sweep
+// (tools/roofline.py PAIR_FLOPS).
+//
+// warp_slices picks `Slices` from what the launch can see: the fewest
+// (a power of two from 2 to 16) that give the card 64 warps an SM, so
+// biceps_full (580 row warps) takes 16 and a cloud that fills the card by
+// its rows alone (biceps_full x56: 32,330) takes 2. More slices than that
+// only add partial tiles and partial sums; one slice would make one-warp
+// blocks, and an SM holds at most 32 blocks, so 32 warps. The slice count,
+// and so the sum order, depends on N and the card's SM count only:
+// launches on the same inputs and card give the same bits.
+//
+// Measured (H100 80GB HBM3, 700 W, CUDA events, compare_builds.py; the
+// first form in brackets): biceps_full K2 0.074-0.075 ms [0.362-0.363],
+// K3 0.055-0.058 ms [0.386-0.387] against 0.047 ms for a CSR SpMV of K3's
+// operator; x56 (1,034,600 particles) K3 1.40 ms [2.13-2.14] against a
+// 0.21 ms bound.
+int warp_slices(int n) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int slices = 2;
+  while (slices < 16 && (long long)(n / 32) * slices < 64LL * sms)
+    slices *= 2;
+  return slices;
+}
+
+// Staged words of a candidate (before its cx, cyz): sweep B pos3 | ivel3 |
+// vol | pres | vm | 0, the Laplacian sweep pos3 | vol | vm | 0
+using WordsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, -1>;
+using WordsL = Rows<0, 1, 2, 3, 4, -1>;
+
+// Sweep B on the v4 windows (replaces _kernel_b3 with stencil "xyz3"): the
+// PairSumsB sums under the full per-axis mask, then epilogue_b.
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_b3_xyz3_kernel(const float* __restrict__ qm,
+                         const float* __restrict__ feats,
+                         const int* __restrict__ blk_lo,
+                         const int* __restrict__ blk_hi,
+                         const float* __restrict__ prm,
+                         float* __restrict__ out, int n, int sub_q,
+                         int with_ep, int g_mid) {
+  constexpr int V = (WordsB::count + 2) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  __shared__ float part[4][Slices][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
+  const float* q = qm + row * 16;
+  const float qcx = q[12], qcyz = q[13];
+  const bool qlive = qcx >= 0.0f;
+  PairSumsB s(q, prm, with_ep);
+  for_each_warp_candidate(WordsB{}, stage[w], feats, blk_lo, blk_hi, n, g_mid,
+                          (int)(row / sub_q), w, Slices, qcx, qcyz, qlive,
+                          [&](const float* c) { s.add(c, 1, 0); });
+  part[0][w][lane] = s.a_ax;
+  part[1][w][lane] = s.a_ay;
+  part[2][w][lane] = s.a_az;
+  part[3][w][lane] = s.a_lap;
+  __syncthreads();
+  if (w != 0) return;
+  s.a_ax = part[0][0][lane];
+  s.a_ay = part[1][0][lane];
+  s.a_az = part[2][0][lane];
+  s.a_lap = part[3][0][lane];
+#pragma unroll
+  for (int k = 1; k < Slices; ++k) {
+    s.a_ax += part[0][k][lane];
+    s.a_ay += part[1][k][lane];
+    s.a_az += part[2][k][lane];
+    s.a_lap += part[3][k][lane];
+  }
+  epilogue_b(q, s, prm, out + row * 16);
+}
+
 // Laplacian-only sweep (replaces _kernel_lap3): the Vm diffusion half of
 // Compute_Force (cpp:562-563) for the frozen-cloud monodomain mode, with two
 // accumulators a_vw = sum_j vol_j W2(r_ij) and a_vwvm = sum_j vol_j W2(r_ij)
@@ -260,44 +353,52 @@ __global__ void sweep_b5_kernel(const float* __restrict__ qm,
 // same kernel runs the mode's backward sweep (unit volumes, the cotangent
 // as candidate vm, zero query vm), where padding rows are excluded by the
 // cell mask alone: their cx sentinel fails |qcx - ccx| <= 1.
-// Bound on the H100 as sweeps A / B: issue rate at low occupancy, with the
-// smallest pair body of the three (16 FLOPs per pair within 2h).
-__global__ void sweep_lap3_kernel(const float* __restrict__ qm,
-                                  const float* __restrict__ feats,
-                                  const int* __restrict__ blk_lo,
-                                  const int* __restrict__ blk_hi,
-                                  const float* __restrict__ prm,
-                                  float* __restrict__ out, int n, int g_mid) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_lap3_kernel(const float* __restrict__ qm,
+                      const float* __restrict__ feats,
+                      const int* __restrict__ blk_lo,
+                      const int* __restrict__ blk_hi,
+                      const float* __restrict__ prm, float* __restrict__ out,
+                      int n, int sub_q, int g_mid) {
+  constexpr int V = (WordsL::count + 2) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  __shared__ float part[2][Slices][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
   const float* q = qm + row * 16;
   const float qx = q[0], qy = q[1], qz = q[2], qvm = q[3];
   const float qcx = q[12], qcyz = q[13];
   const bool qlive = qcx >= 0.0f;
   const float inv_h = prm[INV_H], bs_c = prm[BSPLINE];
-  const float* s_x = tile;
-  const float* s_y = tile + T;
-  const float* s_z = tile + 2 * T;
-  const float* s_vol = tile + 3 * T;
-  const float* s_vm = tile + 4 * T;
 
   float a_vw = 0.0f, a_vwvm = 0.0f;
-  for_each_neighbor(RowsL{}, tile, feats, blk_lo, blk_hi, n, g_mid, qcx,
-                    qcyz, qlive, true, [&](int k) {
-    const float dx = qx - s_x[k], dy = qy - s_y[k], dz = qz - s_z[k];
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    if (!(r2 > kPairEps)) return;  // cpp:546
-    const float qr = (r2 * rsqrtf(r2)) * inv_h;
-    // B_spline_2 (cpp:186-196) in relu form: exactly 0 from q = 2 on
-    if (qr >= 2.0f) return;
-    const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
-                             6.0f * fmaxf(1.0f - qr, 0.0f));
-    const float vw = s_vol[k] * w2;
-    a_vw += vw;
-    a_vwvm += vw * s_vm[k];
-  });
-
+  for_each_warp_candidate(
+      WordsL{}, stage[w], feats, blk_lo, blk_hi, n, g_mid, (int)(row / sub_q),
+      w, Slices, qcx, qcyz, qlive, [&](const float* c) {
+        const float dx = qx - c[0], dy = qy - c[1], dz = qz - c[2];
+        const float r2 = dx * dx + dy * dy + dz * dz;
+        if (!(r2 > kPairEps)) return;  // cpp:546
+        const float qr = (r2 * rsqrtf(r2)) * inv_h;
+        // B_spline_2 (cpp:186-196) in relu form: exactly 0 from q = 2 on
+        if (qr >= 2.0f) return;
+        const float w2 = bs_c * (1.5f * fmaxf(2.0f - qr, 0.0f) -
+                                 6.0f * fmaxf(1.0f - qr, 0.0f));
+        const float vw = c[3] * w2;
+        a_vw += vw;
+        a_vwvm += vw * c[4];
+      });
+  part[0][w][lane] = a_vw;
+  part[1][w][lane] = a_vwvm;
+  __syncthreads();
+  if (w != 0) return;
+  a_vw = part[0][0][lane];
+  a_vwvm = part[1][0][lane];
+#pragma unroll
+  for (int k = 1; k < Slices; ++k) {
+    a_vw += part[0][k][lane];
+    a_vwvm += part[1][k][lane];
+  }
   float* o = out + row * 16;
   o[0] = a_vwvm - a_vw * qvm;
 #pragma unroll
@@ -326,6 +427,38 @@ int launch_b3(const float* qm, const float* feats, const int* blk_lo,
   return (int)cudaGetLastError();
 }
 
+// Launch kernel<Slices> over n / 32 blocks of Slices warps, Slices from
+// warp_slices.
+template <template <int> class Launch, class... Args>
+int launch_sliced(int n, void* stream, Args... args) {
+  const int slices = warp_slices(n);
+  const dim3 grid(n / 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slices) {
+    case 2: Launch<2>::run(grid, st, args...); break;
+    case 4: Launch<4>::run(grid, st, args...); break;
+    case 8: Launch<8>::run(grid, st, args...); break;
+    default: Launch<16>::run(grid, st, args...); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int Slices>
+struct LaunchB3 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_b3_xyz3_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
+struct LaunchLap3 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_lap3_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -344,9 +477,8 @@ int sph_sweep_a3(const float* qm, const float* feats, const int* blk_lo,
 int sph_sweep_b3(const float* qm, const float* feats, const int* blk_lo,
                  const int* blk_hi, const float* prm, float* out, int n,
                  int sub_q, int with_ep, int g_mid, void* stream) {
-  return launch_b3<Stencil::kXyz3>(qm, feats, blk_lo, blk_hi, prm, out, n,
-                                   sub_q, with_ep, GridDims{g_mid, 0, 0},
-                                   stream);
+  return launch_sliced<LaunchB3>(n, stream, qm, feats, blk_lo, blk_hi, prm,
+                                 out, n, sub_q, with_ep, g_mid);
 }
 
 int sph_sweep_a3_hash9(const float* qm, const float* feats,
@@ -395,10 +527,8 @@ int sph_sweep_b5(const float* qm, const float* slab, const int* trips,
 int sph_sweep_lap3(const float* qm, const float* feats, const int* blk_lo,
                    const int* blk_hi, const float* prm, float* out, int n,
                    int sub_q, int g_mid, void* stream) {
-  const size_t smem = RowsL::count * (size_t)sub_q * sizeof(float);
-  sweep_lap3_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, g_mid);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchLap3>(n, stream, qm, feats, blk_lo, blk_hi, prm,
+                                   out, n, sub_q, g_mid);
 }
 
 const char* sph_cuda_error_string(int code) {

@@ -2,10 +2,10 @@
 // sweep A / sweep B in their v4, v3 and v5 forms; fused_adjoint.cu: their
 // backward sweeps; legacy_sweeps.cu: the v1 / v2 raw-sum sweeps): the slots
 // of the physics-constant vector, the staging of candidate features into
-// shared memory, the pair sums of sweep A and sweep B, and the three
+// shared memory, the pair sums of sweep A and sweep B, and the four
 // candidate loops with their exact masks.
 //
-// Every sweep runs one thread block per bookkeeping sub-block of `sub_q`
+// The other sweeps run one thread block per bookkeeping sub-block of `sub_q`
 // sorted query rows, one thread per query row. The block stages tiles of
 // sub_q candidate rows into shared memory (one coalesced load per staged
 // feature row); then every query thread walks the tile and calls the
@@ -18,6 +18,10 @@
 //   v5 (for_each_slab_candidate): the first `count` slots of the block's own
 //     packed (16, kb) slab, mask |dcf|, |dcm|, |dcs| <= 1 on the per-axis
 //     cell coordinates.
+//   v4, warp-trimmed (for_each_warp_candidate, sweep B and the Laplacian
+//     sweep): blocks of several warps per 32 query rows, each warp walking
+//     its slice of the three windows and only the candidates inside the
+//     warp's cell ranges, with the v4 full mask (see the loop).
 // Under v4 and v3 a pair passes under one window only, even where sparse
 // blocks' windows overlap, and the windows are iterated exactly.
 
@@ -196,6 +200,117 @@ __device__ __forceinline__ void for_each_neighbor_hash9(
         }
       }
       __syncthreads();
+    }
+  }
+}
+
+// The warp-trimmed v4 window walk of the redesigned sweep B (K2) and
+// Laplacian sweep (K3). The calling block holds `slices` warps that serve
+// the same 32 consecutive sorted query rows (lane = row) of sub-block b;
+// warp `slice` walks the slice-th of `slices` equal parts of the block's
+// three windows laid end to end, so a sub-block gives sub_q / 32 * slices
+// independent warps. The sort key is cx + Gf * cyz, so within a window the
+// candidates that some live row of the warp can accept have ccyz in
+// [min qcyz + d - 1, max qcyz + d + 1] (d = (r - 1) * G_mid) and ccx in
+// [min qcx - 1, max qcx + 1]. Each pass the warp reads the cell features of
+// 32 candidates (coalesced), keeps those inside both ranges (a ballot),
+// stages their words into its own `stage` (32 slots of Words::count + 2
+// floats, the cell pair last) with no barrier but __syncwarp, and every
+// live row then applies the exact mask of for_each_neighbor (mask_full) to
+// each staged slot and calls pair(slot) in window order. Dead rows (qlive
+// false) take part in the warp's steps but call no pair; a warp with no
+// live row returns at once. The cell features are integers, so the ranges
+// hold every candidate the exact mask accepts.
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <int... R>
+__device__ __forceinline__ void load_slot(Rows<R...>, float* v,
+                                          const float* feats, int n, int j) {
+  int f = 0;
+  ((v[f++] = R < 0 ? 0.0f : feats[(size_t)(R < 0 ? 0 : R) * n + j]),
+   ...);
+}
+
+template <class Words, class Pair>
+__device__ __forceinline__ void for_each_warp_candidate(
+    Words words, float4* stage, const float* feats, const int* blk_lo,
+    const int* blk_hi, int n, int g_mid, int b, int slice, int slices,
+    float qcx, float qcyz, bool qlive, Pair&& pair) {
+  constexpr int W = Words::count + 2;
+  static_assert(W % 4 == 0, "a slot is a whole number of float4");
+  constexpr int V = W / 4;
+  const int lane = threadIdx.x & 31;
+  const float inf = __int_as_float(0x7f800000);
+  float xlo = qlive ? qcx : inf, xhi = qlive ? qcx : -inf;
+  float clo = qlive ? qcyz : inf, chi = qlive ? qcyz : -inf;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    xlo = fminf(xlo, __shfl_xor_sync(kFullMask, xlo, o));
+    xhi = fmaxf(xhi, __shfl_xor_sync(kFullMask, xhi, o));
+    clo = fminf(clo, __shfl_xor_sync(kFullMask, clo, o));
+    chi = fmaxf(chi, __shfl_xor_sync(kFullMask, chi, o));
+  }
+  if (!(xlo <= xhi)) return;  // no live row in this warp
+  xlo -= 1.0f;
+  xhi += 1.0f;
+  int lo[3], len[3], total = 0;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    lo[r] = blk_lo[b * 4 + r];
+    len[r] = max(blk_hi[b * 4 + r] - lo[r], 0);
+    total += len[r];
+  }
+  const int s0 = (int)((long long)total * slice / slices);
+  const int s1 = (int)((long long)total * (slice + 1) / slices);
+  const float* f_cx = feats + (size_t)12 * n;
+  const float* f_cyz = feats + (size_t)13 * n;
+  int off = 0;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int a = lo[r] + max(s0 - off, 0);
+    const int e = lo[r] + min(s1 - off, len[r]);
+    off += len[r];
+    const float d = (float)((r - 1) * g_mid);
+    const float qd = qcyz + d, wlo = clo + d - 1.0f, whi = chi + d + 1.0f;
+    for (int base = a; base < e; base += 32) {
+      const int j = base + lane;
+      float ccx = 0.0f, ccyz = 0.0f;
+      bool take = false;
+      if (j < e) {
+        ccx = f_cx[j];
+        ccyz = f_cyz[j];
+        take = ccyz >= wlo && ccyz <= whi && ccx >= xlo && ccx <= xhi;
+      }
+      const unsigned m = __ballot_sync(kFullMask, take);
+      if (take) {
+        float v[W];
+        load_slot(words, v, feats, n, j);
+        v[W - 2] = ccx;
+        v[W - 1] = ccyz;
+        float4* s = stage + __popc(m & ((1u << lane) - 1u)) * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          s[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                             v[4 * i + 3]);
+      }
+      __syncwarp();
+      const int cnt = __popc(m);
+      for (int k = 0; k < cnt; ++k) {
+        float c[W];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float4 t = stage[k * V + i];
+          c[4 * i] = t.x;
+          c[4 * i + 1] = t.y;
+          c[4 * i + 2] = t.z;
+          c[4 * i + 3] = t.w;
+        }
+        if (!qlive) continue;
+        if (!(fabsf(qd - c[W - 1]) <= 1.0f)) continue;
+        if (!(fabsf(qcx - c[W - 2]) <= 1.0f)) continue;
+        pair(c);
+      }
+      __syncwarp();
     }
   }
 }

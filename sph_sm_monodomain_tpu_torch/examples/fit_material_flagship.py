@@ -24,9 +24,13 @@ with cosine decay. Stim stays on throughout.
 Run:
     python -m sph_sm_monodomain_tpu_torch.examples.fit_material_flagship \\
         [scene] [steps] [iters] [--device cuda|cpu] [--csv=PATH] [--lr=0.15]
-Defaults: biceps_full 250 30 on the card. `--csv=PATH` appends one row in
-the JAX example's schema (its `adjoint_temps_gib` column holds the peak
-allocated GiB of the grad call here).
+        [--roughness]
+Defaults: biceps_full 250 30 on the card. `--roughness` fits no material:
+it prints the loss's roughness in log K and log mu (`roughness`) at the
+initial guess and at (0.494, 40.8), where a 250-step, 120-iteration fit
+once stopped. `--csv=PATH` appends one row in the JAX example's schema
+(its `adjoint_temps_gib` column holds the peak allocated GiB of the grad
+call here).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -49,6 +54,8 @@ FIT_ROW_HEADER = ("scene;particles;rollout_steps;adam_iters;"
                   "mu_recovered;err_K;err_mu;backend;grad_path")
 TRUE_K, TRUE_MU = 0.9, 40.0      # hidden material
 THETA0 = (0.3, 150.0)            # poor initial guess
+# where the 250-step, 120-iteration fit stopped on the card (K 45% off)
+ROUGHNESS_POINTS = (THETA0, (0.494, 40.8))
 
 
 def append_fit_row(path, vals) -> None:
@@ -129,12 +136,62 @@ def adam_fit(loss, theta0, iters: int, lr0: float = 0.15, log=print):
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
         mh, vh = m / (1 - b1 ** (i + 1)), v / (1 - b2 ** (i + 1))
+        # Adam's step-size denominator, not physics: torch.sqrt's rounding
+        # on the CPU only scales the step (ops/numerics.sqrt_rn)
         log_theta = log_theta - lr * mh / (torch.sqrt(vh) + eps)
         if i % 5 == 0 or i == iters - 1:
             k, mu = torch.exp(log_theta).tolist()
             log(f"iter {i:3d}: loss {float(val):10.4e}  K {k:7.4f}  "
                 f"mu {mu:8.3f}")
     return log_theta, losses, grads
+
+
+def roughness(value, theta, axis: int, half_width: float = 5e-3,
+              points: int = 9) -> float:
+    """Roughness of a loss along one log-parameter: the rms residual of a
+    quadratic fit to value(theta + d e_axis) at `points` offsets d in
+    [-half_width, half_width], over |value(theta)|. `value` takes a float32
+    numpy vector; the offsets are those float32 can represent. A loss whose
+    rounding noise is small beside its curvature over the interval reads
+    near 0."""
+    base = np.asarray(theta, np.float32)
+    ds, vals = [], []
+    for d in np.linspace(-half_width, half_width, points):
+        th = base.copy()
+        th[axis] = np.float32(base[axis] + d)
+        ds.append(float(th[axis]) - float(base[axis]))
+        vals.append(float(value(th)))
+    ds, vals = np.asarray(ds), np.asarray(vals)
+    res = vals - np.polyval(np.polyfit(ds, vals, 2), ds)
+    return float(np.sqrt(np.mean(res * res)) / abs(vals[points // 2]))
+
+
+def roughness_report(sc, steps: int, log=print) -> dict:
+    """The fit loss of `sc` over `steps` steps (snapshots and hidden
+    material as the fit's) at ROUGHNESS_POINTS: its value and its
+    roughness in log K and log mu, forward only."""
+    dev = sc.state.device
+    snaps = max(1, min(5, steps))
+    sm_inv = sm_invariants(sc.state, sc.cfg)
+    with torch.no_grad():
+        target = rollout_disp(sc, sm_inv, theta_of(TRUE_K, TRUE_MU, dev),
+                              steps, snaps)
+    loss = make_loss(sc, sm_inv, target, steps, snaps)
+
+    def value(th):
+        with torch.no_grad():
+            return float(loss(torch.from_numpy(th).to(dev)))
+
+    out = {}
+    for k, mu in ROUGHNESS_POINTS:
+        th = np.log(np.asarray([k, mu], np.float32))
+        out[(k, mu)] = {"loss": value(th), "rough_log_k": roughness(value, th, 0),
+                        "rough_log_mu": roughness(value, th, 1)}
+        log(f"{sc.name} {steps} steps ({dev}) at K={k:g} mu={mu:g}: "
+            f"loss {out[(k, mu)]['loss']:.7g}, roughness in log K "
+            f"{out[(k, mu)]['rough_log_k']:.4g}, in log mu "
+            f"{out[(k, mu)]['rough_log_mu']:.4g}")
+    return out
 
 
 def _timed_ms(fn, device):
@@ -156,11 +213,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--csv", default=None, help="append a fit row here")
     ap.add_argument("--lr", type=float, default=0.15)
+    ap.add_argument("--roughness", action="store_true",
+                    help="print the loss's roughness instead of fitting")
     args = ap.parse_args(argv)
 
     sc = build_scene(args.scene, device=args.device)
     dev = sc.state.device
     ensure_fp32()
+    if args.roughness:
+        return roughness_report(sc, args.steps,
+                                log=lambda s: print(s, flush=True))
     n, steps, iters = sc.num_particles, args.steps, args.iters
     # displacement snapshots along the rollout: a contraction's endpoint is
     # weakly sensitive to (K, mu), its path is not

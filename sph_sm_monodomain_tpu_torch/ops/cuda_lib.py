@@ -64,12 +64,14 @@ def nvcc_path() -> str:
                        "kernels are built from source at first use")
 
 
-def library_path() -> Path:
+def library_path(csrc: Path | None = None,
+                 build_dir: Path | None = None) -> Path:
+    csrc, build_dir = csrc or CSRC_DIR, build_dir or BUILD_DIR
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libsph_sweeps_{h.hexdigest()[:16]}.so"
+        h.update((csrc / name).read_bytes())
+    return build_dir / f"libsph_sweeps_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds: list[list[str]], verbose: bool) -> None:
@@ -87,20 +89,23 @@ def _run_all(cmds: list[list[str]], verbose: bool) -> None:
                                f"{' '.join(cmd)}\n{out}")
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, csrc: Path | None = None,
+          build_dir: Path | None = None) -> Path:
     """Compile the kernels unless a library of the same sources exists.
     `verbose` adds `-Xptxas -v` (registers, shared memory and spills per
-    kernel) and prints the compiler's output."""
-    path = library_path()
+    kernel) and prints the compiler's output. `csrc` and `build_dir` build
+    another copy of the sources elsewhere (compare_builds.py)."""
+    csrc = csrc or CSRC_DIR
+    path = library_path(csrc, build_dir)
     if path.exists() and not verbose:
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
         objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
         _run_all([[nvcc, *NVCC_FLAGS,
                    *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", o,
-                   str(CSRC_DIR / s)] for s, o in zip(SOURCES, objs)],
+                   str(csrc / s)] for s, o in zip(SOURCES, objs)],
                  verbose)
         lib = str(Path(tmp) / path.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)
@@ -108,19 +113,24 @@ def build(verbose: bool = False) -> Path:
     return path
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """The library at `path` with the C entry points' signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sph_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sph_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built at first use and then cached."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.sph_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.sph_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from .numerics import sqrt_rn
+
 
 def det3(A: torch.Tensor) -> torch.Tensor:
     """3x3 determinant (m3Matrix.h:288-291)."""
@@ -55,7 +57,7 @@ def _rotation(apq, diff):
     mag = torch.maximum(apq.abs(),
                         torch.clamp(diff.abs() * 5e-7, min=1e-30))
     d = diff / (2.0 * torch.where(apq < 0.0, -mag, mag))
-    t = 1.0 / (d.abs() + torch.sqrt(d * d + 1.0))
+    t = 1.0 / (d.abs() + sqrt_rn(d * d + 1.0))
     t = torch.where(d < 0.0, -t, t)
     return live, t
 
@@ -76,7 +78,7 @@ def jacobi_eigh(A: torch.Tensor, iterations: int = 20):
         p, q = idx // n, idx % n
         apq = A[p, q]
         live, t = _rotation(apq, A[p, p] - A[q, q])
-        c = 1.0 / torch.sqrt(t * t + 1.0)
+        c = 1.0 / sqrt_rn(t * t + 1.0)
         s = t * c
         c = torch.where(live, c, torch.ones_like(c))
         s = torch.where(live, s, torch.zeros_like(s))
@@ -110,7 +112,7 @@ def jacobi_eigh3_cyclic(A: torch.Tensor, sweeps: int = 7):
             apq = a[(p, q)]
             live, t = _rotation(apq, a[(p, p)] - a[(q, q)])
             t = torch.where(live, t, zero)
-            c = 1.0 / torch.sqrt(t * t + 1.0)
+            c = 1.0 / sqrt_rn(t * t + 1.0)
             s = t * c
             a[(p, p)] = a[(p, p)] + t * apq
             a[(q, q)] = a[(q, q)] - t * apq
@@ -137,7 +139,7 @@ def polar_decomposition(A: torch.Tensor, iterations: int = 20):
     nonpos = lam <= 0.0
     inv_sqrt = torch.where(
         nonpos, torch.zeros_like(lam),
-        1.0 / torch.sqrt(torch.where(nonpos, torch.ones_like(lam), lam)))
+        1.0 / sqrt_rn(torch.where(nonpos, torch.ones_like(lam), lam)))
     S1 = (U * inv_sqrt[None, :]) @ U.T
     R = A @ S1
     S = R.T @ A

@@ -28,6 +28,7 @@ from ..config import SimConfig
 from ..state import ParticleState
 from .constants import const_tensor
 from .linalg import det3, invert3, polar_decomposition, pseudo_inverse
+from .numerics import sqrt_rn
 
 # anti-flip sign pattern: negate (0,1), (1,1), (2,2) (cpp:296-298)
 _FLIP_SIGNS = ((1.0, -1.0, 1.0),
@@ -108,7 +109,7 @@ def sm_invariants(state: ParticleState, cfg: SimConfig) -> SMInvariants:
 def _volume_scale(det: torch.Tensor) -> torch.Tensor:
     """1/sqrt(|det|) clamped at 2, or 1 when det == 0 (cpp:311-320)."""
     nz = det != 0.0
-    s = 1.0 / torch.sqrt(torch.where(nz, det, torch.ones_like(det)).abs())
+    s = 1.0 / sqrt_rn(torch.where(nz, det, torch.ones_like(det)).abs())
     s = torch.clamp(s, max=2.0)
     return torch.where(nz, s, torch.ones_like(s))
 

@@ -31,6 +31,7 @@ from ..state import ParticleState
 from .fused_step import _safe_div
 from .grid import NeighborTable
 from .kernels import b_spline_2, poly6, spiky, visco
+from .numerics import sqrt_rn
 from .sweeps import _PAIR_EPS
 
 
@@ -96,7 +97,7 @@ def force_diffusion_arrays(pos_q, ivel_q, pres_q, vm_q, dens_q, iion_q,
     idx, mask = nbr.idx.long(), nbr.mask
     diff, r2 = _diffs(pos_q, pos_g, idx)
     pair = mask & (r2 > _PAIR_EPS)                           # cpp:546
-    r = torch.sqrt(torch.where(pair, r2, torch.ones_like(r2)))
+    r = sqrt_rn(torch.where(pair, r2, torch.ones_like(r2)))
 
     vol = _div(mass_g[idx], dens_g[idx])             # cpp:551
     # pressure: acc -= d * Vol*(p_i+p_j)/2 * Spiky(r) / r (cpp:553-554)

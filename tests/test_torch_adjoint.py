@@ -280,6 +280,24 @@ def test_fit_driver_cpu_smoke(tmp_path, capsys):
     assert "value_and_grad" in capsys.readouterr().out
 
 
+def test_roughness_reads_noise_not_curvature(capsys):
+    """fit.roughness: a quadratic in log K reads ~0 whatever its curvature,
+    the same with 1e-4 relative noise reads ~1e-4; `--roughness` on a
+    2-step susane rollout reports finite values at both points."""
+    th = np.log(np.asarray([0.3, 150.0], np.float32))
+    quad = lambda t: 5.0 + 40.0 * float(t[0] - th[0]) ** 2   # noqa: E731
+    assert fit.roughness(quad, th, 0) < 1e-9
+    noise = np.random.default_rng(3).normal(size=64)
+    calls = iter(noise)
+    noisy = lambda t: quad(t) * (1.0 + 1e-4 * next(calls))   # noqa: E731
+    assert 2e-5 < fit.roughness(noisy, th, 0) < 3e-4
+    out = fit.main(["susane", "2", "--device", "cpu", "--roughness"])
+    assert set(out) == set(fit.ROUGHNESS_POINTS)
+    for v in out.values():
+        assert all(np.isfinite(x) for x in v.values()), v
+    assert "roughness in log K" in capsys.readouterr().out
+
+
 def _central_diff(value, theta, h):
     """(value(theta + h e_i) - value(theta - h e_i)) / 2h for each i, with
     `value` a float function of a float32 numpy theta."""
@@ -367,8 +385,10 @@ def test_fit_gradient_matches_finite_differences():
 
 
 def witness(steps, points, hs=(1e-2, 1e-3), scene="susane"):
-    """The fit loss's value, autograd gradient and central differences at
-    each (K, mu) of `points`, in the port and in the JAX package."""
+    """The fit loss's value, autograd gradient, central differences and
+    roughness in log K and log mu (fit.roughness) at each (K, mu) of
+    `points`, in the port and in the JAX package; then the port's
+    roughness over JAX's at each point."""
     rows = []
     for name, make in (("port", port_fit_loss), ("jax", jax_fit_loss)):
         value, vg = make(steps, scene)
@@ -376,11 +396,19 @@ def witness(steps, points, hs=(1e-2, 1e-3), scene="susane"):
             th = np.log(np.asarray([k, mu], np.float32))
             val, g = vg(th)
             fd = {h: _central_diff(value, th, h) for h in hs}
-            rows.append((name, k, mu, val, g, fd))
+            rough = [fit.roughness(value, th, axis) for axis in (0, 1)]
+            rows.append((name, k, mu, val, g, fd, rough))
             print(f"{scene} {steps} steps, {name} at K={k:g} mu={mu:g}: "
                   f"loss {val:.7g}; autograd d/dlog(K, mu) {g.tolist()}; "
                   + "; ".join(f"FD h={h:g} {v.tolist()}"
-                              for h, v in fd.items()), flush=True)
+                              for h, v in fd.items())
+                  + f"; roughness in log K {rough[0]:.4g}, log mu "
+                  f"{rough[1]:.4g}", flush=True)
+    for (_, k, mu, *_, rp), (*_, rj) in zip(
+            [r for r in rows if r[0] == "port"],
+            [r for r in rows if r[0] == "jax"]):
+        print(f"K={k:g} mu={mu:g}: roughness port / JAX, log K "
+              f"{rp[0] / rj[0]:.4g}, log mu {rp[1] / rj[1]:.4g}", flush=True)
     return rows
 
 

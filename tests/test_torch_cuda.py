@@ -276,6 +276,117 @@ def test_lap_kernel_matches_plain(device, form):
         fst.sweep_lap3(qm, feats.cpu(), tab.blk_lo, tab.blk_hi, cfg)
 
 
+def _redesign_state(device, case):
+    """(cfg, state, the sub_q values the wrappers accept at its capacity):
+    "blob" (900 particles in 1024 rows: dead rows at the sentinel, a last
+    sub-block with empty windows), "sparse" (two tight clusters far apart
+    along the fast axis, whose sub-blocks' windows overlap), "isolated" (40
+    scattered particles: windows shorter than one warp's slice, many
+    empty) or "biceps_full" (its step-0 state)."""
+    if case == "biceps_full":
+        sc = T.build_scene("biceps_full", device=device)
+        cfg, st = sc.cfg, sc.state
+    elif case == "blob":
+        cfg, st = _blob(device)
+    else:
+        rng = np.random.default_rng(7)
+        cfg = T.SimConfig()
+        if case == "sparse":
+            pts = np.concatenate([rng.random((48, 3)) * 0.08 + 0.05,
+                                  rng.random((48, 3)) * 0.08 + 1.3])
+        else:
+            pts = rng.random((40, 3)) * 1.4 + 0.05
+        st = T.init_fluid(pts.astype(np.float32), cfg, device=device)
+        st = st.replace(vm=torch.from_numpy(rng.normal(
+            size=st.capacity).astype(np.float32) * 10.0).to(device))
+    n = st.capacity
+    return cfg, st, [q for q in range(32, 1025, 32) if n % q == 0]
+
+
+@pytest.mark.parametrize("case", ["blob", "sparse", "isolated",
+                                  "biceps_full"])
+def test_redesigned_kernels_match_plain(device, case):
+    """The warp-trimmed sweep B (K2: with and without EP, and with dynp)
+    and the Laplacian sweep (K3: forward and backward forms) against their
+    plain versions at every sub_q the wrappers accept, and two launches of
+    each bitwise equal."""
+    cfg, st, sub_qs = _redesign_state(device, case)
+    dynp = fst.build_dynp(T.resolve_params(cfg, {"k_stiffness": 0.8,
+                                                 "mu_viscosity": 40.0}),
+                          device)
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=st.capacity).astype(np.float32)).to(device)
+    for sub_q in sub_qs:
+        order, inv, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active,
+                                                         cfg, sub_q)
+        fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+        out_a = fst.sweep_a3_plain(fs, fa, cfg)
+        fb = fst.feats_b(out_a)
+        for kw in ({}, {"with_ep": False}, {"dynp": dynp}):
+            got = fst.sweep_b3(out_a, fb, lo, hi, cfg, sub_q=sub_q, **kw)
+            again = fst.sweep_b3(out_a, fb, lo, hi, cfg, sub_q=sub_q, **kw)
+            torch.cuda.synchronize()
+            _check(got, fst.sweep_b3_plain(out_a, fb, cfg, **kw),
+                   f"{case} sub_q {sub_q} K2 {kw}")
+            assert torch.equal(got, again), (case, sub_q, kw)
+        tab = variants.monodomain_prepare_fused(st, cfg, sub_q=sub_q)
+        vm = st.vm[tab.order]
+        for form, (vm_q, vol, vm_row) in (
+                ("forward", (vm, tab.vol_s, vm)),
+                ("backward", (torch.zeros_like(g), torch.ones_like(g), g))):
+            qm, feats = variants._lap_inputs(vm_q, vol, vm_row, tab.pos_s,
+                                             tab.cx_s, tab.cyz_s)
+            got = fst.sweep_lap3(qm, feats, tab.blk_lo, tab.blk_hi, cfg,
+                                 sub_q)
+            again = fst.sweep_lap3(qm, feats, tab.blk_lo, tab.blk_hi, cfg,
+                                   sub_q)
+            torch.cuda.synchronize()
+            _check(got, fst.sweep_lap3_plain(qm, feats, cfg),
+                   f"{case} sub_q {sub_q} K3 {form}")
+            assert torch.equal(got, again), (case, sub_q, form)
+
+
+@pytest.mark.parametrize("replicate", [2, 4, 8, 16])
+def test_redesigned_kernels_every_slice_count(device, replicate):
+    """K2 and K3 on biceps_full tiled 2, 4, 8 and 16 times (37k to 296k
+    particles), where the launch takes 8, 4, 2 and 2 warp slices a row warp
+    on the H100's 132 SMs (biceps_full itself takes 16): held to their
+    plain versions on 64 sampled warps of rows, and two launches of each
+    bitwise equal."""
+    sc = T.build_scene("biceps_full", replicate=replicate, device=device)
+    cfg, sq, n = sc.cfg, sc.sub_block, sc.state.capacity
+    w = torch.linspace(0, n // 32 - 1, 64, device=device).long()
+    rows = (w[:, None] * 32 + torch.arange(32, device=device)).reshape(-1)
+    rng = np.random.default_rng(replicate)
+    vm = torch.from_numpy(rng.normal(size=n).astype(np.float32)
+                          * 10.0).to(device)
+    st = sc.state.replace(vm=vm)
+    tab = variants.monodomain_prepare_fused(st, cfg, sub_q=sq)
+    vm_s = vm[tab.order]
+    qm, feats = variants._lap_inputs(vm_s, tab.vol_s, vm_s, tab.pos_s,
+                                     tab.cx_s, tab.cyz_s)
+    got = fst.sweep_lap3(qm, feats, tab.blk_lo, tab.blk_hi, cfg, sq)
+    again = fst.sweep_lap3(qm, feats, tab.blk_lo, tab.blk_hi, cfg, sq)
+    torch.cuda.synchronize()
+    # the plain versions size their chunks by the query count alone: 32
+    # query rows a call keep each chunk small against 296k candidates
+    _check(got[rows], torch.cat([fst.sweep_lap3_plain(qm[r], feats, cfg)
+                                 for r in rows.split(32)]),
+           f"x{replicate} K3")
+    assert torch.equal(got, again)
+    order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg, sq)
+    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+    out_a = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
+    fb = fst.feats_b(out_a)
+    got = fst.sweep_b3(out_a, fb, lo, hi, cfg, sub_q=sq)
+    again = fst.sweep_b3(out_a, fb, lo, hi, cfg, sub_q=sq)
+    torch.cuda.synchronize()
+    _check(got[rows], torch.cat([fst.sweep_b3_plain(out_a[r], fb, cfg)
+                                 for r in rows.split(32)]),
+           f"x{replicate} K2")
+    assert torch.equal(got, again)
+
+
 def test_lap_vm_grad_on_card_matches_cpu(device):
     """d loss / d vm0 of a 3-step fused monodomain rollout through LapVmFn:
     the card (kernel forward and backward) against the CPU (plain
