@@ -19,14 +19,15 @@ printing its lines; any failure raises and exits non-zero:
   3. kernels  the sort + window bookkeeping on the card equals the CPU's;
               sweep A / sweep B kernels against their plain PyTorch
               versions on the biceps_full step-0 inputs, per column; two
-              sweep B launches bitwise equal
+              launches of each bitwise equal
   4. main     run_protocol(500 steps, chunk 100, stim off at 250); each
               forward kernel's launch count must be exactly 500
   5. small    6 steps of a 462-particle biceps slice through the kernels on
               the card against the plain versions on the CPU (the CPU path
               is the one the tests hold to the JAX package)
   6. timing   ms/step (CUDA events) of the kernel path and the plain path,
-              and per-kernel times at biceps_full shapes
+              and per-kernel times at biceps_full shapes beside their
+              bounds
   7. bwd      backward sweep A / B kernels against their plain versions on
               the biceps_full step-0 inputs with seeded random cotangents,
               per column
@@ -58,15 +59,16 @@ printing its lines; any failure raises and exits non-zero:
               biceps_full x56 (1,034,600 particles): prepare time, ms/step
               of 100 monodomain-only steps, peak memory, the Laplacian
               kernel's time and its bound from that scene's pairs; there
-              the Laplacian kernel (both forms) and sweep B, which launch
-              fewer warp slices than on biceps_full, against their plain
-              versions on sampled rows, two launches of each bitwise
-              equal, sweep B's time; the Laplacian kernel's bound on
+              the Laplacian kernel (both forms) and sweeps A and B, which
+              launch fewer warp slices than on biceps_full, against their
+              plain versions on sampled rows, two launches of each bitwise
+              equal, the sweeps' times; the Laplacian kernel's bound on
               biceps_full
  16. v3/v5    the v3 (hash9) and v5 (slab) bookkeeping on the card equals
               the CPU's; the hash9 sweep A / B kernels and the v5 slab
               sweep A / B kernels against their plain versions on the
-              biceps_full step-0 inputs, per column
+              biceps_full step-0 inputs, per column; two launches of each
+              slab sweep bitwise equal
  17. v3/v5    run_protocol(500 steps, chunk 100) on build_scene(
               "biceps_full", fused_impl="v3") and ("v5"), exact launch
               counts; a forced v5 regrow on the slice (pack_cap before and
@@ -373,12 +375,12 @@ def plain_on_rows(plain, qm, rows):
     return torch.cat([plain(qm[r]) for r in rows.split(32)])
 
 
-def check_big_kernels(big, btab, dev) -> float:
-    """Sweep B and the Laplacian kernel (forward and backward forms) on a
-    replicated scene, where they launch fewer warp slices than on
+def check_big_kernels(big, btab, dev) -> dict:
+    """Sweeps A and B and the Laplacian kernel (forward and backward forms)
+    on a replicated scene, where they launch fewer warp slices than on
     biceps_full: seeded random vm and cotangent, held to their plain
     versions on sampled rows, two launches of each bitwise equal. Returns
-    sweep B's time there."""
+    the sweeps' times there, {name: ms}."""
     cfg, sq, n = big.cfg, big.sub_block, big.state.capacity
     rows = sampled_rows(n, dev)
     rng = np.random.default_rng(56)
@@ -404,16 +406,22 @@ def check_big_kernels(big, btab, dev) -> float:
     fs, fa = fst.build_qm_feats(st, cx, cyz, order)
     out_a = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
     fb = fst.feats_b(out_a)
-    launch = lambda: fst.sweep_b3(out_a, fb, lo, hi, cfg,      # noqa: E731
-                                  sub_q=sq)
-    check_kernel(scratch, f"sweep_b3 (x{REPLICATE}, {rows.numel()} sampled "
-                 "rows)", launch()[rows],
-                 plain_on_rows(lambda q: fst.sweep_b3_plain(q, fb, cfg),
-                               out_a, rows))
-    check_repeatable(f"sweep_b3 (x{REPLICATE})", launch)
-    ms = cuda_ms(launch, 20)
-    print(f"sweep_b3 on x{REPLICATE}: kernel {ms:.4f} ms", flush=True)
-    return ms
+    sweeps = {"sweep_a3": (lambda: fst.sweep_a3(fs, fa, lo, hi, cfg,
+                                                sub_q=sq),
+                           lambda q: fst.sweep_a3_plain(q, fa, cfg), fs),
+              "sweep_b3": (lambda: fst.sweep_b3(out_a, fb, lo, hi, cfg,
+                                                sub_q=sq),
+                           lambda q: fst.sweep_b3_plain(q, fb, cfg), out_a)}
+    times = {}
+    for name, (launch, plain, qm) in sweeps.items():
+        check_kernel(scratch, f"{name} (x{REPLICATE}, {rows.numel()} "
+                     "sampled rows)", launch()[rows],
+                     plain_on_rows(plain, qm, rows))
+        check_repeatable(f"{name} (x{REPLICATE})", launch)
+        times[name] = cuda_ms(launch, 20)
+        print(f"{name} on x{REPLICATE}: kernel {times[name]:.4f} ms",
+              flush=True)
+    return times
 
 
 def check_protocol_run(state, aux, cfg, what):
@@ -718,6 +726,8 @@ def main() -> int:
     check_kernel(report, "sweep_b3",
                  fst.sweep_b3(plain_a, feats_b, lo, hi, cfg, sub_q=sub_q),
                  fst.sweep_b3_plain(plain_a, feats_b, cfg))
+    check_repeatable("sweep_a3", lambda: fst.sweep_a3(fs, feats_a, lo, hi,
+                                                      cfg, sub_q=sub_q))
     check_repeatable("sweep_b3", lambda: fst.sweep_b3(plain_a, feats_b, lo,
                                                       hi, cfg, sub_q=sub_q))
 
@@ -784,15 +794,21 @@ def main() -> int:
                      cuda_ms(lambda: fst.sweep_b3_plain(plain_a, feats_b,
                                                         cfg), 5)),
     }
+    n_rows = fs.shape[0]
+    counts = roofline.pair_counts(fs, lo, hi, cfg, sub_q)
+    print(f"pairs the sweeps need (biceps_full step 0): {counts}",
+          flush=True)
     for name, (k_ms, p_ms) in times.items():
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
+        b_ms = bound(name, counts, n_rows)[0]
+        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms * 1e3:.4f} us (kernel at {b_ms / k_ms * 100:.3f}% of "
+              "it)", flush=True)
 
     phase("7 backward kernels vs plain versions (biceps_full step-0 "
           "inputs, seeded random cotangents)")
     rng = np.random.default_rng(0)
     cot = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev)
-    n_rows = fs.shape[0]
     qm_a = fad.bwd_a_query(fs, cot(n_rows), cot(n_rows, 3))
     qm_b = fad.bwd_b_query(plain_a, cot(n_rows, 3), cot(n_rows))
     feats_ba, feats_bb = qm_a.T.contiguous(), qm_b.T.contiguous()
@@ -892,9 +908,6 @@ def main() -> int:
           f"max_memory_allocated {peak / 2**30:.4f} GiB "
           f"({(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} "
           f"MiB held before the grad call)", flush=True)
-    counts = roofline.pair_counts(fs, lo, hi, cfg, sub_q)
-    print(f"pairs the sweeps need (biceps_full step 0): {counts}",
-          flush=True)
     bounds = {}
     for name in times:
         bounds[name] = bound(name, counts, n_rows)
@@ -1173,7 +1186,7 @@ def main() -> int:
           f"{big_peak / 2**30:.4f} GiB ({(big_peak - base) / 2**20:.1f} MiB "
           f"above the {base / 2**20:.1f} MiB held before the prepare); vm "
           f"max {float(bvm.max()):.6g}", flush=True)
-    big_b3_ms = check_big_kernels(big, btab, dev)
+    big_sweep_ms = check_big_kernels(big, btab, dev)
     big_counts = roofline.pair_counts(qm_b, btab.blk_lo, btab.blk_hi,
                                       big.cfg, big.sub_block)
     big_bound = bound("sweep_lap3", big_counts, big.state.capacity)
@@ -1231,6 +1244,10 @@ def main() -> int:
     check_kernel(report, "sweep_b5",
                  fst.sweep_b5(plain_a5, pb5, trips5, cfg, **kw5),
                  fst.sweep_b5_plain(plain_a5, pb5, cfg))
+    check_repeatable("sweep_a5", lambda: fst.sweep_a5(fs5, pa5, trips5, cfg,
+                                                      **kw5))
+    check_repeatable("sweep_b5", lambda: fst.sweep_b5(plain_a5, pb5, trips5,
+                                                      cfg, **kw5))
     whole = fst.sweep_a5(fs5, pa5, trips5, cfg, static_trips=True, **kw5)
     torch.cuda.synchronize()
     print(f"sweep_a5 over the whole slab (v5s) vs over the trips: max abs "
@@ -1395,7 +1412,8 @@ def main() -> int:
                       "prepare_s": prep_big_s, "ms_per_step": big_ms,
                       "lap_kernel_ms": big_lap_ms,
                       "lap_bound_ms": big_bound[0],
-                      "sweep_b3_ms": big_b3_ms,
+                      "sweep_a3_ms": big_sweep_ms["sweep_a3"],
+                      "sweep_b3_ms": big_sweep_ms["sweep_b3"],
                       "peak_gib": big_peak / 2**30}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,19 +8,23 @@ directory (for example a parent commit's, unpacked into a git-ignored
 directory with `git archive <commit> sph_sm_monodomain_tpu_torch/csrc | tar
 -x -C build/parent`) side by side, then on the biceps_full step-0 inputs:
 
-  1. holds the warp-sliced sweep B (K2: with and without EP, with dynp) and
-     Laplacian sweep (K3: forward and backward forms) of this build to
-     their plain versions per column within 1e-5 * max(1, max|plain|), and
-     two launches of each to the same bits;
-  2. prints, for every other kernel (K1 also with dynp, K4-K10), whether
-     the two builds give the same bits, and fails where they do not;
-  3. times K2, K3 and a CSR SpMV of K3's operator in both builds in turns
-     (other, this, this, other), then K3 on biceps_full x56 the same way;
-  4. with --slices, also builds this csrc/ with the warp-slice count of K2
-     and K3 fixed to each value, checks each against the plain versions,
-     and times them in turns beside the build's own choice, on biceps_full
-     and on x56;
-  5. reads this build's K2 and K3 and the SpMV once more from a
+  1. holds the warp-sliced kernels of this build, sweep A (K1) and sweep B
+     (K2), each with and without EP and with dynp, the Laplacian sweep
+     (K3: forward and backward forms) and the v5 slab sweeps (K7 A and B,
+     with and without EP, over the trips and the whole slab), to their
+     plain versions per column within 1e-5 * max(1, max|plain|), and two
+     launches of each to the same bits;
+  2. prints, for every kernel this csrc/ did not redesign (K2 and K3,
+     sliced before it, K4-K6, K8-K10), whether the two builds give the
+     same bits, and fails where they do not;
+  3. times K1, K2, K3, K7 A / B and a CSR SpMV of K3's operator in both
+     builds in turns (other, this, this, other), then K1 and K3 on
+     biceps_full x56 the same way;
+  4. with --slices, also builds this csrc/ with the warp-slice count of
+     the sliced kernels fixed to each value, checks each against the plain
+     versions, and times them in turns beside the build's own choice, on
+     biceps_full and on x56;
+  5. reads this build's sliced kernels and the SpMV once more from a
      torch.profiler trace: device time only, without the wrappers' host
      overhead.
 
@@ -48,6 +52,7 @@ from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import cuda_lib
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
+from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
 from sph_sm_monodomain_tpu_torch.tools import roofline
 
 OUT_DIR = cuda_lib.BUILD_DIR.parent / "compare"
@@ -56,7 +61,8 @@ SLICES_LINE = "  int slices = 2;\n"
 
 
 def fixed_slices_csrc(k: int) -> Path:
-    """A copy of this csrc/ whose K2 and K3 launches take k warp slices."""
+    """A copy of this csrc/ whose sliced launches (K1, K2, K3, K7) take k
+    warp slices."""
     d = OUT_DIR / f"slices{k}" / "csrc"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(cuda_lib.CSRC_DIR, d)
@@ -163,16 +169,41 @@ def main(argv=None) -> int:
               "backward": variants._lap_inputs(torch.zeros_like(g_r),
                                                torch.ones_like(g_r), g_r,
                                                *geom)}
-    k2 = {"K2": {}, "K2 no_ep": {"with_ep": False}, "K2 dynp": {"dynp": dynp}}
+    sc5 = T.build_scene("biceps_full", fused_impl="v5", device=dev)
+    fs5, src5, trips5, _ = cs.step0_inputs_v5(sc5)
+    pa5 = fst.pack_feats_a5(fs5, src5, sc5.pack_cap)
+    oa5 = fst.sweep_a5_plain(fs5, pa5, cfg)
+    pb5 = fst.pack_feats_b5(oa5, fst.vol_now(oa5), src5, sc5.pack_cap)
+    kw5 = dict(sub_q=sc5.sub_block, w_chunk=sc5.block_window)
+    forms = {"": {}, " no_ep": {"with_ep": False}, " dynp": {"dynp": dynp}}
+    forms5 = {"": {}, " no_ep": {"with_ep": False},
+              " static": {"static_trips": True}}
     redesigned = {
-        **{name: (lambda kw=kw: fst.sweep_b3(out_a, fb, lo, hi, cfg,
-                                             sub_q=sq, **kw),
-                  lambda kw=kw: fst.sweep_b3_plain(out_a, fb, cfg, **kw))
-           for name, kw in k2.items()},
+        **{f"K1{tag}": (lambda kw=kw: fst.sweep_a3(fs, fa, lo, hi, cfg,
+                                                   sub_q=sq, **kw),
+                        lambda kw=kw: fst.sweep_a3_plain(
+                            fs, fa, cfg, kw.get("with_ep", True),
+                            kw.get("dynp")))
+           for tag, kw in forms.items()},
+        **{f"K2{tag}": (lambda kw=kw: fst.sweep_b3(out_a, fb, lo, hi, cfg,
+                                                   sub_q=sq, **kw),
+                        lambda kw=kw: fst.sweep_b3_plain(out_a, fb, cfg,
+                                                         **kw))
+           for tag, kw in forms.items()},
         **{f"K3 {form}": (lambda q=q, f=f: fst.sweep_lap3(
             q, f, tab.blk_lo, tab.blk_hi, cfg, sq),
                           lambda q=q, f=f: fst.sweep_lap3_plain(q, f, cfg))
-           for form, (q, f) in lap_in.items()}}
+           for form, (q, f) in lap_in.items()},
+        **{f"K7 A{tag}": (lambda kw=kw: fst.sweep_a5(fs5, pa5, trips5, cfg,
+                                                     **kw5, **kw),
+                          lambda kw=kw: fst.sweep_a5_plain(
+                              fs5, pa5, cfg, kw.get("with_ep", True)))
+           for tag, kw in forms5.items()},
+        **{f"K7 B{tag}": (lambda kw=kw: fst.sweep_b5(oa5, pb5, trips5, cfg,
+                                                     **kw5, **kw),
+                          lambda kw=kw: fst.sweep_b5_plain(
+                              oa5, pb5, cfg, kw.get("with_ep", True)))
+           for tag, kw in forms5.items()}}
     for label in ["this"] + args.slices:
         for name, (kernel, plain) in redesigned.items():
             a, b = run_on(libs[label], kernel), run_on(libs[label], kernel)
@@ -192,29 +223,20 @@ def main(argv=None) -> int:
     fs3, fa3, lo3, hi3 = cs.step0_inputs_v3(sc3)
     oa3 = fst.sweep_a3_plain(fs3, fa3, cfg, stencil="hash9")
     fb3 = fst.feats_b(oa3)
-    sc5 = T.build_scene("biceps_full", fused_impl="v5", device=dev)
-    fs5, src5, trips5, _ = cs.step0_inputs_v5(sc5)
-    pa5 = fst.pack_feats_a5(fs5, src5, sc5.pack_cap)
-    oa5 = fst.sweep_a5_plain(fs5, pa5, cfg)
-    pb5 = fst.pack_feats_b5(oa5, fst.vol_now(oa5), src5, sc5.pack_cap)
-    kw5 = dict(sub_q=sc5.sub_block, w_chunk=sc5.block_window)
     qa = fad.bwd_a_query(fs, rand(n), rand(n, 3))
     qb = fad.bwd_b_query(out_a, rand(n, 3), rand(n))
     fqa, fqb = qa.T.contiguous(), qb.T.contiguous()
     x = rand(roofline.fma_probe_input(dev).numel())
     others = {
-        "K1": lambda: fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq),
-        "K1 dynp": lambda: fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq,
-                                        dynp=dynp),
         "K4": lambda: fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sq),
         "K5": lambda: fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sq),
         "K6 A": lambda: fst.sweep_a3_hash9(fs3, fa3, lo3, hi3, cfg,
                                            sub_q=sc3.sub_block),
         "K6 B": lambda: fst.sweep_b3_hash9(oa3, fb3, lo3, hi3, cfg,
                                            sub_q=sc3.sub_block),
-        "K7 A": lambda: fst.sweep_a5(fs5, pa5, trips5, cfg, **kw5),
-        "K7 B": lambda: fst.sweep_b5(oa5, pb5, trips5, cfg, **kw5),
-        "K10": lambda: roofline.fma_chains(x, 4096)}
+        "K10": lambda: roofline.fma_chains(x, 4096),
+        **{name: redesigned[name][0] for name in (
+            "K2", "K2 no_ep", "K2 dynp", "K3 forward", "K3 backward")}}
     for impl, names in cs.RAW_SWEEPS.items():
         calls = cs.raw_sweep_calls(T.build_scene("biceps_full",
                                                  fused_impl=impl,
@@ -242,36 +264,48 @@ def main(argv=None) -> int:
         big.state.capacity).astype(np.float32) * 10.0).to(dev)
     qb_, fb_ = variants._lap_inputs(vb, bt.vol_s, vb, bt.pos_s, bt.cx_s,
                                     bt.cyz_s)
-
-    def big_k3():
-        return fst.sweep_lap3(qb_, fb_, bt.blk_lo, bt.blk_hi, big.cfg,
-                              big.sub_block)
-
-    ref = run_on(libs["this"], big_k3)
-    for label in args.slices:
-        d = float((run_on(libs[label], big_k3) - ref).abs().max())
-        print(f"x{cs.REPLICATE} K3 at {label} slices: max abs difference "
-              f"from this build's {d:.4g} (max |K3| "
-              f"{float(ref.abs().max()):.4g})", flush=True)
+    order_b, _, lo_b, hi_b, cx_b, cyz_b = sweep_bookkeeping3(
+        big.state.pos, big.state.active, big.cfg, big.sub_block)
+    fs_b, fa_b = fst.build_qm_feats(big.state.replace(vm=vb), cx_b, cyz_b,
+                                    order_b)
+    big_runs = {
+        "K1": lambda: fst.sweep_a3(fs_b, fa_b, lo_b, hi_b, big.cfg,
+                                   sub_q=big.sub_block),
+        "K3": lambda: fst.sweep_lap3(qb_, fb_, bt.blk_lo, bt.blk_hi,
+                                     big.cfg, big.sub_block)}
+    for kname, run in big_runs.items():
+        ref = run_on(libs["this"], run)
+        for label in args.slices:
+            d = float((run_on(libs[label], run) - ref).abs().max())
+            print(f"x{cs.REPLICATE} {kname} at {label} slices: max abs "
+                  f"difference from this build's {d:.4g} (max |{kname}| "
+                  f"{float(ref.abs().max()):.4g})", flush=True)
     order = (["other", "this", "this", "other"] + args.slices
              + args.slices[::-1])
     times = []
     for label in order:
         cuda_lib._lib = libs[label]
         t = {"build": label,
-             "K2": cs.cuda_ms(redesigned["K2"][0], 200),
-             "K3": cs.cuda_ms(redesigned["K3 forward"][0], 200),
+             **{k: cs.cuda_ms(redesigned[r][0], 200) for k, r in (
+                 ("K1", "K1"), ("K2", "K2"), ("K3", "K3 forward"),
+                 ("K7 A", "K7 A"), ("K7 B", "K7 B"))},
              "SpMV": cs.cuda_ms(lambda: csr @ vcol, 200),
-             f"x{cs.REPLICATE} K3": cs.cuda_ms(big_k3, 20)}
+             **{f"x{cs.REPLICATE} {k}": cs.cuda_ms(run, 20)
+                for k, run in big_runs.items()}}
         times.append(t)
         name = label if isinstance(label, str) else f"{label} slices"
         print(f"{name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
                                       if k != "build"), flush=True)
     cuda_lib._lib = libs["this"]
-    device = {"K2": device_ms(redesigned["K2"][0], 50, "sweep_b3_xyz3"),
+    device = {"K1": device_ms(redesigned["K1"][0], 50, "sweep_a3_xyz3"),
+              "K2": device_ms(redesigned["K2"][0], 50, "sweep_b3_xyz3"),
               "K3": device_ms(redesigned["K3 forward"][0], 50, "sweep_lap3"),
+              "K7 A": device_ms(redesigned["K7 A"][0], 50, "sweep_a5"),
+              "K7 B": device_ms(redesigned["K7 B"][0], 50, "sweep_b5"),
               "SpMV": device_ms(lambda: csr @ vcol, 50),
-              f"x{cs.REPLICATE} K3": device_ms(big_k3, 10, "sweep_lap3")}
+              **{f"x{cs.REPLICATE} {k}": device_ms(
+                  run, 10, "sweep_a3_xyz3" if k == "K1" else "sweep_lap3")
+                 for k, run in big_runs.items()}}
     print("device time per launch (torch.profiler), this build: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in device.items()),
           flush=True)

@@ -89,7 +89,7 @@ __global__ void sweep_bwd_a_kernel(const float* __restrict__ qm,
   float aPx = 0.0f, aPy = 0.0f, aPz = 0.0f, aB = 0.0f;
   float aDx = 0.0f, aDy = 0.0f, aDz = 0.0f, aE = 0.0f, aF = 0.0f;
   for_each_neighbor(RowsBwdA{}, tile, feats, blk_lo, blk_hi, n, g_mid, qcx,
-                    qcyz, qcx >= 0.0f, true, [&](int k) {
+                    qcyz, qcx >= 0.0f, [&](int k) {
     const float dx = qx - s_x[k], dy = qy - s_y[k], dz = qz - s_z[k];
     const float r2 = dx * dx + dy * dy + dz * dz;
     // outside Poly6's support every term below carries t^2 or w6
@@ -176,7 +176,7 @@ __global__ void sweep_bwd_b_kernel(const float* __restrict__ qm,
   float gx_ = 0.0f, gy_ = 0.0f, gz_ = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
   float aP = 0.0f, aVM = 0.0f, aVOL = 0.0f, aMU = 0.0f;
   for_each_neighbor(RowsBwdB{}, tile, feats, blk_lo, blk_hi, n, g_mid, qcx,
-                    qcyz, qcx >= 0.0f, true, [&](int k) {
+                    qcyz, qcx >= 0.0f, [&](int k) {
     const float dx = qx - s_x[k], dy = qy - s_y[k], dz = qz - s_z[k];
     const float r2 = dx * dx + dy * dy + dz * dz;
     if (!(r2 > kPairEps)) return;  // cpp:546

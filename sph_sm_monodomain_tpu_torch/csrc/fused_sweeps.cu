@@ -7,44 +7,30 @@
 //
 // Replaces the Pallas TPU kernels of sph_sm_monodomain_tpu/ops/fused_step.py:
 //   _kernel_a3 / _kernel_b3 with stencil="xyz3" (enumeration _gather_loop4)
-//     -> sweep_a3_kernel<Stencil::kXyz3> / sweep_b3_xyz3_kernel (K1, K2)
+//     -> sweep_a3_xyz3_kernel / sweep_b3_xyz3_kernel       (K1, K2)
 //   _kernel_a3 / _kernel_b3 with stencil="hash9" (enumeration _gather_loop)
-//     -> sweep_a3_kernel / sweep_b3_kernel<Stencil::kHash9>  (K6)
+//     -> sweep_a3_hash9_kernel / sweep_b3_hash9_kernel     (K6)
 //   _kernel_a5 / _kernel_b5 (packed slabs)
-//     -> sweep_a5_kernel / sweep_b5_kernel                   (K7)
+//     -> sweep_a5_kernel / sweep_b5_kernel                 (K7)
 //   _kernel_lap3 (the Laplacian-only sweep) -> sweep_lap3_kernel (K3)
 //
-// Design (K1, K6, K7). One thread block per bookkeeping sub-block of
-// `sub_q` sorted query rows, one thread per query row; the candidates are
-// staged through shared memory in tiles of sub_q rows and masked per
-// candidate by the exact stencil of the generation (sweep_common.cuh);
-// every thread accumulates its pair sums in fp32 registers, then runs the
-// pointwise epilogue of its row.
-// The v4 and v3 sweeps share one kernel template per sweep and differ only
-// in the window loop; the v5 sweeps walk the block's own packed slab with
-// the same accumulators and epilogues. The windows and slabs are iterated
-// exactly; the TPU's 128-row start alignment, VMEM/HBM split, chunked DMA,
-// feature padding and SMEM budgets are not needed here.
+// Design (K6, the first form). One thread block per bookkeeping sub-block
+// of `sub_q` sorted query rows, one thread per query row; the candidates
+// are staged through shared memory in tiles of sub_q rows and masked per
+// candidate by the exact stencil (sweep_common.cuh); every thread
+// accumulates its pair sums in fp32 registers, then runs the pointwise
+// epilogue of its row. The windows are iterated exactly; the TPU's 128-row
+// start alignment, VMEM/HBM split, chunked DMA, feature padding and SMEM
+// budgets are not needed here. What bounds it on the H100: not memory (the
+// candidate features of a step, 16 x 18,560 f32 = 1.2 MB on biceps_full,
+// stay in the 50 MB L2) but instruction issue at low occupancy: a few warps
+// per SM, each thread a serial loop over its block's candidates, every tile
+// between two barriers. The redesign below is its lead.
 //
-// v5 launch shape: sub_q threads per block as for the other sweeps, so a
-// sub-block of 16 rows (the tuner's choice on small clouds) is a block of
-// half a warp. The tuner picks 32 on biceps_full, one full warp per block
-// and 580 blocks. Packing several sub-blocks into one 128-thread block would
-// fill the warps at sub_q 16; it is left to a later optimisation.
-//
-// K2 and K3 were redesigned for the card: 2 to 16 warps per 32 query rows,
-// each walking a slice of the windows trimmed to the warp's cell ranges,
-// the slices' sums added in a fixed order (see sweep_b3_xyz3_kernel).
-//
-// What bounds K1, K6 and K7 on the H100: not memory. The candidate features
-// of a step (16 x 18,560 f32 = 1.2 MB on biceps_full) stay in the 50 MB L2,
-// and each v4 block reads about 2,300 candidate rows per sweep (v3 about
-// 1,700 over nine windows; v5 about 880 slab slots per row from 71 MB of
-// slabs). The limit is instruction issue at low occupancy: a few warps per
-// SM, each thread a serial loop over its block's candidates. The
-// shared-memory tiles broadcast each candidate to all threads (no bank
-// conflicts), and the mask rejects most enumerated candidates before any
-// pair math. K2's and K3's redesign is the lead for these too.
+// K1, K2, K3 and K7 were redesigned for the card: 2 to 16 warps per 32
+// query rows, each walking a slice of the rows' windows (or slabs) trimmed
+// to the warp's cell ranges, the slices' sums added in a fixed order (see
+// sweep_b3_xyz3_kernel and sweep_a5_kernel).
 //
 // Numerics: fp32 throughout, IEEE division and sqrt (no --use_fast_math).
 // The pair distance uses rsqrtf (maximum error 2 ulp, CUDA math API) where
@@ -58,14 +44,11 @@ namespace {
 
 using namespace sph;
 
-// Staged candidate feature rows:
-//   sweep A: pos3 | cvel3 | vol_prev | mass | cx | cyz   (v3: hash | 0)
-//   sweep B: pos3 | ivel3 | vol | pres | vm | cx | cyz
+// Staged candidate feature rows of the v3 sweeps:
+//   sweep A: pos3 | cvel3 | vol_prev | mass | hash | 0
+//   sweep B: pos3 | ivel3 | vol | pres | vm | hash | 0
 using RowsA = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13>;
 using RowsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
-//   v5 slabs: the same rows, then cf | cm | cs
-using RowsA5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13, 14>;
-using RowsB5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14>;
 
 // Sweep A's epilogue (_a_epilogue, cpp:483-503, 575-593, 699): the OUT_A row
 // `o` from the QM_A row `q` and the pair sums. Columns 12-14 (the cell
@@ -155,113 +138,60 @@ __device__ __forceinline__ void epilogue_b(const float* q, const PairSumsB& s,
   o[15] = 0.0f;
 }
 
-// Sweep A (replaces _kernel_a3): XSPH + density gather over the sub-block's
-// windows, then the EOS / stim gate / FHN epilogue. v4: the "yz" half of the
-// mask when Poly6's support is within one cell (mask_full false), dead
-// candidates inert by their zero mass and volume; v3: the full hash mask.
-template <Stencil S>
-__global__ void sweep_a3_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ blk_lo,
-                                const int* __restrict__ blk_hi,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n, int with_ep,
-                                int mask_full, GridDims g, int q_double,
-                                int q_gate, int q_acc) {
+// Sweep A over the v3 run windows (replaces _kernel_a3 with stencil
+// "hash9"): XSPH + density gather under the full hash mask, then the EOS /
+// stim gate / FHN epilogue. The v4 form is sweep_a3_xyz3_kernel below.
+__global__ void sweep_a3_hash9_kernel(const float* __restrict__ qm,
+                                      const float* __restrict__ feats,
+                                      const int* __restrict__ blk_lo,
+                                      const int* __restrict__ blk_hi,
+                                      const float* __restrict__ prm,
+                                      float* __restrict__ out, int n,
+                                      int with_ep, int gx, int gy,
+                                      int q_double, int q_gate, int q_acc) {
   extern __shared__ float tile[];
   const int T = blockDim.x;
   const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
   const float* q = qm + row * 16;
-  const float qcx = q[12], qcyz = q[13];
+  const float qh = q[12];
   // dead rows (cell sentinel) keep zero sums, like the plain version
-  const bool qlive = qcx >= 0.0f;
+  const bool qlive = qh >= 0.0f;
   PairSumsA s(q, prm);
-  for_each_window_candidate<S>(RowsA{}, tile, feats, blk_lo, blk_hi, n, g,
-                               qcx, qcyz, qlive, mask_full,
-                               [&](int k) { s.add(tile, T, k); });
+  for_each_neighbor_hash9(RowsA{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
+                          qh, qlive, [&](int k) { s.add(tile, T, k); });
   epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
 }
 
 // Sweep B over the v3 run windows (replaces _kernel_b3 with stencil
 // "hash9"): force + Vm Laplacian gather under the full hash mask, then the
 // integration epilogue. The v4 form is sweep_b3_xyz3_kernel below.
-template <Stencil S>
-__global__ void sweep_b3_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ blk_lo,
-                                const int* __restrict__ blk_hi,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n, int with_ep,
-                                GridDims g) {
+__global__ void sweep_b3_hash9_kernel(const float* __restrict__ qm,
+                                      const float* __restrict__ feats,
+                                      const int* __restrict__ blk_lo,
+                                      const int* __restrict__ blk_hi,
+                                      const float* __restrict__ prm,
+                                      float* __restrict__ out, int n,
+                                      int with_ep, int gx, int gy) {
   extern __shared__ float tile[];
   const int T = blockDim.x;
   const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
   const float* q = qm + row * 16;
-  const float qcx = q[12], qcyz = q[13];
-  const bool qlive = qcx >= 0.0f;
+  const float qh = q[12];
+  const bool qlive = qh >= 0.0f;
   PairSumsB s(q, prm, with_ep);
-  for_each_window_candidate<S>(RowsB{}, tile, feats, blk_lo, blk_hi, n, g,
-                               qcx, qcyz, qlive, true,
-                               [&](int k) { s.add(tile, T, k); });
+  for_each_neighbor_hash9(RowsB{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
+                          qh, qlive, [&](int k) { s.add(tile, T, k); });
   epilogue_b(q, s, prm, out + row * 16);
 }
 
-// Slots of block b's slab a v5 sweep walks: its union's w_chunk-wide chunks
-// (the trip count of sweep_bookkeeping5, clipped to kb), or the whole slab
-// (v5s, static_trips). Both give the same sums: the padding slots are inert.
-__device__ __forceinline__ int slab_count(const int* trips, int kb,
-                                          int w_chunk, int static_trips) {
-  return static_trips ? kb : min(trips[blockIdx.x] * w_chunk, kb);
-}
-
-// Sweep A over packed slabs (replaces _kernel_a5): the pair sums of sweep A
-// over the block's slab under the per-axis cell mask, then sweep A's
-// epilogue with the constants of the config.
-__global__ void sweep_a5_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ slab,
-                                const int* __restrict__ trips,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int kb, int w_chunk,
-                                int static_trips, int with_ep, int q_double,
-                                int q_gate, int q_acc) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
-  const float* q = qm + row * 16;
-  PairSumsA s(q, prm);
-  for_each_slab_candidate(RowsA5{}, tile, slab + (size_t)blockIdx.x * 16 * kb,
-                          kb, slab_count(trips, kb, w_chunk, static_trips),
-                          q[12], q[13], q[14],
-                          [&](int k) { s.add(tile, T, k); });
-  epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
-}
-
-// Sweep B over packed slabs (replaces _kernel_b5).
-__global__ void sweep_b5_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ slab,
-                                const int* __restrict__ trips,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int kb, int w_chunk,
-                                int static_trips, int with_ep) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
-  const float* q = qm + row * 16;
-  PairSumsB s(q, prm, with_ep);
-  for_each_slab_candidate(RowsB5{}, tile, slab + (size_t)blockIdx.x * 16 * kb,
-                          kb, slab_count(trips, kb, w_chunk, static_trips),
-                          q[12], q[13], q[14],
-                          [&](int k) { s.add(tile, T, k); });
-  epilogue_b(q, s, prm, out + row * 16);
-}
-
-// The redesigned v4 sweep B (K2) and Laplacian sweep (K3): one block of
-// `Slices` warps per 32 sorted query rows, every warp walking its slice of
-// the sub-block's windows through for_each_warp_candidate (only candidates
-// inside the warp's cell ranges, staged per warp, no block barrier in the
-// walk), its pair sums in registers; then the slices' partial sums are
-// added in slice order through shared memory (no atomics: two launches on
-// the same inputs give the same bits) and warp 0 runs the row's epilogue.
+// The redesigned v4 sweeps A (K1) and B (K2) and Laplacian sweep (K3): one
+// block of `Slices` warps per 32 sorted query rows, every warp walking its
+// slice of the sub-block's windows through for_each_warp_candidate (only
+// candidates inside the warp's cell ranges, staged per warp, no block
+// barrier in the walk), its pair sums in registers; then the slices'
+// partial sums are added in slice order through shared memory (no atomics:
+// two launches on the same inputs give the same bits) and warp 0 runs the
+// row's epilogue.
 //
 // What bounded the first form (one block of sub_q threads a sub-block, one
 // thread a row) on the H100: 145 blocks of 4 warps on 132 SMs at
@@ -269,9 +199,9 @@ __global__ void sweep_b5_kernel(const float* __restrict__ qm,
 // all 1,876 candidates of its sub-block's windows a row, of which the mask
 // kept 554, with every staged tile between two barriers. This form runs 580
 // blocks of 16 warps there (the card full) and stages only the candidates
-// inside each warp's cell ranges. The bound is the pair arithmetic: 40
-// FLOPs per pair within 2h for sweep B, 16 for the Laplacian sweep
-// (tools/roofline.py PAIR_FLOPS).
+// inside each warp's cell ranges. The bound is the pair arithmetic: 15
+// FLOPs per pair within h for sweep A, 40 within 2h for sweep B, 16 for the
+// Laplacian sweep (tools/roofline.py PAIR_FLOPS).
 //
 // warp_slices picks `Slices` from what the launch can see: the fewest
 // (a power of two from 2 to 16) that give the card 64 warps an SM, so
@@ -297,10 +227,63 @@ int warp_slices(int n) {
   return slices;
 }
 
-// Staged words of a candidate (before its cx, cyz): sweep B pos3 | ivel3 |
-// vol | pres | vm | 0, the Laplacian sweep pos3 | vol | vm | 0
+// Staged words of a candidate (before its cx, cyz): sweep A pos3 | cvel3 |
+// vol_prev | mass | 0 | 0, sweep B pos3 | ivel3 | vol | pres | vm | 0, the
+// Laplacian sweep pos3 | vol | vm | 0
+using WordsA = Rows<0, 1, 2, 3, 4, 5, 6, 7, -1, -1>;
 using WordsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, -1>;
 using WordsL = Rows<0, 1, 2, 3, 4, -1>;
+
+// Sweep A on the v4 windows (replaces _kernel_a3 with stencil "xyz3"): the
+// PairSumsA sums under the full per-axis mask, then epilogue_a with the
+// quirks, with_ep and the constants `prm` (a dynp vector or the config's).
+// The plain version takes the cyz half of the mask alone where Poly6's
+// support fits one cell (_mask_a_full false): the pairs that half admits
+// and the full mask drops have |dcx| >= 2, so they lie more than a cell
+// (>= h) apart, PairSumsA::add returns at t == 0 before adding anything,
+// and the sums are the same (tests/test_torch_warp_walk.py checks it).
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_a3_xyz3_kernel(const float* __restrict__ qm,
+                         const float* __restrict__ feats,
+                         const int* __restrict__ blk_lo,
+                         const int* __restrict__ blk_hi,
+                         const float* __restrict__ prm,
+                         float* __restrict__ out, int n, int sub_q,
+                         int with_ep, int g_mid, int q_double, int q_gate,
+                         int q_acc) {
+  constexpr int V = (WordsA::count + 2) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  __shared__ float part[4][Slices][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
+  const float* q = qm + row * 16;
+  const float qcx = q[12], qcyz = q[13];
+  // dead rows (cell sentinel) keep zero sums, like the plain version
+  const bool qlive = qcx >= 0.0f;
+  PairSumsA s(q, prm);
+  for_each_warp_candidate(WordsA{}, stage[w], feats, blk_lo, blk_hi, n, g_mid,
+                          (int)(row / sub_q), w, Slices, qcx, qcyz, qlive,
+                          [&](const float* c) { s.add(c, 1, 0); });
+  part[0][w][lane] = s.a_d;
+  part[1][w][lane] = s.a_x;
+  part[2][w][lane] = s.a_y;
+  part[3][w][lane] = s.a_z;
+  __syncthreads();
+  if (w != 0) return;
+  s.a_d = part[0][0][lane];
+  s.a_x = part[1][0][lane];
+  s.a_y = part[2][0][lane];
+  s.a_z = part[3][0][lane];
+#pragma unroll
+  for (int k = 1; k < Slices; ++k) {
+    s.a_d += part[0][k][lane];
+    s.a_x += part[1][k][lane];
+    s.a_y += part[2][k][lane];
+    s.a_z += part[3][k][lane];
+  }
+  epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
+}
 
 // Sweep B on the v4 windows (replaces _kernel_b3 with stencil "xyz3"): the
 // PairSumsB sums under the full per-axis mask, then epilogue_b.
@@ -405,34 +388,142 @@ __global__ void __launch_bounds__(32 * Slices)
   for (int c = 1; c < 16; ++c) o[c] = 0.0f;
 }
 
-template <Stencil S>
-int launch_a3(const float* qm, const float* feats, const int* blk_lo,
-              const int* blk_hi, const float* prm, float* out, int n,
-              int sub_q, int with_ep, int mask_full, GridDims g, int q_double,
-              int q_gate, int q_acc, void* stream) {
+// The redesigned v5 slab sweeps (K7; replace _kernel_a5 / _kernel_b5): the
+// pair sums of sweep A or B over each row's own packed slab under the
+// per-axis cell mask, then the same epilogues. One block of `Slices` warps
+// per 32 query rows, each warp walking its slice of the slots of the
+// slab(s) of its rows through for_each_warp_slab_candidate (a warp spans
+// two slabs at sub_q 16, one at 32 and up), the slices' sums added in
+// slice order as in the v4 sweeps. A sub-block walks the first
+// trips[b] * w_chunk slots of its slab, clipped to kb, or the whole slab
+// (v5s, static_trips): both give the same bits, since the padding slots
+// are never staged and a slot's slice follows from its index alone.
+//
+// What bounded the first form (one block of sub_q threads a sub-block):
+// 580 one-warp blocks on biceps_full (sub_q 32), 4.4 warps an SM, each
+// thread walking every one of its block's 876 slots a row in 32-slot tiles
+// between two barriers. The bound is the pair arithmetic, as for K1 / K2.
+struct SlabCount {
+  const int* trips;
+  int kb, w_chunk, static_trips;
+  __device__ int operator()(int b) const {
+    return static_trips ? kb : min(trips[b] * w_chunk, kb);
+  }
+};
+
+// Staged words of a slot (before its cf, cm, cs): sweep A pos3 | cvel3 |
+// vol_prev | mass | 0, sweep B pos3 | ivel3 | vol | pres | vm
+using WordsA5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, -1>;
+using WordsB5 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8>;
+
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_a5_kernel(const float* __restrict__ qm,
+                    const float* __restrict__ slabs,
+                    const int* __restrict__ trips,
+                    const float* __restrict__ prm, float* __restrict__ out,
+                    int n, int sub_q, int kb, int w_chunk, int static_trips,
+                    int with_ep, int q_double, int q_gate, int q_acc) {
+  constexpr int V = (WordsA5::count + 3) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  __shared__ float part[4][Slices][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * 32;
+  const size_t row = (size_t)r0 + lane;
+  // rows past n (a last partial warp) read row n - 1 and write nothing
+  const float* q = qm + (size_t)min(r0 + lane, n - 1) * 16;
+  PairSumsA s(q, prm);
+  for_each_warp_slab_candidate(
+      WordsA5{}, stage[w], qm, slabs, n, sub_q, kb,
+      SlabCount{trips, kb, w_chunk, static_trips}, r0, w, Slices,
+      [&](const float* c) { s.add(c, 1, 0); });
+  part[0][w][lane] = s.a_d;
+  part[1][w][lane] = s.a_x;
+  part[2][w][lane] = s.a_y;
+  part[3][w][lane] = s.a_z;
+  __syncthreads();
+  if (w != 0 || row >= (size_t)n) return;
+  s.a_d = part[0][0][lane];
+  s.a_x = part[1][0][lane];
+  s.a_y = part[2][0][lane];
+  s.a_z = part[3][0][lane];
+#pragma unroll
+  for (int k = 1; k < Slices; ++k) {
+    s.a_d += part[0][k][lane];
+    s.a_x += part[1][k][lane];
+    s.a_y += part[2][k][lane];
+    s.a_z += part[3][k][lane];
+  }
+  epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
+}
+
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_b5_kernel(const float* __restrict__ qm,
+                    const float* __restrict__ slabs,
+                    const int* __restrict__ trips,
+                    const float* __restrict__ prm, float* __restrict__ out,
+                    int n, int sub_q, int kb, int w_chunk, int static_trips,
+                    int with_ep) {
+  constexpr int V = (WordsB5::count + 3) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  __shared__ float part[4][Slices][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * 32;
+  const size_t row = (size_t)r0 + lane;
+  // rows past n (a last partial warp) read row n - 1 and write nothing
+  const float* q = qm + (size_t)min(r0 + lane, n - 1) * 16;
+  PairSumsB s(q, prm, with_ep);
+  for_each_warp_slab_candidate(
+      WordsB5{}, stage[w], qm, slabs, n, sub_q, kb,
+      SlabCount{trips, kb, w_chunk, static_trips}, r0, w, Slices,
+      [&](const float* c) { s.add(c, 1, 0); });
+  part[0][w][lane] = s.a_ax;
+  part[1][w][lane] = s.a_ay;
+  part[2][w][lane] = s.a_az;
+  part[3][w][lane] = s.a_lap;
+  __syncthreads();
+  if (w != 0 || row >= (size_t)n) return;
+  s.a_ax = part[0][0][lane];
+  s.a_ay = part[1][0][lane];
+  s.a_az = part[2][0][lane];
+  s.a_lap = part[3][0][lane];
+#pragma unroll
+  for (int k = 1; k < Slices; ++k) {
+    s.a_ax += part[0][k][lane];
+    s.a_ay += part[1][k][lane];
+    s.a_az += part[2][k][lane];
+    s.a_lap += part[3][k][lane];
+  }
+  epilogue_b(q, s, prm, out + row * 16);
+}
+
+int launch_a3_hash9(const float* qm, const float* feats, const int* blk_lo,
+                    const int* blk_hi, const float* prm, float* out, int n,
+                    int sub_q, int with_ep, int gx, int gy, int q_double,
+                    int q_gate, int q_acc, void* stream) {
   const size_t smem = RowsA::count * (size_t)sub_q * sizeof(float);
-  sweep_a3_kernel<S><<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, mask_full, g,
-      q_double, q_gate, q_acc);
+  sweep_a3_hash9_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, gx, gy, q_double,
+      q_gate, q_acc);
   return (int)cudaGetLastError();
 }
 
-template <Stencil S>
-int launch_b3(const float* qm, const float* feats, const int* blk_lo,
-              const int* blk_hi, const float* prm, float* out, int n,
-              int sub_q, int with_ep, GridDims g, void* stream) {
+int launch_b3_hash9(const float* qm, const float* feats, const int* blk_lo,
+                    const int* blk_hi, const float* prm, float* out, int n,
+                    int sub_q, int with_ep, int gx, int gy, void* stream) {
   const size_t smem = RowsB::count * (size_t)sub_q * sizeof(float);
-  sweep_b3_kernel<S><<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, g);
+  sweep_b3_hash9_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
+      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, gx, gy);
   return (int)cudaGetLastError();
 }
 
-// Launch kernel<Slices> over n / 32 blocks of Slices warps, Slices from
-// warp_slices.
+// Launch kernel<Slices> over ceil(n / 32) blocks of Slices warps, Slices
+// from warp_slices.
 template <template <int> class Launch, class... Args>
 int launch_sliced(int n, void* stream, Args... args) {
   const int slices = warp_slices(n);
-  const dim3 grid(n / 32);
+  const dim3 grid((n + 31) / 32);
   cudaStream_t st = (cudaStream_t)stream;
   switch (slices) {
     case 2: Launch<2>::run(grid, st, args...); break;
@@ -442,6 +533,14 @@ int launch_sliced(int n, void* stream, Args... args) {
   }
   return (int)cudaGetLastError();
 }
+
+template <int Slices>
+struct LaunchA3 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_a3_xyz3_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
 
 template <int Slices>
 struct LaunchB3 {
@@ -459,19 +558,40 @@ struct LaunchLap3 {
   }
 };
 
+template <int Slices>
+struct LaunchA5 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_a5_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
+struct LaunchB5 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_b5_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
+// `mask_full` stays in the interface (compare_builds.py swaps libraries
+// of one interface); the warp walk takes the full mask either way, which
+// gives the same sums (sweep_a3_xyz3_kernel).
 int sph_sweep_a3(const float* qm, const float* feats, const int* blk_lo,
                  const int* blk_hi, const float* prm, float* out, int n,
                  int sub_q, int with_ep, int mask_full, int g_mid,
                  int quirk_double_self_density, int quirk_pressure_stim_gate,
                  int quirk_iion_accumulate, void* stream) {
-  return launch_a3<Stencil::kXyz3>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, sub_q, with_ep, mask_full,
-      GridDims{g_mid, 0, 0}, quirk_double_self_density,
-      quirk_pressure_stim_gate, quirk_iion_accumulate, stream);
+  (void)mask_full;
+  return launch_sliced<LaunchA3>(n, stream, qm, feats, blk_lo, blk_hi, prm,
+                                 out, n, sub_q, with_ep, g_mid,
+                                 quirk_double_self_density,
+                                 quirk_pressure_stim_gate,
+                                 quirk_iion_accumulate);
 }
 
 int sph_sweep_b3(const float* qm, const float* feats, const int* blk_lo,
@@ -487,19 +607,18 @@ int sph_sweep_a3_hash9(const float* qm, const float* feats,
                        int gy, int quirk_double_self_density,
                        int quirk_pressure_stim_gate,
                        int quirk_iion_accumulate, void* stream) {
-  return launch_a3<Stencil::kHash9>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, sub_q, with_ep, 1,
-      GridDims{0, gx, gy}, quirk_double_self_density,
-      quirk_pressure_stim_gate, quirk_iion_accumulate, stream);
+  return launch_a3_hash9(qm, feats, blk_lo, blk_hi, prm, out, n, sub_q,
+                         with_ep, gx, gy, quirk_double_self_density,
+                         quirk_pressure_stim_gate, quirk_iion_accumulate,
+                         stream);
 }
 
 int sph_sweep_b3_hash9(const float* qm, const float* feats,
                        const int* blk_lo, const int* blk_hi, const float* prm,
                        float* out, int n, int sub_q, int with_ep, int gx,
                        int gy, void* stream) {
-  return launch_b3<Stencil::kHash9>(qm, feats, blk_lo, blk_hi, prm, out, n,
-                                    sub_q, with_ep, GridDims{0, gx, gy},
-                                    stream);
+  return launch_b3_hash9(qm, feats, blk_lo, blk_hi, prm, out, n, sub_q,
+                         with_ep, gx, gy, stream);
 }
 
 int sph_sweep_a5(const float* qm, const float* slab, const int* trips,
@@ -507,21 +626,18 @@ int sph_sweep_a5(const float* qm, const float* slab, const int* trips,
                  int w_chunk, int static_trips, int with_ep,
                  int quirk_double_self_density, int quirk_pressure_stim_gate,
                  int quirk_iion_accumulate, void* stream) {
-  const size_t smem = RowsA5::count * (size_t)sub_q * sizeof(float);
-  sweep_a5_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, slab, trips, prm, out, kb, w_chunk, static_trips, with_ep,
-      quirk_double_self_density, quirk_pressure_stim_gate,
-      quirk_iion_accumulate);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchA5>(n, stream, qm, slab, trips, prm, out, n,
+                                 sub_q, kb, w_chunk, static_trips, with_ep,
+                                 quirk_double_self_density,
+                                 quirk_pressure_stim_gate,
+                                 quirk_iion_accumulate);
 }
 
 int sph_sweep_b5(const float* qm, const float* slab, const int* trips,
                  const float* prm, float* out, int n, int sub_q, int kb,
                  int w_chunk, int static_trips, int with_ep, void* stream) {
-  const size_t smem = RowsB5::count * (size_t)sub_q * sizeof(float);
-  sweep_b5_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, slab, trips, prm, out, kb, w_chunk, static_trips, with_ep);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchB5>(n, stream, qm, slab, trips, prm, out, n,
+                                 sub_q, kb, w_chunk, static_trips, with_ep);
 }
 
 int sph_sweep_lap3(const float* qm, const float* feats, const int* blk_lo,

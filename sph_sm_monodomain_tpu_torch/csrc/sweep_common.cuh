@@ -5,23 +5,25 @@
 // shared memory, the pair sums of sweep A and sweep B, and the four
 // candidate loops with their exact masks.
 //
-// The other sweeps run one thread block per bookkeeping sub-block of `sub_q`
-// sorted query rows, one thread per query row. The block stages tiles of
-// sub_q candidate rows into shared memory (one coalesced load per staged
-// feature row); then every query thread walks the tile and calls the
-// kernel's pair function for each candidate that passes the mask.
+// The first-form sweeps (the backward sweeps, v3, v1 / v2) run one thread
+// block per bookkeeping sub-block of `sub_q` sorted query rows, one thread
+// per query row. The block stages tiles of sub_q candidate rows into shared
+// memory (one coalesced load per staged feature row); then every query
+// thread walks the tile and calls the kernel's pair function for each
+// candidate that passes the mask.
 //   v4 (for_each_neighbor): the three slow-plane windows [lo, hi) of the
 //     (16, N) feature matrix, mask |qcyz + (r-1)*G_mid - ccyz| <= 1 for
-//     window r, plus |qcx - ccx| <= 1 for the full mask.
+//     window r and |qcx - ccx| <= 1.
 //   v3 (for_each_neighbor_hash9): the nine (dy, dz) run windows, mask
 //     |qh + d_r - ch| <= 1 on the linear cell hash, d_r = Gx*(dy + Gy*dz).
-//   v5 (for_each_slab_candidate): the first `count` slots of the block's own
-//     packed (16, kb) slab, mask |dcf|, |dcm|, |dcs| <= 1 on the per-axis
-//     cell coordinates.
-//   v4, warp-trimmed (for_each_warp_candidate, sweep B and the Laplacian
-//     sweep): blocks of several warps per 32 query rows, each warp walking
-//     its slice of the three windows and only the candidates inside the
-//     warp's cell ranges, with the v4 full mask (see the loop).
+//   v4, warp-trimmed (for_each_warp_candidate, sweeps A and B and the
+//     Laplacian sweep): blocks of several warps per 32 query rows, each warp
+//     walking its slice of the three windows and only the candidates inside
+//     the warp's cell ranges, with the v4 full mask (see the loop).
+//   v5, warp-trimmed (for_each_warp_slab_candidate, sweeps A and B): the
+//     same split over the first `count` slots of the rows' own packed
+//     (16, kb) slabs, mask |dcf|, |dcm|, |dcs| <= 1 on the per-axis cell
+//     coordinates.
 // Under v4 and v3 a pair passes under one window only, even where sparse
 // blocks' windows overlap, and the windows are iterated exactly.
 
@@ -140,15 +142,15 @@ struct PairSumsB {
   }
 };
 
-// The window loop of every sweep: pair(k) runs for each staged candidate k
-// of the tile that passes the cell mask, in window order. All threads of the
-// block must call it (it synchronizes); dead query rows (qlive false) stage
-// tiles but call no pair.
+// The v4 window loop of the backward sweeps: pair(k) runs for each staged
+// candidate k of the tile that passes the full cell mask, in window order.
+// All threads of the block must call it (it synchronizes); dead query rows
+// (qlive false) stage tiles but call no pair.
 template <class RowList, class Pair>
 __device__ __forceinline__ void for_each_neighbor(
     RowList rows, float* tile, const float* feats, const int* blk_lo,
     const int* blk_hi, int n, int g_mid, float qcx, float qcyz, bool qlive,
-    bool mask_full, Pair&& pair) {
+    Pair&& pair) {
   const int T = blockDim.x;
   const int b = blockIdx.x;
   const float* s_cx = tile + (RowList::count - 2) * T;
@@ -163,7 +165,7 @@ __device__ __forceinline__ void for_each_neighbor(
       if (qlive) {
         for (int k = 0; k < cnt; ++k) {
           if (!(fabsf(qd - s_cyz[k]) <= 1.0f)) continue;
-          if (mask_full && !(fabsf(qcx - s_cx[k]) <= 1.0f)) continue;
+          if (!(fabsf(qcx - s_cx[k]) <= 1.0f)) continue;
           pair(k);
         }
       }
@@ -216,7 +218,7 @@ __device__ __forceinline__ void for_each_neighbor_hash9(
 // 32 candidates (coalesced), keeps those inside both ranges (a ballot),
 // stages their words into its own `stage` (32 slots of Words::count + 2
 // floats, the cell pair last) with no barrier but __syncwarp, and every
-// live row then applies the exact mask of for_each_neighbor (mask_full) to
+// live row then applies the exact mask of for_each_neighbor to
 // each staged slot and calls pair(slot) in window order. Dead rows (qlive
 // false) take part in the warp's steps but call no pair; a warp with no
 // live row returns at once. The cell features are integers, so the ranges
@@ -315,52 +317,109 @@ __device__ __forceinline__ void for_each_warp_candidate(
   }
 }
 
-// Which window loop a v4 / v3 sweep runs.
-enum class Stencil { kXyz3, kHash9 };
-
-// Grid extents the window loops need: G_mid for v4, Gx and Gy for v3.
-struct GridDims {
-  int g_mid, gx, gy;
-};
-
-template <Stencil S, class RowList, class Pair>
-__device__ __forceinline__ void for_each_window_candidate(
-    RowList rows, float* tile, const float* feats, const int* blk_lo,
-    const int* blk_hi, int n, GridDims g, float qcx, float qcyz, bool qlive,
-    bool mask_full, Pair&& pair) {
-  if constexpr (S == Stencil::kXyz3)
-    for_each_neighbor(rows, tile, feats, blk_lo, blk_hi, n, g.g_mid, qcx,
-                      qcyz, qlive, mask_full, pair);
-  else
-    for_each_neighbor_hash9(rows, tile, feats, blk_lo, blk_hi, n, g.gx, g.gy,
-                            qcx, qlive, pair);
-}
-
-// The v5 slab loop: pair(k) for each of the first `count` slots of the
-// block's own packed slab (16, kb), row f of slot j at slab[f*kb + j], that
-// passes the per-axis cell mask. Empty slots hold a zero row with a sentinel
-// cf, which no live query passes and which adds exactly 0 to a dead one
-// (zero volume and mass), so `count` may be any number of slots from the
-// block's union up to kb. All threads of the block must call it.
-template <class RowList, class Pair>
-__device__ __forceinline__ void for_each_slab_candidate(
-    RowList rows, float* tile, const float* slab, int kb, int count,
-    float qcf, float qcm, float qcs, Pair&& pair) {
-  const int T = blockDim.x;
-  const float* s_cf = tile + (RowList::count - 3) * T;
-  const float* s_cm = tile + (RowList::count - 2) * T;
-  const float* s_cs = tile + (RowList::count - 1) * T;
-  for (int base = 0; base < count; base += T) {
-    stage_rows(rows, tile, slab, kb, base, count);
-    __syncthreads();
-    const int cnt = min(T, count - base);
-    for (int k = 0; k < cnt; ++k) {
-      if (!(fabsf(qcf - s_cf[k]) <= 1.0f)) continue;
-      if (!(fabsf(qcm - s_cm[k]) <= 1.0f)) continue;
-      if (!(fabsf(qcs - s_cs[k]) <= 1.0f)) continue;
-      pair(k);
+// The warp-trimmed v5 slab walk of the redesigned slab sweeps (K7). The
+// calling block holds `slices` warps that serve the same 32 consecutive
+// query rows r0 .. r0 + 31 (lane = row; rows at or past n take no part):
+// they may span several sub-blocks of `sub_q` rows (two at sub_q 16), and
+// each sub-block b has its own packed slab (16, kb) at slabs + b * 16 * kb,
+// of which the first count(b) slots are walked. For each such sub-block the
+// warp takes the rows of the warp that belong to it and are live (qcf >= 0)
+// as members, the cf / cm / cs ranges of its members widened by one cell,
+// and walks the sub-block's slots in passes of 32, taking every slices-th
+// pass from pass `slice` on, so that a slot's slice follows from its index
+// alone: walking further empty slots (the whole slab, as v5s does) changes
+// no bit. Each pass reads the cell features of 32 slots (coalesced: rows
+// 12-14 of the slab), keeps those inside all three ranges (a ballot),
+// stages their words and cell features into the warp's own `stage` (32
+// slots of Words::count + 3 floats) with no barrier but __syncwarp, and
+// every member applies the exact per-axis mask to each staged slot and
+// calls pair(slot) in slot order. Empty slots hold a zero row with a
+// sentinel cf below every live row's range, so they are never staged; dead
+// rows call no pair (the mask would pair a dead row only with empty slots,
+// which add exactly 0). The cell features are integers, so the ranges hold
+// every slot the exact mask accepts.
+template <class Words, class Count, class Pair>
+__device__ __forceinline__ void for_each_warp_slab_candidate(
+    Words words, float4* stage, const float* qm, const float* slabs, int n,
+    int sub_q, int kb, Count&& count, int r0, int slice, int slices,
+    Pair&& pair) {
+  constexpr int W = Words::count + 3;
+  static_assert(W % 4 == 0, "a slot is a whole number of float4");
+  constexpr int V = W / 4;
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + lane;
+  const float inf = __int_as_float(0x7f800000);
+  float qc[3] = {-1.0f, 0.0f, 0.0f};
+  if (row < n) {
+    qc[0] = qm[(size_t)row * 16 + 12];
+    qc[1] = qm[(size_t)row * 16 + 13];
+    qc[2] = qm[(size_t)row * 16 + 14];
+  }
+  const bool qlive = qc[0] >= 0.0f;
+  const int b_last = (min(r0 + 32, n) - 1) / sub_q;
+  for (int b = r0 / sub_q; b <= b_last; ++b) {
+    const bool member = qlive && row / sub_q == b;
+    float lo[3], hi[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = member ? qc[a] : inf;
+      hi[a] = member ? qc[a] : -inf;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        lo[a] = fminf(lo[a], __shfl_xor_sync(kFullMask, lo[a], o));
+        hi[a] = fmaxf(hi[a], __shfl_xor_sync(kFullMask, hi[a], o));
+      }
+      lo[a] -= 1.0f;
+      hi[a] += 1.0f;
     }
-    __syncthreads();
+    if (!(lo[0] <= hi[0])) continue;  // no live row of this sub-block
+    const float* slab = slabs + (size_t)b * 16 * kb;
+    const int cnt_b = count(b);
+    for (int base = slice * 32; base < cnt_b; base += slices * 32) {
+      const int j = base + lane;
+      float cc[3] = {0.0f, 0.0f, 0.0f};
+      bool take = false;
+      if (j < cnt_b) {
+        take = true;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          cc[a] = slab[(size_t)(12 + a) * kb + j];
+          take = take && cc[a] >= lo[a] && cc[a] <= hi[a];
+        }
+      }
+      const unsigned m = __ballot_sync(kFullMask, take);
+      if (take) {
+        float v[W];
+        load_slot(words, v, slab, kb, j);
+        v[W - 3] = cc[0];
+        v[W - 2] = cc[1];
+        v[W - 1] = cc[2];
+        float4* s = stage + __popc(m & ((1u << lane) - 1u)) * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          s[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                             v[4 * i + 3]);
+      }
+      __syncwarp();
+      const int cnt = __popc(m);
+      for (int k = 0; k < cnt; ++k) {
+        float c[W];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float4 t = stage[k * V + i];
+          c[4 * i] = t.x;
+          c[4 * i + 1] = t.y;
+          c[4 * i + 2] = t.z;
+          c[4 * i + 3] = t.w;
+        }
+        if (!member) continue;
+        if (!(fabsf(qc[0] - c[W - 3]) <= 1.0f)) continue;
+        if (!(fabsf(qc[1] - c[W - 2]) <= 1.0f)) continue;
+        if (!(fabsf(qc[2] - c[W - 1]) <= 1.0f)) continue;
+        pair(c);
+      }
+      __syncwarp();
+    }
   }
 }
 

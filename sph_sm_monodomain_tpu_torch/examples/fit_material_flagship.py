@@ -24,13 +24,15 @@ with cosine decay. Stim stays on throughout.
 Run:
     python -m sph_sm_monodomain_tpu_torch.examples.fit_material_flagship \\
         [scene] [steps] [iters] [--device cuda|cpu] [--csv=PATH] [--lr=0.15]
-        [--roughness]
+        [--roughness] [--scan]
 Defaults: biceps_full 250 30 on the card. `--roughness` fits no material:
 it prints the loss's roughness in log K and log mu (`roughness`) at the
 initial guess and at (0.494, 40.8), where a 250-step, 120-iteration fit
-once stopped. `--csv=PATH` appends one row in the JAX example's schema
-(its `adjoint_temps_gib` column holds the peak allocated GiB of the grad
-call here).
+once stopped. `--scan` fits none either: it prints the loss at 7 points of
+log K (the truth +-0.5, mu at the truth) and, along each rollout, how many
+particles sit on the EOS clamp +-max_pressure (`loss_scan`). `--csv=PATH`
+appends one row in the JAX example's schema (its `adjoint_temps_gib`
+column holds the peak allocated GiB of the grad call here).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ TRUE_K, TRUE_MU = 0.9, 40.0      # hidden material
 THETA0 = (0.3, 150.0)            # poor initial guess
 # where the 250-step, 120-iteration fit stopped on the card (K 45% off)
 ROUGHNESS_POINTS = (THETA0, (0.494, 40.8))
+SCAN_LOG_K = np.linspace(-0.5, 0.5, 7)    # loss_scan's offsets of log K
 
 
 def append_fit_row(path, vals) -> None:
@@ -71,10 +74,12 @@ def append_fit_row(path, vals) -> None:
                          for v in vals) + "\n")
 
 
-def rollout_disp(scene, sm_inv, log_theta, steps: int, snaps: int):
+def rollout_disp(scene, sm_inv, log_theta, steps: int, snaps: int,
+                 on_step=None):
     """Active-particle displacement snapshots (snaps, N, 3) after each of
     `snaps` blocks of steps // snaps steps, under (K, mu) =
-    exp(log_theta). With autograd on, each step is checkpointed."""
+    exp(log_theta). With autograd on, each step is checkpointed.
+    `on_step(state)` sees the state after every step."""
     params = {"k_stiffness": torch.exp(log_theta[0]),
               "mu_viscosity": torch.exp(log_theta[1])}
     cfg, sub_q = scene.cfg, scene.sub_block
@@ -92,6 +97,8 @@ def rollout_disp(scene, sm_inv, log_theta, steps: int, snaps: int):
                                preserve_rng_state=False)
             else:
                 s = body(s)
+            if on_step is not None:
+                on_step(s)
         disp.append(torch.where(s.active[:, None], s.pos - s.orig_pos,
                                 torch.zeros_like(s.pos)))
     return torch.stack(disp)
@@ -102,10 +109,11 @@ def theta_of(k: float, mu: float, device) -> torch.Tensor:
                                   device=device))
 
 
-def make_loss(scene, sm_inv, target, steps: int, snaps: int):
+def make_loss(scene, sm_inv, target, steps: int, snaps: int, on_step=None):
     """Displacement misfit against `target`, in mm^2 for readable logs."""
     def loss(log_theta):
-        d = rollout_disp(scene, sm_inv, log_theta, steps, snaps) - target
+        d = rollout_disp(scene, sm_inv, log_theta, steps, snaps,
+                         on_step) - target
         return (d * d).sum() * 1e6
     return loss
 
@@ -194,6 +202,41 @@ def roughness_report(sc, steps: int, log=print) -> dict:
     return out
 
 
+def loss_scan(sc, steps: int, offsets=SCAN_LOG_K, log=print) -> list:
+    """The fit loss of `sc` over `steps` steps (snapshots and hidden
+    material as the fit's) at log K = log TRUE_K + each offset, mu at
+    TRUE_MU, forward only; along each rollout, the count of active
+    particles whose pressure sits on the EOS clamp +-max_pressure. One
+    dict per point: log_theta (float32), k, loss, and the clamped count's
+    largest and mean value over the steps."""
+    dev = sc.state.device
+    snaps = max(1, min(5, steps))
+    sm_inv = sm_invariants(sc.state, sc.cfg)
+    pmax = sc.cfg.max_pressure
+    with torch.no_grad():
+        target = rollout_disp(sc, sm_inv, theta_of(TRUE_K, TRUE_MU, dev),
+                              steps, snaps)
+        rows = []
+        for off in offsets:
+            th = np.log(np.asarray([TRUE_K, TRUE_MU], np.float32))
+            th[0] = np.float32(th[0] + off)
+            counts = []
+            loss = make_loss(sc, sm_inv, target, steps, snaps,
+                             on_step=lambda s: counts.append(
+                                 (s.active & (s.pres.abs() == pmax)).sum()))
+            val = float(loss(torch.from_numpy(th).to(dev)))
+            c = torch.stack(counts).cpu().double()
+            rows.append({"log_theta": th, "k": float(np.exp(th[0])),
+                         "loss": val, "clamped_max": int(c.max()),
+                         "clamped_mean": float(c.mean())})
+            log(f"{sc.name} {steps} steps ({dev}) K={rows[-1]['k']:.5g} "
+                f"mu={TRUE_MU:g}: loss {val:.7g}; on the +-{pmax:g} "
+                f"pressure clamp: at most {rows[-1]['clamped_max']} of "
+                f"{sc.num_particles}, mean {rows[-1]['clamped_mean']:.2f}"
+                " a step")
+    return rows
+
+
 def _timed_ms(fn, device):
     """(fn(), wall ms) ending in a synchronize of the card."""
     sync = (torch.cuda.synchronize if device.type == "cuda"
@@ -215,6 +258,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=0.15)
     ap.add_argument("--roughness", action="store_true",
                     help="print the loss's roughness instead of fitting")
+    ap.add_argument("--scan", action="store_true",
+                    help="print the loss along log K instead of fitting")
     args = ap.parse_args(argv)
 
     sc = build_scene(args.scene, device=args.device)
@@ -223,6 +268,8 @@ def main(argv=None) -> dict:
     if args.roughness:
         return roughness_report(sc, args.steps,
                                 log=lambda s: print(s, flush=True))
+    if args.scan:
+        return loss_scan(sc, args.steps, log=lambda s: print(s, flush=True))
     n, steps, iters = sc.num_particles, args.steps, args.iters
     # displacement snapshots along the rollout: a contraction's endpoint is
     # weakly sensitive to (K, mu), its path is not

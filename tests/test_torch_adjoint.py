@@ -10,7 +10,11 @@ Tolerances:
   log(K, mu), the JAX suite's own fused-vs-XLA bounds; grad w.r.t.
   log(voltage_constant, sm_alpha) rtol 1e-3 (these reach the loss only
   through Vm and the shape-matching correction, a longer fp32 chain);
-- checkpointing: grads equal to 1e-6 relative.
+- checkpointing: grads equal to 1e-6 relative;
+- the fit loss along log K (`fit.loss_scan`, 7 points over a 20-step
+  rollout): the port's curve within twice JAX's own 1-ulp spread, the
+  largest change of JAX's curve when the start positions move by one ulp
+  (tests/torch_parity.py), at every point.
 Run as a script, the module prints the long-rollout witness: both
 packages' fit loss, gradient and central differences over many steps.
 Shape matching's own gradient against JAX autodiff is in
@@ -34,8 +38,8 @@ from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
 from sph_sm_monodomain_tpu_torch.ops import shape_matching as tsm
 from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
 
-from torch_parity import (jax_state_arrays, random_state, to_torch_state,
-                          torch_cfg)
+from torch_parity import (SPREAD_FACTOR, bump_pos, jax_state_arrays,
+                          random_state, to_torch_state, torch_cfg)
 
 
 @pytest.fixture(autouse=True)
@@ -333,12 +337,15 @@ def port_fit_loss(steps, scene="susane"):
     return t_value, t_vg
 
 
-def jax_fit_loss(steps, scene="susane"):
+def jax_fit_loss(steps, scene="susane", start=None):
     """port_fit_loss's counterpart in the JAX package: the rollout of its
-    example's `--fused` path (step_fused_diff under jax.checkpoint)."""
+    example's `--fused` path (step_fused_diff under jax.checkpoint), from
+    the scene's state or `start(state)`, target included."""
     snaps = max(1, min(5, steps))
     jsc = J.build_scene(scene)
     jcfg, js0 = jsc.cfg, jsc.state
+    if start is not None:
+        js0 = start(js0)
     jinv = jax.jit(lambda s: jsm.sm_invariants(s, jcfg))(js0)
 
     def rollout(log_theta):
@@ -382,6 +389,32 @@ def test_fit_gradient_matches_finite_differences():
     _, g = t_vg(theta)
     np.testing.assert_allclose(g, _central_diff(t_value, theta, 1e-2),
                                rtol=1e-3)
+
+
+def test_fit_loss_scan_matches_jax():
+    """The fit loss along log K at the true mu (fit.loss_scan: 7 points,
+    log K within +-0.5 of the truth) over a 20-step susane rollout: the
+    port's curve against the JAX example's loss on the same float32
+    thetas, within SPREAD_FACTOR x the largest change of JAX's curve when
+    the start positions (and so the target) move by one ulp. Both are 0 at
+    the truth and positive elsewhere; the count of particles on the
+    pressure clamp grows with K (0 at K = 0.546, 270 of 507 at 1.484)."""
+    steps = 20
+    rows = fit.loss_scan(T.build_scene("susane", device="cpu"), steps,
+                         log=lambda s: None)
+    ths = [r["log_theta"] for r in rows]
+    t = np.asarray([r["loss"] for r in rows])
+    j_value = jax_fit_loss(steps)[0]
+    jb_value = jax_fit_loss(steps, start=bump_pos)[0]
+    j = np.asarray([j_value(th) for th in ths])
+    jb = np.asarray([jb_value(th) for th in ths])
+    spread = np.abs(jb - j).max()
+    assert np.all(np.isfinite(t)) and spread > 0.0
+    np.testing.assert_array_less(np.abs(t - j), SPREAD_FACTOR * spread)
+    assert t[3] == j[3] == 0.0 and np.all(t[[0, 1, 2, 4, 5, 6]] > 0.0)
+    clamped = [r["clamped_max"] for r in rows]
+    assert clamped[0] == 0 and clamped[-1] > 0
+    assert clamped == sorted(clamped)
 
 
 def witness(steps, points, hs=(1e-2, 1e-3), scene="susane"):

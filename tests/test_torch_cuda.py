@@ -34,6 +34,10 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping3,
                                                     sweep_bookkeeping5)
 from sph_sm_monodomain_tpu_torch.tools import roofline
+from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
+
+from parity_clouds import (BICEPS_CSV, WIDE_WORLD, blob_fields, blob_points,
+                           sparse_points, wide_points)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +69,163 @@ def _check(got, want, what):
     err = (got - want).abs().amax(dim=0)
     assert torch.isfinite(got).all(), what
     assert bool((err <= bound).all()), (what, err.tolist())
+
+
+def _parity_state(device, case):
+    """(cfg, state) of the parity states of tests/torch_parity.named_state,
+    built with the port from the same numpy draws (tests/parity_clouds.py):
+    "padded" (200 particles in 256 rows, random fields), "slice" (the
+    462-particle biceps slice, stim mesh on), "wide_world" (a stretched
+    world: the hash axes permute) or "sparse" (two far clusters, whose
+    sub-blocks' windows overlap)."""
+    cfg = T.SimConfig()
+    rng = np.random.default_rng(7)
+    if case == "padded":
+        rng = np.random.default_rng(0)
+        st = T.init_fluid(blob_points(rng, 200), cfg, device=device)
+        st = T.stim.set_stim(st, (0.6, 0.6, 0.6), 0.3, cfg.stim_strength,
+                             cfg)
+        return cfg, st.replace(**{
+            k: torch.from_numpy(v).to(device)
+            for k, v in blob_fields(rng, st.capacity,
+                                    cfg.stand_density).items()})
+    if case == "slice":
+        pts = T.read_cloud_csv(ASSETS_DIR / BICEPS_CSV)[::40]
+        st = T.init_fluid(pts, cfg, device=device)
+        return cfg, T.stim.turn_on_stim_mesh(st, pts, cfg)
+    if case == "wide_world":
+        cfg = cfg.replace(world_size=WIDE_WORLD)
+        pts = wide_points(rng)
+    else:
+        pts = sparse_points(rng)
+    st = T.init_fluid(pts.astype(np.float32), cfg, device=device)
+    return cfg, T.stim.set_stim(st, tuple(pts[0]), 0.5, cfg.stim_strength,
+                                cfg)
+
+
+def _k1_variants(cfg, device):
+    """(label, config, sweep_a3 keywords) of the K1 checks: the defaults,
+    with_ep off, a dynp vector, a grid finer than h (the plain version's
+    full mask), and each quirk off in turn (all three are on by
+    default)."""
+    dynp = fst.build_dynp(T.resolve_params(cfg, {"k_stiffness": 0.8,
+                                                 "mu_viscosity": 40.0}),
+                          device)
+    out = [("default", cfg, {}), ("no_ep", cfg, {"with_ep": False}),
+           ("dynp", cfg, {"dynp": dynp}),
+           ("full_mask", cfg.replace(cell_size=0.03), {})]
+    for q in ("quirk_double_self_density", "quirk_pressure_stim_gate",
+              "quirk_iion_accumulate"):
+        out.append((f"no_{q}", cfg.replace(**{q: False}), {}))
+    return out
+
+
+@pytest.mark.parametrize("case", ["padded", "slice", "wide_world", "sparse"])
+def test_k1_matches_plain(device, case):
+    """The warp-trimmed sweep A (K1) against its plain version on the
+    parity states at sub_q 32, 64 and 128 (where the capacity allows),
+    with the variants of _k1_variants: the plain version's cyz-only mask
+    (cell_size >= h) and its full mask (cell_size < h) both give the
+    kernel's sums; one launch counted per call, two launches bitwise
+    equal."""
+    cfg0, st = _parity_state(device, case)
+    masks = set()
+    for sub_q in (32, 64, 128):
+        if st.capacity % sub_q:
+            continue
+        for label, cfg, kw in _k1_variants(cfg0, device):
+            masks.add(fst._mask_a_full(cfg))
+            order, _, lo, hi, cx, cyz = sweep_bookkeeping3(
+                st.pos, st.active, cfg, sub_q)
+            fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+            n0 = fst.sweep_a3.launches
+            got = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sub_q, **kw)
+            again = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sub_q, **kw)
+            torch.cuda.synchronize()
+            assert fst.sweep_a3.launches == n0 + 2
+            _check(got, fst.sweep_a3_plain(fs, fa, cfg, kw.get("with_ep",
+                                                                True),
+                                           kw.get("dynp")),
+                   f"{case} sub_q {sub_q} K1 {label}")
+            assert torch.equal(got, again), (case, sub_q, label)
+    assert masks == {False, True}
+
+
+def _v5_slabs(st, cfg, sub_q, kb, w_chunk=128):
+    """(QM_A, sweep-A slabs, trips, src, overflow) of a state's v5 step 0."""
+    order, _, src, trips, over, cf, cm, cs = sweep_bookkeeping5(
+        st.pos, st.active, cfg, sub_q, kb, w_chunk)
+    fs = fst.build_qm_feats5(st, cf, cm, cs, order)
+    return fs, fst.pack_feats_a5(fs, src, kb), trips, src, int(over)
+
+
+def _check_k7(fs, pa, trips, src, kb, cfg, what, **kw):
+    """K7 A and B against their plain versions (B on the plain A's
+    output), with and without EP, each launched twice: bitwise equal."""
+    for with_ep in (True, False):
+        n0 = (fst.sweep_a5.launches, fst.sweep_b5.launches)
+        got = fst.sweep_a5(fs, pa, trips, cfg, with_ep, **kw)
+        again = fst.sweep_a5(fs, pa, trips, cfg, with_ep, **kw)
+        want_a = fst.sweep_a5_plain(fs, pa, cfg, with_ep)
+        torch.cuda.synchronize()
+        _check(got, want_a, f"{what} K7 A ep={with_ep}")
+        assert torch.equal(got, again), (what, "A", with_ep)
+        pb = fst.pack_feats_b5(want_a, fst.vol_now(want_a), src, kb)
+        got = fst.sweep_b5(want_a, pb, trips, cfg, with_ep, **kw)
+        again = fst.sweep_b5(want_a, pb, trips, cfg, with_ep, **kw)
+        torch.cuda.synchronize()
+        _check(got, fst.sweep_b5_plain(want_a, pb, cfg, with_ep),
+               f"{what} K7 B ep={with_ep}")
+        assert torch.equal(got, again), (what, "B", with_ep)
+        assert (fst.sweep_a5.launches, fst.sweep_b5.launches) == (
+            n0[0] + 2, n0[1] + 2)
+
+
+@pytest.mark.parametrize("case", ["padded", "slice", "wide_world", "sparse",
+                                  "biceps_full"])
+def test_k7_matches_plain(device, case):
+    """The warp-trimmed slab sweeps (K7 A and B) against their plain
+    versions at sub_q 16 (a warp's rows span two slabs), 32 and 64, over
+    the trips and over the whole slab (static_trips, v5s), with and
+    without EP, each launch repeated bitwise, and sweep A over the trips
+    bitwise equal to sweep A over the whole slab; the slab capacity is the
+    tuner's for that sub_q."""
+    if case == "biceps_full":
+        sc = T.build_scene("biceps_full", device=device)
+        cfg, st = sc.cfg, sc.state
+    else:
+        cfg, st = _parity_state(device, case)
+    pts = st.pos[st.active].cpu().numpy()
+    for sub_q in (16, 32, 64):
+        if st.capacity % sub_q:
+            continue
+        kb = auto_sweep5_params(pts, cfg, sub_qs=(sub_q,))[1]
+        fs, pa, trips, src, over = _v5_slabs(st, cfg, sub_q, kb)
+        assert over == 0
+        for static in (False, True):
+            _check_k7(fs, pa, trips, src, kb, cfg,
+                      f"{case} sub_q {sub_q} static {static}", sub_q=sub_q,
+                      w_chunk=128, static_trips=static)
+        # the whole slab's padding slots change no bit
+        kw = dict(sub_q=sub_q, w_chunk=128)
+        assert torch.equal(fst.sweep_a5(fs, pa, trips, cfg, **kw),
+                           fst.sweep_a5(fs, pa, trips, cfg, **kw,
+                                        static_trips=True)), (case, sub_q)
+
+
+@pytest.mark.parametrize("sub_q", [16, 32, 64])
+def test_k7_after_forced_regrow(device, sub_q):
+    """K7 on the padded blob at the slab capacity run_protocol's regrow
+    reaches from 128 slots (1.5x, rounded up to 128, until nothing
+    overflows), the step-0 overflow at 128 being non-zero."""
+    cfg, st = _parity_state(device, "padded")
+    kb = 128
+    assert _v5_slabs(st, cfg, sub_q, kb)[4] > 0
+    while _v5_slabs(st, cfg, sub_q, kb)[4]:
+        kb = ((int(kb * 1.5) + 127) // 128) * 128
+    fs, pa, trips, src, _ = _v5_slabs(st, cfg, sub_q, kb)
+    _check_k7(fs, pa, trips, src, kb, cfg, f"regrown kb {kb}", sub_q=sub_q,
+              w_chunk=128)
 
 
 @pytest.mark.parametrize("case", ["default", "no_ep", "full_mask", "dynp"])
@@ -348,7 +509,7 @@ def test_redesigned_kernels_match_plain(device, case):
 
 @pytest.mark.parametrize("replicate", [2, 4, 8, 16])
 def test_redesigned_kernels_every_slice_count(device, replicate):
-    """K2 and K3 on biceps_full tiled 2, 4, 8 and 16 times (37k to 296k
+    """K1, K2 and K3 on biceps_full tiled 2, 4, 8 and 16 times (37k to 296k
     particles), where the launch takes 8, 4, 2 and 2 warp slices a row warp
     on the H100's 132 SMs (biceps_full itself takes 16): held to their
     plain versions on 64 sampled warps of rows, and two launches of each
@@ -377,6 +538,12 @@ def test_redesigned_kernels_every_slice_count(device, replicate):
     order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg, sq)
     fs, fa = fst.build_qm_feats(st, cx, cyz, order)
     out_a = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
+    again = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
+    torch.cuda.synchronize()
+    _check(out_a[rows], torch.cat([fst.sweep_a3_plain(fs[r], fa, cfg)
+                                   for r in rows.split(32)]),
+           f"x{replicate} K1")
+    assert torch.equal(out_a, again)
     fb = fst.feats_b(out_a)
     got = fst.sweep_b3(out_a, fb, lo, hi, cfg, sub_q=sq)
     again = fst.sweep_b3(out_a, fb, lo, hi, cfg, sub_q=sq)

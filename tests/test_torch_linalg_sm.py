@@ -8,12 +8,21 @@ alpha/dt (~97), so its absolute tolerance is the goal's times that factor.
 The gradient of corrected_velocity against JAX autodiff: rtol 1e-4 with an
 absolute floor of 1e-5 * max|grad| (the same fixed-iteration Jacobi in
 fp32, summed in another order).
+
+The polar factor R is held to scipy.linalg.polar in float64: the port's
+error at most twice JAX's plus 1e-6, and port against JAX within the sum
+of the two errors. On the "general" matrix (singular values 1.888, 0.900,
+0.0755) a one-ulp difference in the fp32 A^T A moves the small eigenvalue
+enough that both packages lie ~1e-5 from float64 (port 8.3e-6, JAX
+1.02e-5), beyond rtol 1e-5 + atol 1e-6 between them; the well-conditioned
+near-rotation and reflection cases also keep that direct tolerance.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
 import sph_sm_monodomain_tpu as J
@@ -58,7 +67,14 @@ def test_linalg_3x3_matches(name):
         return
     rt, st = tla.polar_decomposition(at)
     rj, sj = jla.polar_decomposition(a)
-    _close(rt, rj, what="polar R")
+    r64 = scipy.linalg.polar(a.astype(np.float64))[0]
+    err_t = float(np.abs(rt.numpy() - r64).max())
+    err_j = float(np.abs(np.asarray(rj) - r64).max())
+    assert err_t <= 2.0 * err_j + 1e-6, (err_t, err_j)
+    assert float(np.abs(rt.numpy() - np.asarray(rj)).max()) \
+        <= err_t + err_j
+    if name != "general":
+        _close(rt, rj, what="polar R")
     _close(st, sj, atol=1e-5, what="polar S")
 
 

@@ -23,7 +23,9 @@ its kernels (ablation/legacy_sweeps.py).
   those pairs.
 - Steps and run_protocol, on the active rows: the JAX suite's fused-step
   tolerances, pos 5e-5, vel 5e-3, vm 5e-3, iion 1e-5, w 1e-6 absolute,
-  dens 1e-5 relative (tests/test_pallas_sweeps.py).
+  dens 1e-5 relative (tests/test_pallas_sweeps.py), each at the larger of
+  that and twice JAX's own spread when the input positions move by one
+  ulp (tests/torch_parity.py).
 """
 
 import jax
@@ -39,8 +41,9 @@ import sph_sm_monodomain_tpu_torch as T
 from sph_sm_monodomain_tpu_torch.ablation import legacy_sweeps as tls
 from sph_sm_monodomain_tpu_torch.ops import sweeps as tsw
 
-from torch_parity import (assert_states_close, named_state, slice_scenes,
-                          to_torch_state, torch_cfg)
+from torch_parity import (assert_states_close, jax_steps, named_state,
+                          slice_scenes, to_torch_state, torch_cfg)
+from torch_parity import ulp_spreads  # noqa: F401 (a fixture)
 
 # the JAX suite's v1 sweep tolerances (absolute; acc after / dens)
 SUITE_ATOL = {"xsph": 2e-5, "acc": 5e-4, "lap": 5e-3}
@@ -184,7 +187,7 @@ def _run_steps(js, jcfg, impl, steps, sub_q):
 
 @pytest.mark.parametrize("case", ["v1_padded", "v2_padded", "v1_sparse",
                                   "v2_sparse", "v1_wide_world"])
-def test_step_matches_jax(case):
+def test_step_matches_jax(case, ulp_spreads):
     """3 fused steps against JAX step_fused(impl=...), at 128-row
     sub-blocks.
     The sparse state takes sm_alpha = 0: its shape matching is fp32 noise
@@ -194,7 +197,8 @@ def test_step_matches_jax(case):
     if state == "sparse":
         jcfg = jcfg.replace(sm_alpha=0.0)
     ts, jst = _run_steps(js, jcfg, impl, 3, 128)
-    assert_states_close(ts, jst, np.asarray(jst.active))
+    spread = ulp_spreads(case, jax_steps(jcfg, impl, 3, 128), js, ref=jst)
+    assert_states_close(ts, jst, np.asarray(jst.active), spread=spread)
 
 
 @pytest.mark.parametrize("impl", ["v1", "v2"])
@@ -211,7 +215,7 @@ def test_build_scene_matches_jax(impl):
 
 
 @pytest.mark.parametrize("impl", ["v1", "v2"])
-def test_run_protocol_matches_jax(impl):
+def test_run_protocol_matches_jax(impl, ulp_spreads):
     """run_protocol on the biceps slice, 4 steps in chunks of 2, stim off
     at 2, against JAX run_protocol(fused=True); neither can overflow, so
     each chunk runs once."""
@@ -221,8 +225,12 @@ def test_run_protocol_matches_jax(impl):
     tst, taux, _ = T.run_protocol(tsc, num_steps=4, chunk=2,
                                   stim_off_step=2)
     assert int(jaux.overflow) == int(taux.overflow) == 0
+    spread = ulp_spreads(
+        f"slice/{impl}", lambda s: J.run_protocol(
+            jsc._replace(state=s), num_steps=4, chunk=2, stim_off_step=2,
+            fused=True)[0], jsc.state, ref=jst)
     act = np.asarray(jst.active)
-    assert_states_close(tst, jst, act)
+    assert_states_close(tst, jst, act, spread=spread)
     assert np.all(tst.stim.numpy()[act] == -10000.0)
 
 

@@ -9,7 +9,9 @@ in interpret mode; the port runs the plain versions of its kernels.
   pairs summed in fp32 in another order).
 - Steps and run_protocol: the JAX suite's fused-step tolerances, pos 5e-5,
   vel 5e-3, vm 5e-3, iion 1e-5, w 1e-6 absolute, dens 1e-5 relative
-  (tests/test_pallas_sweeps.py).
+  (tests/test_pallas_sweeps.py); over several steps each field at the
+  larger of that and twice JAX's own spread when the input positions move
+  by one ulp (tests/torch_parity.py).
 """
 
 import dataclasses
@@ -31,8 +33,9 @@ from sph_sm_monodomain_tpu_torch.ops import shape_matching as tsm
 from sph_sm_monodomain_tpu_torch.ops import sweeps as tsw
 
 from torch_parity import (assert_bit_equal, assert_states_close,
-                          named_state as _state, slice_scenes,
+                          jax_steps, named_state as _state, slice_scenes,
                           to_torch_state, torch_cfg)
+from torch_parity import ulp_spreads  # noqa: F401 (a fixture)
 
 def _pack_cap(js, cfg, sub_q):
     """The tuner's slab capacity for this cloud at `sub_q`."""
@@ -177,7 +180,7 @@ def _run_steps(js, jcfg, impl, steps, sub_q, pack_cap=0, w_chunk=128):
 @pytest.mark.parametrize("case", ["v3_padded", "v5_sub_q16",
                                   "v5_sub_q32", "v5s", "v5_wide_world",
                                   "v5_sparse_blocks"])
-def test_step_matches_jax(case):
+def test_step_matches_jax(case, ulp_spreads):
     """3 fused steps (2 on the wide world and the sparse blocks, as the JAX
     suite's own v5 tests) against JAX step_fused(impl=...)."""
     impl, _, rest = case.partition("_")
@@ -190,14 +193,15 @@ def test_step_matches_jax(case):
         # it out, so the step compares the sweeps
         jcfg = jcfg.replace(sm_alpha=0.0)
     if impl == "v3":
-        ts, jst, over = _run_steps(js, jcfg, "v3", 3, 64)
+        args = (3, 64)
     else:
         sub_q = 16 if rest == "sub_q16" else 32
         steps = 2 if state in ("wide_world", "sparse") else 3
-        ts, jst, over = _run_steps(js, jcfg, impl, steps, sub_q,
-                                   _pack_cap(js, jcfg, sub_q))
+        args = (steps, sub_q, _pack_cap(js, jcfg, sub_q))
+    ts, jst, over = _run_steps(js, jcfg, impl, *args)
     assert over == 0
-    assert_states_close(ts, jst, np.asarray(jst.active))
+    spread = ulp_spreads(case, jax_steps(jcfg, impl, *args), js, ref=jst)
+    assert_states_close(ts, jst, np.asarray(jst.active), spread=spread)
 
 
 @pytest.mark.parametrize("case", ["sparse", "padded"])
@@ -299,7 +303,7 @@ def _pack_caps(module):
 
 
 @pytest.mark.parametrize("impl", ["v3", "v5", "v5_regrow"])
-def test_run_protocol_matches_jax(impl):
+def test_run_protocol_matches_jax(impl, ulp_spreads):
     """run_protocol on the biceps slice, 6 steps in chunks of 4, stim off
     at 3, against JAX run_protocol(fused=True). v5_regrow starts from
     32-row sub-blocks and pack_cap 128: both packages regrow to the same
@@ -323,8 +327,12 @@ def test_run_protocol_matches_jax(impl):
     if impl == "v5_regrow":
         assert tseen[0] == 128 and tseen[-1] > 128 and len(tseen) > 2
     assert int(jaux.overflow) == int(taux.overflow) == 0
+    spread = ulp_spreads(
+        f"slice/{impl}", lambda s: J.run_protocol(
+            jsc._replace(state=s), num_steps=6, chunk=4, stim_off_step=3,
+            fused=True)[0], jsc.state, ref=jst)
     act = np.asarray(jst.active)
-    assert_states_close(tst, jst, act)
+    assert_states_close(tst, jst, act, spread=spread)
     assert np.all(tst.stim.numpy()[act] == -10000.0)
 
 
