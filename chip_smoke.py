@@ -30,16 +30,19 @@ printing its lines; any failure raises and exits non-zero:
               bounds
   7. bwd      backward sweep A / B kernels against their plain versions on
               the biceps_full step-0 inputs with seeded random cotangents,
-              per column
+              per column, two launches of each bitwise equal; the same on
+              biceps_full x56 (1,034,600 particles, where they launch fewer
+              warp slices) on 2,048 sampled rows, and their times there
   8. grad     value and grad of a 3-step checkpointed rollout loss w.r.t.
               log(K, mu) on the 462-particle slice, card (kernels) against
               CPU (plain versions)
   9. fit      the fit driver's functions on biceps_full: a 20-step rollout,
               4 snapshots, 6 Adam iterations from (0.3, 150); finite loss
               and grads, a falling loss, and exact launch counts
- 10. timing   backward kernels against their plain versions, forward and
-              grad ms/step of the fit's rollout, its peak memory, and each
-              kernel's bound from the pairs these inputs need
+ 10. timing   backward kernels (CUDA events and torch.profiler device
+              time) against their plain versions, forward and grad ms/step
+              of the fit's rollout, its peak memory, and each kernel's
+              bound from the pairs these inputs need
  11. lap      the Laplacian kernel against its plain version on the
               monodomain tables of biceps_full, forward and backward forms,
               per column, two launches of each bitwise equal; a CSR SpMV of the same operator (a PyTorch library
@@ -56,7 +59,7 @@ printing its lines; any failure raises and exits non-zero:
               against unfused SPH-only on the slice
  15. timing   the Laplacian kernel, its plain version and the SpMV; ms/step
               of every mode; the monodomain value-and-grad ms/step; then
-              biceps_full x56 (1,034,600 particles): prepare time, ms/step
+              biceps_full x56 (built in phase 7): prepare time, ms/step
               of 100 monodomain-only steps, peak memory, the Laplacian
               kernel's time and its bound from that scene's pairs; there
               the Laplacian kernel (both forms) and sweeps A and B, which
@@ -218,6 +221,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """Mean device time per call of fn over `reps` calls, from torch.profiler:
+    the CUDA kernels whose name holds `kernel` (all of them if None), so the
+    wrappers' host overhead, which chained CUDA events include once a
+    kernel is as short as it, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0.0)
+             for e in prof.key_averages()
+             if kernel is None or kernel in e.key)
+    return us / reps / 1e3
 
 
 def step0_inputs(scene, dev):
@@ -412,7 +434,14 @@ def check_big_kernels(big, btab, dev) -> dict:
               "sweep_b3": (lambda: fst.sweep_b3(out_a, fb, lo, hi, cfg,
                                                 sub_q=sq),
                            lambda q: fst.sweep_b3_plain(q, fb, cfg), out_a)}
-    times = {}
+    return check_big_sweeps(sweeps, rows)
+
+
+def check_big_sweeps(sweeps, rows) -> dict:
+    """Each of {name: (launch, plain, qm)} on the replicated scene: launch()
+    held to plain(query rows of qm) on `rows`, two launches bitwise equal,
+    and timed. Returns {name: ms}."""
+    scratch, times = {}, {}
     for name, (launch, plain, qm) in sweeps.items():
         check_kernel(scratch, f"{name} (x{REPLICATE}, {rows.numel()} "
                      "sampled rows)", launch()[rows],
@@ -422,6 +451,32 @@ def check_big_kernels(big, btab, dev) -> dict:
         print(f"{name} on x{REPLICATE}: kernel {times[name]:.4f} ms",
               flush=True)
     return times
+
+
+def check_big_backward(big, dev) -> dict:
+    """The backward sweeps A and B on a replicated scene, where they launch
+    fewer warp slices than on biceps_full: its step-0 sweep inputs (sweep
+    A's output from its kernel) with seeded random cotangents, held to
+    their plain versions on sampled rows, two launches of each bitwise
+    equal. Returns their times there, {name: ms}."""
+    cfg, sq, n = big.cfg, big.sub_block, big.state.capacity
+    rows = sampled_rows(n, dev)
+    rng = np.random.default_rng(57)
+    cot = lambda *shape: torch.from_numpy(                   # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    st = big.state
+    order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg, sq)
+    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+    out_a = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
+    qa = fad.bwd_a_query(fs, cot(n), cot(n, 3))
+    qb = fad.bwd_b_query(out_a, cot(n, 3), cot(n))
+    fqa, fqb = qa.T.contiguous(), qb.T.contiguous()
+    sweeps = {
+        "sweep_bwd_a": (lambda: fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sq),
+                        lambda q: fad.sweep_bwd_a_plain(q, fqa, cfg), qa),
+        "sweep_bwd_b": (lambda: fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sq),
+                        lambda q: fad.sweep_bwd_b_plain(q, fqb, cfg), qb)}
+    return check_big_sweeps(sweeps, rows)
 
 
 def check_protocol_run(state, aux, cfg, what):
@@ -805,21 +860,31 @@ def main() -> int:
               "it)", flush=True)
 
     phase("7 backward kernels vs plain versions (biceps_full step-0 "
-          "inputs, seeded random cotangents)")
+          f"inputs, seeded random cotangents; x{REPLICATE} on sampled rows)")
     rng = np.random.default_rng(0)
     cot = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev)
     qm_a = fad.bwd_a_query(fs, cot(n_rows), cot(n_rows, 3))
     qm_b = fad.bwd_b_query(plain_a, cot(n_rows, 3), cot(n_rows))
     feats_ba, feats_bb = qm_a.T.contiguous(), qm_b.T.contiguous()
-    for name, got, want in (
-            ("sweep_bwd_a",
-             fad.sweep_bwd_a(qm_a, feats_ba, lo, hi, cfg, sub_q),
-             fad.sweep_bwd_a_plain(qm_a, feats_ba, cfg)),
-            ("sweep_bwd_b",
-             fad.sweep_bwd_b(qm_b, feats_bb, lo, hi, cfg, sub_q),
-             fad.sweep_bwd_b_plain(qm_b, feats_bb, cfg))):
-        check_kernel(report, name, got, want)
+    bwd = {"sweep_bwd_a": (lambda: fad.sweep_bwd_a(qm_a, feats_ba, lo, hi,
+                                                   cfg, sub_q),
+                           lambda: fad.sweep_bwd_a_plain(qm_a, feats_ba,
+                                                         cfg)),
+           "sweep_bwd_b": (lambda: fad.sweep_bwd_b(qm_b, feats_bb, lo, hi,
+                                                   cfg, sub_q),
+                           lambda: fad.sweep_bwd_b_plain(qm_b, feats_bb,
+                                                         cfg))}
+    for name, (launch, plain) in bwd.items():
+        check_kernel(report, name, launch(), plain())
+        check_repeatable(name, launch)
+    t0 = time.perf_counter()
+    big = T.build_scene("biceps_full", replicate=REPLICATE, device=dev)
+    torch.cuda.synchronize()
+    build_big_s = time.perf_counter() - t0
+    print(f"biceps_full x{REPLICATE}: {big.num_particles} particles, scene "
+          f"built in {build_big_s:.3f} s", flush=True)
+    big_bwd_ms = check_big_backward(big, dev)
 
     phase(f"8 gradient: {GRAD_STEPS}-step checkpointed rollout on the "
           "slice, card vs CPU")
@@ -884,17 +949,13 @@ def main() -> int:
                     sweep_bwd_b=fit_launches["sweep_bwd_b"])
 
     phase("10 timing: backward kernels, the fit's rollout, bounds")
-    times["sweep_bwd_a"] = (
-        cuda_ms(lambda: fad.sweep_bwd_a(qm_a, feats_ba, lo, hi, cfg, sub_q),
-                200),
-        cuda_ms(lambda: fad.sweep_bwd_a_plain(qm_a, feats_ba, cfg), 5))
-    times["sweep_bwd_b"] = (
-        cuda_ms(lambda: fad.sweep_bwd_b(qm_b, feats_bb, lo, hi, cfg, sub_q),
-                200),
-        cuda_ms(lambda: fad.sweep_bwd_b_plain(qm_b, feats_bb, cfg), 5))
-    for name in ("sweep_bwd_a", "sweep_bwd_b"):
-        print(f"{name}: kernel {times[name][0]:.4f} ms, plain "
-              f"{times[name][1]:.4f} ms", flush=True)
+    bwd_device_ms = {}
+    for name, (launch, plain) in bwd.items():
+        times[name] = (cuda_ms(launch, 200), cuda_ms(plain, 5))
+        bwd_device_ms[name] = device_ms(launch, 50, name)
+        print(f"{name}: kernel {times[name][0]:.4f} ms (CUDA events), "
+              f"{bwd_device_ms[name]:.4f} ms device (torch.profiler); "
+              f"plain {times[name][1]:.4f} ms", flush=True)
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: fit.rollout_disp(
             scene, sm_inv, theta0, FIT_STEPS, FIT_SNAPS), 2) / FIT_STEPS
@@ -1145,11 +1206,6 @@ def main() -> int:
         print(f"{name}: {ms:.4f} ms/step", flush=True)
 
     del lap_csr, utab_full
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    big = T.build_scene("biceps_full", replicate=REPLICATE, device=dev)
-    torch.cuda.synchronize()
-    build_big_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1402,6 +1458,7 @@ def main() -> int:
         for name, source, replaces, _ in KERNELS],
         "step_ms": kernel_ms, "plain_step_ms": plain_ms,
         "fit_fwd_ms_per_step": fwd_ms, "fit_grad_ms_per_step": grad_ms,
+        "bwd_device_ms": bwd_device_ms,
         "fit_peak_gib": peak / 2**30,
         "mode_ms_per_step": mode_ms,
         "impl_ms_per_step": impl_ms, "slab_pack_ms": pack_ms,
@@ -1414,6 +1471,8 @@ def main() -> int:
                       "lap_bound_ms": big_bound[0],
                       "sweep_a3_ms": big_sweep_ms["sweep_a3"],
                       "sweep_b3_ms": big_sweep_ms["sweep_b3"],
+                      "sweep_bwd_a_ms": big_bwd_ms["sweep_bwd_a"],
+                      "sweep_bwd_b_ms": big_bwd_ms["sweep_bwd_b"],
                       "peak_gib": big_peak / 2**30}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,21 +10,22 @@ directory with `git archive <commit> sph_sm_monodomain_tpu_torch/csrc | tar
 
   1. holds the warp-sliced kernels of this build, sweep A (K1) and sweep B
      (K2), each with and without EP and with dynp, the Laplacian sweep
-     (K3: forward and backward forms) and the v5 slab sweeps (K7 A and B,
-     with and without EP, over the trips and the whole slab), to their
-     plain versions per column within 1e-5 * max(1, max|plain|), and two
-     launches of each to the same bits;
-  2. prints, for every kernel this csrc/ did not redesign (K2 and K3,
-     sliced before it, K4-K6, K8-K10), whether the two builds give the
-     same bits, and fails where they do not;
-  3. times K1, K2, K3, K7 A / B and a CSR SpMV of K3's operator in both
-     builds in turns (other, this, this, other), then K1 and K3 on
-     biceps_full x56 the same way;
+     (K3: forward and backward forms), the backward sweeps (K4, and K5
+     with and without dynp, on seeded random cotangents) and the v5 slab
+     sweeps (K7 A and B, with and without EP, over the trips and the whole
+     slab), to their plain versions per column within 1e-5 * max(1,
+     max|plain|), and two launches of each to the same bits;
+  2. prints, for every kernel this csrc/ did not redesign (K1-K3 and K7,
+     sliced before it, K6, K8-K10), whether the two builds give the same
+     bits, and fails where they do not;
+  3. times K1, K2, K3, K4, K5, K7 A / B and a CSR SpMV of K3's operator in
+     both builds in turns (other, this, this, other), then K1, K3, K4 and
+     K5 on biceps_full x56 the same way;
   4. with --slices, also builds this csrc/ with the warp-slice count of
      the sliced kernels fixed to each value, checks each against the plain
      versions, and times them in turns beside the build's own choice, on
      biceps_full and on x56;
-  5. reads this build's sliced kernels and the SpMV once more from a
+  5. reads both builds' sliced kernels and the SpMV once more from a
      torch.profiler trace: device time only, without the wrappers' host
      overhead.
 
@@ -56,20 +57,27 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
 from sph_sm_monodomain_tpu_torch.tools import roofline
 
 OUT_DIR = cuda_lib.BUILD_DIR.parent / "compare"
-# the line of csrc/fused_sweeps.cu warp_slices that --slices overrides
-SLICES_LINE = "  int slices = 2;\n"
+# the kernels timed in turns: (label, entry of the sliced kernels)
+TIMED = (("K1", "K1"), ("K2", "K2"), ("K3", "K3 forward"), ("K4", "K4"),
+         ("K5", "K5"), ("K7 A", "K7 A"), ("K7 B", "K7 B"))
+# what torch.profiler's kernel names hold, by kernel
+KERNEL_NAMES = {"K1": "sweep_a3_xyz3", "K2": "sweep_b3_xyz3",
+                "K3": "sweep_lap3", "K4": "sweep_bwd_a", "K5": "sweep_bwd_b",
+                "K7 A": "sweep_a5", "K7 B": "sweep_b5"}
+# the line of warp_slices (csrc/sweep_common.cuh) that --slices overrides
+SLICES_FILE, SLICES_LINE = "sweep_common.cuh", "  int slices = 2;\n"
 
 
 def fixed_slices_csrc(k: int) -> Path:
-    """A copy of this csrc/ whose sliced launches (K1, K2, K3, K7) take k
-    warp slices."""
+    """A copy of this csrc/ whose sliced launches (K1-K5, K7) take k warp
+    slices."""
     d = OUT_DIR / f"slices{k}" / "csrc"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(cuda_lib.CSRC_DIR, d)
-    src = (d / "fused_sweeps.cu").read_text()
+    src = (d / SLICES_FILE).read_text()
     if SLICES_LINE not in src:
         raise RuntimeError("warp_slices changed: update SLICES_LINE")
-    (d / "fused_sweeps.cu").write_text(src.replace(
+    (d / SLICES_FILE).write_text(src.replace(
         SLICES_LINE, f"  int slices = {k};\n  if (slices) return slices;\n"))
     return d
 
@@ -103,25 +111,6 @@ def flat(out):
     if torch.is_tensor(out):
         return out.reshape(-1)
     return torch.cat([flat(t) for t in out])
-
-
-def device_ms(fn, reps: int, kernel: str | None = None) -> float:
-    """Mean device time per call of fn over `reps` calls, from torch.profiler:
-    the CUDA kernels whose name holds `kernel` (all of them if None), so the
-    wrappers' host overhead, which chained CUDA events include once a
-    kernel is as short as it, is left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0.0)
-             for e in prof.key_averages()
-             if kernel is None or kernel in e.key)
-    return us / reps / 1e3
 
 
 def main(argv=None) -> int:
@@ -175,10 +164,13 @@ def main(argv=None) -> int:
     oa5 = fst.sweep_a5_plain(fs5, pa5, cfg)
     pb5 = fst.pack_feats_b5(oa5, fst.vol_now(oa5), src5, sc5.pack_cap)
     kw5 = dict(sub_q=sc5.sub_block, w_chunk=sc5.block_window)
+    qa = fad.bwd_a_query(fs, rand(n), rand(n, 3))
+    qb = fad.bwd_b_query(out_a, rand(n, 3), rand(n))
+    fqa, fqb = qa.T.contiguous(), qb.T.contiguous()
     forms = {"": {}, " no_ep": {"with_ep": False}, " dynp": {"dynp": dynp}}
     forms5 = {"": {}, " no_ep": {"with_ep": False},
               " static": {"static_trips": True}}
-    redesigned = {
+    sliced = {
         **{f"K1{tag}": (lambda kw=kw: fst.sweep_a3(fs, fa, lo, hi, cfg,
                                                    sub_q=sq, **kw),
                         lambda kw=kw: fst.sweep_a3_plain(
@@ -194,6 +186,12 @@ def main(argv=None) -> int:
             q, f, tab.blk_lo, tab.blk_hi, cfg, sq),
                           lambda q=q, f=f: fst.sweep_lap3_plain(q, f, cfg))
            for form, (q, f) in lap_in.items()},
+        "K4": (lambda: fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sq),
+               lambda: fad.sweep_bwd_a_plain(qa, fqa, cfg)),
+        **{f"K5{tag}": (lambda d=d: fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sq,
+                                                    dynp=d),
+                        lambda d=d: fad.sweep_bwd_b_plain(qb, fqb, cfg, d))
+           for tag, d in (("", None), (" dynp", dynp))},
         **{f"K7 A{tag}": (lambda kw=kw: fst.sweep_a5(fs5, pa5, trips5, cfg,
                                                      **kw5, **kw),
                           lambda kw=kw: fst.sweep_a5_plain(
@@ -204,39 +202,35 @@ def main(argv=None) -> int:
                           lambda kw=kw: fst.sweep_b5_plain(
                               oa5, pb5, cfg, kw.get("with_ep", True)))
            for tag, kw in forms5.items()}}
+    want = {name: plain() for name, (_, plain) in sliced.items()}
     for label in ["this"] + args.slices:
-        for name, (kernel, plain) in redesigned.items():
+        for name, (kernel, _) in sliced.items():
             a, b = run_on(libs[label], kernel), run_on(libs[label], kernel)
             tag = name if label == "this" else f"{name} at {label} slices"
-            check(tag, a, plain())
+            check(tag, a, want[name])
             if not torch.equal(a, b):
                 fails.append(f"{tag}: two launches differ")
         if label == "this":
-            for name, (kernel, _) in redesigned.items():
+            for name, (kernel, _) in sliced.items():
                 d = (run_on(libs["this"], kernel)
                      - run_on(libs["other"], kernel)).abs().max()
                 print(f"{name}: max abs difference from the other build "
                       f"{float(d):.4g}", flush=True)
 
-    # every other kernel: the same bits in both builds
+    # every kernel but K4 and K5: the same bits in both builds
     sc3 = T.build_scene("biceps_full", fused_impl="v3", device=dev)
     fs3, fa3, lo3, hi3 = cs.step0_inputs_v3(sc3)
     oa3 = fst.sweep_a3_plain(fs3, fa3, cfg, stencil="hash9")
     fb3 = fst.feats_b(oa3)
-    qa = fad.bwd_a_query(fs, rand(n), rand(n, 3))
-    qb = fad.bwd_b_query(out_a, rand(n, 3), rand(n))
-    fqa, fqb = qa.T.contiguous(), qb.T.contiguous()
     x = rand(roofline.fma_probe_input(dev).numel())
     others = {
-        "K4": lambda: fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sq),
-        "K5": lambda: fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sq),
         "K6 A": lambda: fst.sweep_a3_hash9(fs3, fa3, lo3, hi3, cfg,
                                            sub_q=sc3.sub_block),
         "K6 B": lambda: fst.sweep_b3_hash9(oa3, fb3, lo3, hi3, cfg,
                                            sub_q=sc3.sub_block),
         "K10": lambda: roofline.fma_chains(x, 4096),
-        **{name: redesigned[name][0] for name in (
-            "K2", "K2 no_ep", "K2 dynp", "K3 forward", "K3 backward")}}
+        **{name: kernel for name, (kernel, _) in sliced.items()
+           if not name.startswith(("K4", "K5"))}}
     for impl, names in cs.RAW_SWEEPS.items():
         calls = cs.raw_sweep_calls(T.build_scene("biceps_full",
                                                  fused_impl=impl,
@@ -268,11 +262,19 @@ def main(argv=None) -> int:
         big.state.pos, big.state.active, big.cfg, big.sub_block)
     fs_b, fa_b = fst.build_qm_feats(big.state.replace(vm=vb), cx_b, cyz_b,
                                     order_b)
+    nb, bsq = big.state.capacity, big.sub_block
+    oa_b = fst.sweep_a3(fs_b, fa_b, lo_b, hi_b, big.cfg, sub_q=bsq)
+    qa_b = fad.bwd_a_query(fs_b, rand(nb), rand(nb, 3))
+    qb_b = fad.bwd_b_query(oa_b, rand(nb, 3), rand(nb))
+    fqa_b, fqb_b = qa_b.T.contiguous(), qb_b.T.contiguous()
     big_runs = {
         "K1": lambda: fst.sweep_a3(fs_b, fa_b, lo_b, hi_b, big.cfg,
-                                   sub_q=big.sub_block),
+                                   sub_q=bsq),
         "K3": lambda: fst.sweep_lap3(qb_, fb_, bt.blk_lo, bt.blk_hi,
-                                     big.cfg, big.sub_block)}
+                                     big.cfg, bsq),
+        "K4": lambda: fad.sweep_bwd_a(qa_b, fqa_b, lo_b, hi_b, big.cfg, bsq),
+        "K5": lambda: fad.sweep_bwd_b(qb_b, fqb_b, lo_b, hi_b, big.cfg,
+                                      bsq)}
     for kname, run in big_runs.items():
         ref = run_on(libs["this"], run)
         for label in args.slices:
@@ -286,9 +288,7 @@ def main(argv=None) -> int:
     for label in order:
         cuda_lib._lib = libs[label]
         t = {"build": label,
-             **{k: cs.cuda_ms(redesigned[r][0], 200) for k, r in (
-                 ("K1", "K1"), ("K2", "K2"), ("K3", "K3 forward"),
-                 ("K7 A", "K7 A"), ("K7 B", "K7 B"))},
+             **{k: cs.cuda_ms(sliced[r][0], 200) for k, r in TIMED},
              "SpMV": cs.cuda_ms(lambda: csr @ vcol, 200),
              **{f"x{cs.REPLICATE} {k}": cs.cuda_ms(run, 20)
                 for k, run in big_runs.items()}}
@@ -296,19 +296,19 @@ def main(argv=None) -> int:
         name = label if isinstance(label, str) else f"{label} slices"
         print(f"{name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
                                       if k != "build"), flush=True)
+    device = {}
+    for label in ("this", "other"):
+        cuda_lib._lib = libs[label]
+        device[label] = {
+            **{k: cs.device_ms(sliced[r][0], 50, KERNEL_NAMES[k])
+               for k, r in TIMED},
+            "SpMV": cs.device_ms(lambda: csr @ vcol, 50),
+            **{f"x{cs.REPLICATE} {k}": cs.device_ms(run, 10, KERNEL_NAMES[k])
+               for k, run in big_runs.items()}}
+        print(f"device time per launch (torch.profiler), {label} build: "
+              + ", ".join(f"{k} {v:.4f} ms"
+                          for k, v in device[label].items()), flush=True)
     cuda_lib._lib = libs["this"]
-    device = {"K1": device_ms(redesigned["K1"][0], 50, "sweep_a3_xyz3"),
-              "K2": device_ms(redesigned["K2"][0], 50, "sweep_b3_xyz3"),
-              "K3": device_ms(redesigned["K3 forward"][0], 50, "sweep_lap3"),
-              "K7 A": device_ms(redesigned["K7 A"][0], 50, "sweep_a5"),
-              "K7 B": device_ms(redesigned["K7 B"][0], 50, "sweep_b5"),
-              "SpMV": device_ms(lambda: csr @ vcol, 50),
-              **{f"x{cs.REPLICATE} {k}": device_ms(
-                  run, 10, "sweep_a3_xyz3" if k == "K1" else "sweep_lap3")
-                 for k, run in big_runs.items()}}
-    print("device time per launch (torch.profiler), this build: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in device.items()),
-          flush=True)
     print(json.dumps({"fails": fails, "identical": identical,
                       "times": times, "device_ms": device}), flush=True)
     return 1 if fails else 0

@@ -203,29 +203,14 @@ __global__ void sweep_b3_hash9_kernel(const float* __restrict__ qm,
 // FLOPs per pair within h for sweep A, 40 within 2h for sweep B, 16 for the
 // Laplacian sweep (tools/roofline.py PAIR_FLOPS).
 //
-// warp_slices picks `Slices` from what the launch can see: the fewest
-// (a power of two from 2 to 16) that give the card 64 warps an SM, so
-// biceps_full (580 row warps) takes 16 and a cloud that fills the card by
-// its rows alone (biceps_full x56: 32,330) takes 2. More slices than that
-// only add partial tiles and partial sums; one slice would make one-warp
-// blocks, and an SM holds at most 32 blocks, so 32 warps. The slice count,
-// and so the sum order, depends on N and the card's SM count only:
-// launches on the same inputs and card give the same bits.
+// warp_slices (sweep_common.cuh) picks `Slices`: 16 on biceps_full (580
+// row warps), 2 on biceps_full x56.
 //
 // Measured (H100 80GB HBM3, 700 W, CUDA events, compare_builds.py; the
 // first form in brackets): biceps_full K2 0.074-0.075 ms [0.362-0.363],
 // K3 0.055-0.058 ms [0.386-0.387] against 0.047 ms for a CSR SpMV of K3's
 // operator; x56 (1,034,600 particles) K3 1.40 ms [2.13-2.14] against a
 // 0.21 ms bound.
-int warp_slices(int n) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int slices = 2;
-  while (slices < 16 && (long long)(n / 32) * slices < 64LL * sms)
-    slices *= 2;
-  return slices;
-}
 
 // Staged words of a candidate (before its cx, cyz): sweep A pos3 | cvel3 |
 // vol_prev | mass | 0 | 0, sweep B pos3 | ivel3 | vol | pres | vm | 0, the
@@ -515,22 +500,6 @@ int launch_b3_hash9(const float* qm, const float* feats, const int* blk_lo,
   const size_t smem = RowsB::count * (size_t)sub_q * sizeof(float);
   sweep_b3_hash9_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
       qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, gx, gy);
-  return (int)cudaGetLastError();
-}
-
-// Launch kernel<Slices> over ceil(n / 32) blocks of Slices warps, Slices
-// from warp_slices.
-template <template <int> class Launch, class... Args>
-int launch_sliced(int n, void* stream, Args... args) {
-  const int slices = warp_slices(n);
-  const dim3 grid((n + 31) / 32);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (slices) {
-    case 2: Launch<2>::run(grid, st, args...); break;
-    case 4: Launch<4>::run(grid, st, args...); break;
-    case 8: Launch<8>::run(grid, st, args...); break;
-    default: Launch<16>::run(grid, st, args...); break;
-  }
   return (int)cudaGetLastError();
 }
 

@@ -2,24 +2,25 @@
 // sweep A / sweep B in their v4, v3 and v5 forms; fused_adjoint.cu: their
 // backward sweeps; legacy_sweeps.cu: the v1 / v2 raw-sum sweeps): the slots
 // of the physics-constant vector, the staging of candidate features into
-// shared memory, the pair sums of sweep A and sweep B, and the four
-// candidate loops with their exact masks.
+// shared memory, the pair sums of sweep A and sweep B, the three candidate
+// loops with their exact masks, and the warp-slice picker and launcher of
+// the warp-trimmed sweeps.
 //
-// The first-form sweeps (the backward sweeps, v3, v1 / v2) run one thread
-// block per bookkeeping sub-block of `sub_q` sorted query rows, one thread
-// per query row. The block stages tiles of sub_q candidate rows into shared
-// memory (one coalesced load per staged feature row); then every query
-// thread walks the tile and calls the kernel's pair function for each
-// candidate that passes the mask.
-//   v4 (for_each_neighbor): the three slow-plane windows [lo, hi) of the
-//     (16, N) feature matrix, mask |qcyz + (r-1)*G_mid - ccyz| <= 1 for
-//     window r and |qcx - ccx| <= 1.
+// The first-form sweeps (v3, v1 / v2) run one thread block per bookkeeping
+// sub-block of `sub_q` sorted query rows, one thread per query row. The
+// block stages tiles of sub_q candidate rows into shared memory (one
+// coalesced load per staged feature row); then every query thread walks
+// the tile and calls the kernel's pair function for each candidate that
+// passes the mask.
 //   v3 (for_each_neighbor_hash9): the nine (dy, dz) run windows, mask
 //     |qh + d_r - ch| <= 1 on the linear cell hash, d_r = Gx*(dy + Gy*dz).
-//   v4, warp-trimmed (for_each_warp_candidate, sweeps A and B and the
-//     Laplacian sweep): blocks of several warps per 32 query rows, each warp
-//     walking its slice of the three windows and only the candidates inside
-//     the warp's cell ranges, with the v4 full mask (see the loop).
+//   v4, warp-trimmed (for_each_warp_candidate: sweeps A and B, the
+//     Laplacian sweep and the backward sweeps of A and B): blocks of
+//     several warps per 32 query rows, each warp walking its slice of the
+//     three slow-plane windows [lo, hi) of the (16, N) feature matrix and
+//     only the candidates inside the warp's cell ranges, with the full
+//     per-axis mask |qcyz + (r-1)*G_mid - ccyz| <= 1 for window r and
+//     |qcx - ccx| <= 1 (see the loop).
 //   v5, warp-trimmed (for_each_warp_slab_candidate, sweeps A and B): the
 //     same split over the first `count` slots of the rows' own packed
 //     (16, kb) slabs, mask |dcf|, |dcm|, |dcs| <= 1 on the per-axis cell
@@ -46,10 +47,10 @@ enum Slot {
 
 constexpr float kPairEps = 1e-12f;  // INF guard, SPH_SM_monodomain.h:24
 
-// The feature rows a sweep stages, in slot order; the last ones must be the
-// cell features: cx (row 12) and cyz (row 13) for the v4 loop, the hash
-// (row 12) then row 13 for the v3 loop, cf cm cs (rows 12-14) for the v5
-// loop.
+// The feature rows a sweep stages, in slot order. For the v3 loop the last
+// two must be the hash (row 12) then row 13; for the warp walks these are
+// the staged words before the cell features the walk appends itself, and a
+// row of -1 stages a zero pad.
 template <int... R>
 struct Rows {
   static constexpr int count = sizeof...(R);
@@ -142,44 +143,14 @@ struct PairSumsB {
   }
 };
 
-// The v4 window loop of the backward sweeps: pair(k) runs for each staged
-// candidate k of the tile that passes the full cell mask, in window order.
-// All threads of the block must call it (it synchronizes); dead query rows
-// (qlive false) stage tiles but call no pair.
-template <class RowList, class Pair>
-__device__ __forceinline__ void for_each_neighbor(
-    RowList rows, float* tile, const float* feats, const int* blk_lo,
-    const int* blk_hi, int n, int g_mid, float qcx, float qcyz, bool qlive,
-    Pair&& pair) {
-  const int T = blockDim.x;
-  const int b = blockIdx.x;
-  const float* s_cx = tile + (RowList::count - 2) * T;
-  const float* s_cyz = tile + (RowList::count - 1) * T;
-  for (int r = 0; r < 3; ++r) {
-    const int lo = blk_lo[b * 4 + r], hi = blk_hi[b * 4 + r];
-    const float qd = qcyz + (float)((r - 1) * g_mid);
-    for (int base = lo; base < hi; base += T) {
-      stage_rows(rows, tile, feats, n, base, hi);
-      __syncthreads();
-      const int cnt = min(T, hi - base);
-      if (qlive) {
-        for (int k = 0; k < cnt; ++k) {
-          if (!(fabsf(qd - s_cyz[k]) <= 1.0f)) continue;
-          if (!(fabsf(qcx - s_cx[k]) <= 1.0f)) continue;
-          pair(k);
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // The v3 window loop: nine run windows per sub-block at stride 16 of the
 // bounds, in the JAX package's _RUN_OFFSETS order (dy fast, dz slow), each
 // masked by |qh + d_r - ch| <= 1 on the staged hash row. The hash admits
 // wrap pairs across a world edge that the per-axis stencil excludes; they
-// lie far outside every kernel support and add exactly 0. Same contract as
-// for_each_neighbor.
+// lie far outside every kernel support and add exactly 0. pair(k) runs for
+// each staged candidate k of the tile that passes, in window order. All
+// threads of the block must call it (it synchronizes); dead query rows
+// (qlive false) stage tiles but call no pair.
 template <class RowList, class Pair>
 __device__ __forceinline__ void for_each_neighbor_hash9(
     RowList rows, float* tile, const float* feats, const int* blk_lo,
@@ -206,23 +177,24 @@ __device__ __forceinline__ void for_each_neighbor_hash9(
   }
 }
 
-// The warp-trimmed v4 window walk of the redesigned sweep B (K2) and
-// Laplacian sweep (K3). The calling block holds `slices` warps that serve
-// the same 32 consecutive sorted query rows (lane = row) of sub-block b;
-// warp `slice` walks the slice-th of `slices` equal parts of the block's
-// three windows laid end to end, so a sub-block gives sub_q / 32 * slices
-// independent warps. The sort key is cx + Gf * cyz, so within a window the
-// candidates that some live row of the warp can accept have ccyz in
-// [min qcyz + d - 1, max qcyz + d + 1] (d = (r - 1) * G_mid) and ccx in
-// [min qcx - 1, max qcx + 1]. Each pass the warp reads the cell features of
-// 32 candidates (coalesced), keeps those inside both ranges (a ballot),
-// stages their words into its own `stage` (32 slots of Words::count + 2
-// floats, the cell pair last) with no barrier but __syncwarp, and every
-// live row then applies the exact mask of for_each_neighbor to
-// each staged slot and calls pair(slot) in window order. Dead rows (qlive
-// false) take part in the warp's steps but call no pair; a warp with no
-// live row returns at once. The cell features are integers, so the ranges
-// hold every candidate the exact mask accepts.
+// The warp-trimmed v4 window walk of the redesigned sweeps A (K1) and B
+// (K2), the Laplacian sweep (K3) and the backward sweeps (K4, K5). The
+// calling block holds `slices` warps that serve the same 32 consecutive
+// sorted query rows (lane = row) of sub-block b; warp `slice` walks the
+// slice-th of `slices` equal parts of the block's three windows laid end
+// to end, so a sub-block gives sub_q / 32 * slices independent warps. The
+// sort key is cx + Gf * cyz, so within a window the candidates that some
+// live row of the warp can accept have ccyz in [min qcyz + d - 1, max qcyz
+// + d + 1] (d = (r - 1) * G_mid) and ccx in [min qcx - 1, max qcx + 1].
+// Each pass the warp reads the cell features of 32 candidates (coalesced:
+// rows 12 and 13 of the feature matrix), keeps those inside both ranges (a
+// ballot), stages their words into its own `stage` (32 slots of
+// Words::count + 2 floats, the cell pair last) with no barrier but
+// __syncwarp, and every live row then applies the exact mask |qcyz + d -
+// ccyz| <= 1, |qcx - ccx| <= 1 to each staged slot and calls pair(slot) in
+// window order. Dead rows (qlive false) take part in the warp's steps but
+// call no pair; a warp with no live row returns at once. The cell features
+// are integers, so the ranges hold every candidate the exact mask accepts.
 constexpr unsigned kFullMask = 0xffffffffu;
 
 template <int... R>
@@ -421,6 +393,42 @@ __device__ __forceinline__ void for_each_warp_slab_candidate(
       __syncwarp();
     }
   }
+}
+
+// warp_slices picks the warp-trimmed kernels' `Slices` from what the launch
+// can see: the fewest (a power of two from 2 to 16) that give the card 64
+// warps an SM, so biceps_full (580 row warps) takes 16 and a cloud that
+// fills the card by its rows alone (biceps_full x56: 32,330) takes 2. More
+// slices than that only add partial tiles and partial sums; one slice
+// would make one-warp blocks, and an SM holds at most 32 blocks, so 32
+// warps. The slice count, and so the sum order, depends on N and the
+// card's SM count only: launches on the same inputs and card give the same
+// bits. One picker serves every sliced kernel (fused_sweeps.cu,
+// fused_adjoint.cu).
+inline int warp_slices(int n) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int slices = 2;
+  while (slices < 16 && (long long)(n / 32) * slices < 64LL * sms)
+    slices *= 2;
+  return slices;
+}
+
+// Launch kernel<Slices> over ceil(n / 32) blocks of Slices warps, Slices
+// from warp_slices: Launch<S>::run(grid, stream, args...) launches it.
+template <template <int> class Launch, class... Args>
+int launch_sliced(int n, void* stream, Args... args) {
+  const int slices = warp_slices(n);
+  const dim3 grid((n + 31) / 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slices) {
+    case 2: Launch<2>::run(grid, st, args...); break;
+    case 4: Launch<4>::run(grid, st, args...); break;
+    case 8: Launch<8>::run(grid, st, args...); break;
+    default: Launch<16>::run(grid, st, args...); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sph

@@ -345,31 +345,6 @@ def test_step_on_card_matches_cpu(device):
     np.testing.assert_allclose(g["dens"][act], w["dens"][act], rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["default", "dynp"])
-def test_backward_kernels_match_plain(device, case):
-    cfg, st = _blob(device)
-    dynp = (fst.build_dynp(T.resolve_params(cfg, {"mu_viscosity": 40.0}),
-                           device) if case == "dynp" else None)
-    order, inv, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg,
-                                                     128)
-    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
-    out_a = fst.sweep_a3_plain(fs, fa, cfg, dynp=dynp)
-    rng = np.random.default_rng(1)
-    cot = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).to(device)
-    n = fs.shape[0]
-    qa = fad.bwd_a_query(fs, cot(n), cot(n, 3))
-    qb = fad.bwd_b_query(out_a, cot(n, 3), cot(n))
-    n_a, n_b = fad.sweep_bwd_a.launches, fad.sweep_bwd_b.launches
-    got_a = fad.sweep_bwd_a(qa, qa.T.contiguous(), lo, hi, cfg)
-    got_b = fad.sweep_bwd_b(qb, qb.T.contiguous(), lo, hi, cfg, dynp=dynp)
-    torch.cuda.synchronize()
-    _check(got_a, fad.sweep_bwd_a_plain(qa, qa.T, cfg), "bwd A")
-    _check(got_b, fad.sweep_bwd_b_plain(qb, qb.T, cfg, dynp), "bwd B")
-    assert (fad.sweep_bwd_a.launches, fad.sweep_bwd_b.launches) == (n_a + 1,
-                                                                  n_b + 1)
-
-
 def test_checkpointed_grad_on_card_matches_cpu(device):
     """A 2-step checkpointed rollout's grad w.r.t. log(K, mu): the card
     (kernels) against the CPU (plain versions), and the launch counts of
@@ -507,13 +482,55 @@ def test_redesigned_kernels_match_plain(device, case):
             assert torch.equal(got, again), (case, sub_q, form)
 
 
+@pytest.mark.parametrize("case", ["blob", "sparse", "isolated",
+                                  "biceps_full"])
+def test_backward_kernels_match_plain(device, case):
+    """The warp-trimmed backward sweeps (K4; K5 with and without dynp) on
+    seeded random cotangents against their plain versions at every sub_q
+    the wrappers accept, two launches of each bitwise equal, one launch
+    counted per call."""
+    cfg, st, sub_qs = _redesign_state(device, case)
+    dynp = fst.build_dynp(T.resolve_params(cfg, {"mu_viscosity": 40.0}),
+                          device)
+    rng = np.random.default_rng(1)
+    n = st.capacity
+    cot = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    g_d, g_x, g_a, g_l = cot(n), cot(n, 3), cot(n, 3), cot(n)
+    for sub_q in sub_qs:
+        order, inv, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active,
+                                                         cfg, sub_q)
+        fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+        out_a = fst.sweep_a3_plain(fs, fa, cfg)
+        qa = fad.bwd_a_query(fs, g_d, g_x)
+        qb = fad.bwd_b_query(out_a, g_a, g_l)
+        fqa, fqb = qa.T.contiguous(), qb.T.contiguous()
+        n_a = fad.sweep_bwd_a.launches
+        got = fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sub_q)
+        again = fad.sweep_bwd_a(qa, fqa, lo, hi, cfg, sub_q)
+        torch.cuda.synchronize()
+        _check(got, fad.sweep_bwd_a_plain(qa, fqa, cfg),
+               f"{case} sub_q {sub_q} K4")
+        assert torch.equal(got, again), (case, sub_q)
+        assert fad.sweep_bwd_a.launches == n_a + 2
+        for d in (None, dynp):
+            n_b = fad.sweep_bwd_b.launches
+            got = fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sub_q, dynp=d)
+            again = fad.sweep_bwd_b(qb, fqb, lo, hi, cfg, sub_q, dynp=d)
+            torch.cuda.synchronize()
+            _check(got, fad.sweep_bwd_b_plain(qb, fqb, cfg, d),
+                   f"{case} sub_q {sub_q} K5 dynp {d is not None}")
+            assert torch.equal(got, again), (case, sub_q, d is not None)
+            assert fad.sweep_bwd_b.launches == n_b + 2
+
+
 @pytest.mark.parametrize("replicate", [2, 4, 8, 16])
 def test_redesigned_kernels_every_slice_count(device, replicate):
-    """K1, K2 and K3 on biceps_full tiled 2, 4, 8 and 16 times (37k to 296k
-    particles), where the launch takes 8, 4, 2 and 2 warp slices a row warp
-    on the H100's 132 SMs (biceps_full itself takes 16): held to their
-    plain versions on 64 sampled warps of rows, and two launches of each
-    bitwise equal."""
+    """K1, K2, K3, K4 and K5 on biceps_full tiled 2, 4, 8 and 16 times (37k
+    to 296k particles), where the launch takes 8, 4, 2 and 2 warp slices a
+    row warp on the H100's 132 SMs (biceps_full itself takes 16): held to
+    their plain versions on 64 sampled warps of rows (K4 and K5 on seeded
+    random cotangents), and two launches of each bitwise equal."""
     sc = T.build_scene("biceps_full", replicate=replicate, device=device)
     cfg, sq, n = sc.cfg, sc.sub_block, sc.state.capacity
     w = torch.linspace(0, n // 32 - 1, 64, device=device).long()
@@ -552,6 +569,21 @@ def test_redesigned_kernels_every_slice_count(device, replicate):
                                  for r in rows.split(32)]),
            f"x{replicate} K2")
     assert torch.equal(got, again)
+    cot = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    qa = fad.bwd_a_query(fs, cot(n), cot(n, 3))
+    qb = fad.bwd_b_query(out_a, cot(n, 3), cot(n))
+    for name, qm, kernel, plain in (
+            ("K4", qa, fad.sweep_bwd_a, fad.sweep_bwd_a_plain),
+            ("K5", qb, fad.sweep_bwd_b, fad.sweep_bwd_b_plain)):
+        feats = qm.T.contiguous()
+        got = kernel(qm, feats, lo, hi, cfg, sq)
+        again = kernel(qm, feats, lo, hi, cfg, sq)
+        torch.cuda.synchronize()
+        _check(got[rows], torch.cat([plain(qm[r], feats, cfg)
+                                     for r in rows.split(32)]),
+               f"x{replicate} {name}")
+        assert torch.equal(got, again), name
 
 
 def test_lap_vm_grad_on_card_matches_cpu(device):

@@ -14,6 +14,10 @@ in numpy on the CPU.
   the plain sweep A masks on cyz alone; the pairs it admits and the walk
   drops (|dcx| >= 2) have Poly6 t = max(h^2 - r^2, 0) == 0, or are dead
   candidates with zero mass and volume, so they add nothing.
+- The backward sweeps (K4, K5) walk the cell features at rows 12 and 13
+  of their feature matrix, the transposed backward query matrix: over
+  those columns of bwd_a_query / bwd_b_query the walk stages every pair
+  of the plain backward sweeps' stencil exactly once.
 - for_each_warp_slab_candidate (the v5 slab sweeps): every (row, slot)
   pair of the plain slab mask is staged exactly once, at sub_q 16 (a
   warp's rows span two slabs), 32 and 64, and by the same slice whether
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
 from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping3,
@@ -89,7 +94,7 @@ def staged_pairs(cx, cyz, lo, hi, sub_q, g_mid, slices):
     return got, slots
 
 
-# csrc/fused_sweeps.cu warp_slices picks 2, 4, 8 or 16 warps per 32 rows
+# csrc/sweep_common.cuh warp_slices picks 2, 4, 8 or 16 warps per 32 rows
 @pytest.mark.parametrize("slices", [2, 4, 16])
 @pytest.mark.parametrize("case", ["slice", "sparse", "scattered"])
 @pytest.mark.parametrize("sub_q", [32, 128])
@@ -115,6 +120,37 @@ def test_warp_walk_stages_every_admitted_pair_once(case, sub_q, slices):
     assert len(got) == len(pairs)
     windows = int((hi - lo).clamp(min=0).sum()) * sub_q
     assert slots * 32 <= windows
+
+
+@pytest.mark.parametrize("sweep", ["bwd_a", "bwd_b"])
+def test_backward_walk_stages_every_stencil_pair_once(sweep):
+    """The backward sweeps' query matrices keep the cells where the kernels'
+    walk reads them: over the cx / cyz columns (12, 13) of bwd_a_query /
+    bwd_b_query, at biceps_full's 16 slices, the walk stages every pair of
+    the plain backward sweeps' stencil (fused_step._stencil over the query
+    matrix and its transpose) exactly once."""
+    cfg, st = _state("slice")
+    sub_q, n = 128, st.capacity
+    order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg,
+                                                   sub_q)
+    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+    rng = np.random.default_rng(3)
+    cot = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    if sweep == "bwd_a":
+        qm = fad.bwd_a_query(fs, cot(n), cot(n, 3))
+    else:
+        qm = fad.bwd_b_query(fst.sweep_a3_plain(fs, fa, cfg), cot(n, 3),
+                             cot(n))
+    assert torch.equal(qm[:, 12:14], fs[:, 12:14])
+    g_mid = fst._g_mid(cfg)
+    got, _ = staged_pairs(qm[:, 12].numpy(), qm[:, 13].numpy(), lo.numpy(),
+                          hi.numpy(), sub_q, g_mid, 16)
+    want = fst._stencil(qm, qm.T, float(g_mid), True).numpy()
+    pairs = {(int(i), int(j)) for i, j in zip(*np.nonzero(want))}
+    assert len(pairs) > n
+    assert {(i, j) for i, j, _ in got} == pairs
+    assert len(got) == len(pairs) and all(v == 1 for v in got.values())
 
 
 @pytest.mark.parametrize("case", ["slice", "sparse", "scattered",
