@@ -62,31 +62,33 @@ printing its lines; any failure raises and exits non-zero:
               biceps_full x56 (built in phase 7): prepare time, ms/step
               of 100 monodomain-only steps, peak memory, the Laplacian
               kernel's time and its bound from that scene's pairs; there
-              the Laplacian kernel (both forms) and sweeps A and B, which
-              launch fewer warp slices than on biceps_full, against their
-              plain versions on sampled rows, two launches of each bitwise
-              equal, the sweeps' times; the Laplacian kernel's bound on
-              biceps_full
+              the Laplacian kernel (both forms), sweeps A and B and the
+              hash9 sweeps K6 A / B and K9 A / B, which launch fewer warp
+              slices than on biceps_full, against their plain versions on
+              sampled rows, two launches of each bitwise equal, the sweeps'
+              times; the Laplacian kernel's bound on biceps_full
  16. v3/v5    the v3 (hash9) and v5 (slab) bookkeeping on the card equals
               the CPU's; the hash9 sweep A / B kernels and the v5 slab
               sweep A / B kernels against their plain versions on the
               biceps_full step-0 inputs, per column; two launches of each
-              slab sweep bitwise equal
+              bitwise equal
  17. v3/v5    run_protocol(500 steps, chunk 100) on build_scene(
               "biceps_full", fused_impl="v3") and ("v5"), exact launch
               counts; a forced v5 regrow on the slice (pack_cap before and
               after, launches including the redone steps)
  18. v3/v5    6 slice steps, card against CPU, for v3 and for v5
- 19. timing   the four new kernels and their plain versions, v3 / v4 / v5
-              ms/step in this call, the slab packing, the bounds
+ 19. timing   the four v3 / v5 kernels (CUDA events; K6 also torch.profiler
+              device time) and their plain versions, v3 / v4 / v5 ms/step
+              in this call, the slab packing, the bounds
  20. v1/v2    the v1 run bookkeeping on the card equals the CPU's; the v1
               (K8) and v2 (K9) raw-sum sweep kernels against their plain
               versions on the biceps_full step-0 inputs the step gives them,
-              per column
+              per column; two launches of each K9 sweep bitwise equal
  21. v1/v2    run_protocol(500 steps, chunk 100) on build_scene(
               "biceps_full", fused_impl="v1") and ("v2"), exact launch counts
  22. v1/v2    6 slice steps, card against CPU, for v1 and for v2
- 23. timing   K8, K9 and their plain versions; the roofline tool on
+ 23. timing   K8, K9 (and K9's torch.profiler device time) and their plain
+              versions; the roofline tool on
               biceps_full, whose FMA-chain probe (K10) measures the fp32
               peak; K10 against its plain version; v1 / v2 / v4 ms/step in
               this call; the bounds
@@ -479,6 +481,41 @@ def check_big_backward(big, dev) -> dict:
     return check_big_sweeps(sweeps, rows)
 
 
+def hash9_inputs(state, cfg, sub_q):
+    """A state's v3 sweep inputs as hash9_sweeps takes them: (QM_A, sweep-A
+    features, OUT_A from the K6 A kernel, sweep-B features, blk_lo,
+    blk_hi)."""
+    order, _, lo, hi, chash = sweep_bookkeeping2(state.pos, state.active,
+                                                 cfg, sub_q)
+    fs, fa = fst.build_qm_feats(state, chash, torch.zeros_like(chash), order)
+    out_a = fst.sweep_a3_hash9(fs, fa, lo, hi, cfg, sub_q=sub_q)
+    return fs, fa, out_a, fst.feats_b(out_a), lo, hi
+
+
+def hash9_sweeps(fs, fa, out_a, fb, lo, hi, cfg, sub_q):
+    """The v3 sweeps A / B (K6) and the v2 raw-sum sweeps A / B (K9) on one
+    set of v3 sweep inputs, {name: (launch, plain(query rows), qm)}. K9's
+    query and feature layouts are K6's columns and rows 0-8 and 12 (pos,
+    velocity, volume, mass or pressure and vm, the hash), and K9's sums are
+    K6's before the epilogue, so both launch on K6's matrices."""
+    return {
+        "sweep_a3_hash9": (
+            lambda: fst.sweep_a3_hash9(fs, fa, lo, hi, cfg, sub_q=sub_q),
+            lambda q: fst.sweep_a3_plain(q, fa, cfg, stencil="hash9"), fs),
+        "sweep_b3_hash9": (
+            lambda: fst.sweep_b3_hash9(out_a, fb, lo, hi, cfg, sub_q=sub_q),
+            lambda q: fst.sweep_b3_plain(q, fb, cfg, stencil="hash9"),
+            out_a),
+        "sweep_a2": (
+            lambda: tls._window_sweep("sph_sweep_a2", fs, fa, lo, hi, cfg,
+                                      sub_q),
+            lambda q: tls._plain_a2(q, fa, cfg), fs),
+        "sweep_b2": (
+            lambda: tls._window_sweep("sph_sweep_b2", out_a, fb, lo, hi, cfg,
+                                      sub_q),
+            lambda q: tls._plain_b2(q, fb, cfg), out_a)}
+
+
 def check_protocol_run(state, aux, cfg, what):
     """A 500-step run_protocol's end: finite and in the world box, stim
     off, no overflow."""
@@ -622,6 +659,8 @@ def phase_raw_kernels(dev, report):
             check_kernel(report, name, stack4(getattr(tls, name)(*args)),
                          stack4(getattr(tls, f"{name}_plain")(
                              *args[:nb], sc.cfg)))
+            if impl == "v2":
+                check_repeatable(name, raw_launchers(name, args)[0])
     return raw
 
 
@@ -658,7 +697,9 @@ def phase_raw_timing(dev, raw, scene, counts, times, bounds, launches,
         for name in RAW_SWEEPS[impl]:
             kern, plain = raw_launchers(name, calls[name])
             times[name] = (cuda_ms(kern, 200), cuda_ms(plain, 5))
-            print(f"{name}: kernel {times[name][0]:.4f} ms, plain "
+            dev_ms = (f", {device_ms(kern, 50, name):.4f} ms device "
+                      "(torch.profiler)" if impl == "v2" else "")
+            print(f"{name}: kernel {times[name][0]:.4f} ms{dev_ms}, plain "
                   f"{times[name][1]:.4f} ms", flush=True)
 
     roofline.fma_chains.launches = 0
@@ -1243,6 +1284,10 @@ def main() -> int:
           f"above the {base / 2**20:.1f} MiB held before the prepare); vm "
           f"max {float(bvm.max()):.6g}", flush=True)
     big_sweep_ms = check_big_kernels(big, btab, dev)
+    big_sweep_ms.update(check_big_sweeps(
+        hash9_sweeps(*hash9_inputs(big.state, big.cfg, big.sub_block),
+                     big.cfg, big.sub_block),
+        sampled_rows(big.state.capacity, dev)))
     big_counts = roofline.pair_counts(qm_b, btab.blk_lo, btab.blk_hi,
                                       big.cfg, big.sub_block)
     big_bound = bound("sweep_lap3", big_counts, big.state.capacity)
@@ -1289,6 +1334,10 @@ def main() -> int:
     check_kernel(report, "sweep_b3_hash9",
                  fst.sweep_b3_hash9(plain_a3h, fb3, lo3, hi3, cfg, sub_q=sq3),
                  fst.sweep_b3_plain(plain_a3h, fb3, cfg, stencil="hash9"))
+    check_repeatable("sweep_a3_hash9", lambda: fst.sweep_a3_hash9(
+        fs3, fa3, lo3, hi3, cfg, sub_q=sq3))
+    check_repeatable("sweep_b3_hash9", lambda: fst.sweep_b3_hash9(
+        plain_a3h, fb3, lo3, hi3, cfg, sub_q=sq3))
     fs5, src5, trips5, over5 = step0_inputs_v5(scene5)
     if int(over5) != 0:
         raise AssertionError(f"v5 step 0 overflows pack_cap {kb5}")
@@ -1390,6 +1439,12 @@ def main() -> int:
     for name in ("sweep_a3_hash9", "sweep_b3_hash9", "sweep_a5", "sweep_b5"):
         print(f"{name}: kernel {times[name][0]:.4f} ms, plain "
               f"{times[name][1]:.4f} ms", flush=True)
+    hash9_device_ms = {
+        "sweep_a3_hash9": device_ms(lambda: fst.sweep_a3_hash9(
+            fs3, fa3, lo3, hi3, cfg, sub_q=sq3), 50, "sweep_a3_hash9"),
+        "sweep_b3_hash9": device_ms(lambda: fst.sweep_b3_hash9(
+            plain_a3h, fb3, lo3, hi3, cfg, sub_q=sq3), 50, "sweep_b3_hash9")}
+    print(f"device time (torch.profiler): {hash9_device_ms}", flush=True)
     pack_ms = {
         "a": cuda_ms(lambda: fst.pack_feats_a5(fs5, src5, kb5), 50),
         "b": cuda_ms(lambda: fst.pack_feats_b5(
@@ -1458,7 +1513,7 @@ def main() -> int:
         for name, source, replaces, _ in KERNELS],
         "step_ms": kernel_ms, "plain_step_ms": plain_ms,
         "fit_fwd_ms_per_step": fwd_ms, "fit_grad_ms_per_step": grad_ms,
-        "bwd_device_ms": bwd_device_ms,
+        "bwd_device_ms": bwd_device_ms, "hash9_device_ms": hash9_device_ms,
         "fit_peak_gib": peak / 2**30,
         "mode_ms_per_step": mode_ms,
         "impl_ms_per_step": impl_ms, "slab_pack_ms": pack_ms,
@@ -1471,6 +1526,9 @@ def main() -> int:
                       "lap_bound_ms": big_bound[0],
                       "sweep_a3_ms": big_sweep_ms["sweep_a3"],
                       "sweep_b3_ms": big_sweep_ms["sweep_b3"],
+                      **{f"{k}_ms": big_sweep_ms[k] for k in (
+                          "sweep_a3_hash9", "sweep_b3_hash9", "sweep_a2",
+                          "sweep_b2")},
                       "sweep_bwd_a_ms": big_bwd_ms["sweep_bwd_a"],
                       "sweep_bwd_b_ms": big_bwd_ms["sweep_bwd_b"],
                       "peak_gib": big_peak / 2**30}}), flush=True)

@@ -20,17 +20,18 @@
 //
 // Design: the warp walk of the redesigned forward sweeps K1 / K2
 // (sweep_common.cuh for_each_warp_candidate, fused_sweeps.cu
-// sweep_b3_xyz3_kernel). One block of `Slices` warps per 32 consecutive
-// sorted query rows (lane = row; Slices from warp_slices: 16 on
-// biceps_full, 2 on x56); each warp walks its slice of the sub-block's
-// three windows, stages only the candidates inside the warp's cell ranges
-// (a ballot per 32-candidate pass, 16 floats a slot, __syncwarp only), and
-// every live row applies the exact full per-axis mask and runs the pair
-// body on the staged slot, accumulating in fp32 registers (9 sums for
-// sweep A, 10 for sweep B). Then the slices' partial sums go through shared
-// memory, reusing the warps' stages once every warp has finished its walk
-// (a 16-slice block stages 32 KB, and 16 x 10 x 32 partials take 20 KB:
-// static shared memory stays under the 48 KB limit), warp 0 adds them in
+// sweep_b3_xyz3_kernel), under CellWindows. One block of `Slices` warps
+// per 32 consecutive sorted query rows (lane = row; Slices from
+// warp_slices: 16 on biceps_full, 2 on x56); each warp walks its slice of
+// the sub-block's three windows, stages only the candidates inside the
+// warp's cell ranges (a ballot per 32-candidate pass, 16 floats a slot,
+// __syncwarp only), and every live row applies the exact full per-axis mask
+// and runs the pair body on the staged slot, accumulating in fp32 registers
+// (9 sums for sweep A, 10 for sweep B). Then the slices' partial sums go
+// through shared memory, reusing the warps' stages once every warp has
+// finished its walk (sweep_common.cuh add_slices: a 16-slice block stages
+// 32 KB, and 16 x 10 x 32 partials take 20 KB, so static shared memory
+// stays under the 48 KB limit), warp 0 adds them in
 // slice order (no atomics: two launches on the same inputs give the same
 // bits) and writes the (N, 16) output contract with zeros in the unused
 // columns.
@@ -47,12 +48,14 @@
 // Poly6's support for sweep A, beyond 2h for sweep B).
 //
 // Measured (H100 80GB HBM3, 700 W, torch.profiler device time,
-// compare_builds.py; the first form in brackets): biceps_full K4 0.067 ms
-// [0.366], K5 0.141 ms [0.535], at 4.4% and 13.6% of their operation
-// bounds; x56 (1,034,600 particles, 2 slices) K4 1.63 ms [2.68], K5
-// 4.33 ms [5.96]. ptxas: K4 64 registers at every slice count, no spill;
-// K5 64 at 16 slices (44 bytes spilled), 80 at 8, 72 at 4 and 2 (12
-// bytes spilled), within 1% of each other in time at 8 and 16 slices.
+// compare_builds.py; the first form in brackets): biceps_full K4 0.066 ms
+// [0.366], K5 0.134 ms [0.535], at 4.4% and 14.3% of their operation
+// bounds; x56 (1,034,600 particles, 2 slices) K4 1.61 ms [2.68], K5 4.18 ms
+// [5.96]. K5 launches for 32 warps an SM, so ptxas holds it to 64
+// registers at every slice count, with no spill: left to its heuristics it
+// took 86 registers at 16 slices (one 512-thread block an SM) and ran
+// 0.169 ms (x56: 4.35 ms). ptxas gives K4 64 registers at 8 and 16
+// slices, 56 at 2 and 4 (28 bytes spilled).
 //
 // Numerics: fp32 throughout, IEEE division and sqrt (no --use_fast_math).
 // Sweep B's backward uses rsqrtf (maximum error 2 ulp) for 1/r, as the
@@ -70,31 +73,6 @@ using namespace sph;
 //   sweep B: pos3 | u3 | vol | P | vm | ga3 | gl | 0
 using WordsBwdA = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, -1, -1>;
 using WordsBwdB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 14, -1>;
-
-// The slices' partial sums `acc`, added in slice order for warp 0's rows.
-// Each warp leaves its partials in shared memory, in the block's stages
-// once every warp has left its walk; returns true on warp 0, whose `acc`
-// then holds the row's sums, and false on the others.
-template <int Slices, int N, int kSums>
-__device__ __forceinline__ bool add_slices(float4 (&stage)[Slices][N],
-                                           float (&acc)[kSums]) {
-  static_assert(kSums * 32 <= 4 * N, "the partial sums fit in a stage");
-  float* part = reinterpret_cast<float*>(stage);  // [kSums][Slices][32]
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();  // every warp is done with the stages
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) part[(k * Slices + w) * 32 + lane] = acc[k];
-  __syncthreads();
-  if (w != 0) return false;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    acc[k] = part[k * Slices * 32 + lane];
-#pragma unroll
-    for (int s = 1; s < Slices; ++s)
-      acc[k] += part[(k * Slices + s) * 32 + lane];
-  }
-  return true;
-}
 
 // VJP of sweep A's pair sums (replaces _kernel_bwd_a). Query columns:
 // [pos3 | v3 | vol | mass | gd | gx3 | cx | cyz | - -], gd / gx3 the
@@ -124,8 +102,8 @@ __global__ void __launch_bounds__(32 * Slices)
   // aP (3), aB, aD (3), aE, aF
   float acc[9] = {};
   for_each_warp_candidate(
-      WordsBwdA{}, stage[w], feats, blk_lo, blk_hi, n, g_mid,
-      (int)(row / sub_q), w, Slices, qcx, qcyz, qcx >= 0.0f,
+      CellWindows{g_mid}, WordsBwdA{}, stage[w], feats, blk_lo, blk_hi, n,
+      (int)(row / sub_q), w, Slices, qcyz, qcx, qcx >= 0.0f,
       [&](const float* c) {
         const float dx = qx - c[0], dy = qy - c[1], dz = qz - c[2];
         const float r2 = dx * dx + dy * dy + dz * dz;
@@ -177,7 +155,7 @@ __global__ void __launch_bounds__(32 * Slices)
 // [d_pos3 | d_u3 | d_P | d_vm | d_vol | d_mu partial | 0 x 6]; the caller
 // sums the d_mu partials over the rows.
 template <int Slices>
-__global__ void __launch_bounds__(32 * Slices)
+__global__ void __launch_bounds__(32 * Slices, 1024 / (32 * Slices))
     sweep_bwd_b_kernel(const float* __restrict__ qm,
                        const float* __restrict__ feats,
                        const int* __restrict__ blk_lo,
@@ -204,8 +182,8 @@ __global__ void __launch_bounds__(32 * Slices)
   // d_pos (3), u (3), aP, aVM, aVOL, aMU
   float acc[10] = {};
   for_each_warp_candidate(
-      WordsBwdB{}, stage[w], feats, blk_lo, blk_hi, n, g_mid,
-      (int)(row / sub_q), w, Slices, qcx, qcyz, qcx >= 0.0f,
+      CellWindows{g_mid}, WordsBwdB{}, stage[w], feats, blk_lo, blk_hi, n,
+      (int)(row / sub_q), w, Slices, qcyz, qcx, qcx >= 0.0f,
       [&](const float* c) {
         const float dx = qx - c[0], dy = qy - c[1], dz = qz - c[2];
         const float r2 = dx * dx + dy * dy + dz * dz;

@@ -14,23 +14,18 @@
 //     -> sweep_a5_kernel / sweep_b5_kernel                 (K7)
 //   _kernel_lap3 (the Laplacian-only sweep) -> sweep_lap3_kernel (K3)
 //
-// Design (K6, the first form). One thread block per bookkeeping sub-block
-// of `sub_q` sorted query rows, one thread per query row; the candidates
-// are staged through shared memory in tiles of sub_q rows and masked per
-// candidate by the exact stencil (sweep_common.cuh); every thread
-// accumulates its pair sums in fp32 registers, then runs the pointwise
-// epilogue of its row. The windows are iterated exactly; the TPU's 128-row
-// start alignment, VMEM/HBM split, chunked DMA, feature padding and SMEM
-// budgets are not needed here. What bounds it on the H100: not memory (the
-// candidate features of a step, 16 x 18,560 f32 = 1.2 MB on biceps_full,
-// stay in the 50 MB L2) but instruction issue at low occupancy: a few warps
-// per SM, each thread a serial loop over its block's candidates, every tile
-// between two barriers. The redesign below is its lead.
-//
-// K1, K2, K3 and K7 were redesigned for the card: 2 to 16 warps per 32
-// query rows, each walking a slice of the rows' windows (or slabs) trimmed
-// to the warp's cell ranges, the slices' sums added in a fixed order (see
-// sweep_b3_xyz3_kernel and sweep_a5_kernel).
+// Design: every sweep here runs blocks of `Slices` warps (2 to 16, from
+// warp_slices) per 32 sorted query rows; each warp walks a slice of the
+// rows' candidates (sweep_common.cuh: the three v4 windows or the nine v3
+// hash run windows through for_each_warp_candidate, the v5 slabs through
+// for_each_warp_slab_candidate), stages only those inside the warp's cell
+// or hash ranges, sums its pairs in fp32 registers, and the slices' sums are
+// added in slice order through shared memory (no atomics) before warp 0
+// runs the row's epilogue. The windows are iterated exactly; the TPU's
+// 128-row start alignment, VMEM/HBM split, chunked DMA, feature padding and
+// SMEM budgets are not needed here. The candidate features of a step (16 x
+// 18,560 f32 = 1.2 MB on biceps_full) stay in the 50 MB L2; the bound is the
+// pair arithmetic.
 //
 // Numerics: fp32 throughout, IEEE division and sqrt (no --use_fast_math).
 // The pair distance uses rsqrtf (maximum error 2 ulp, CUDA math API) where
@@ -43,12 +38,6 @@
 namespace {
 
 using namespace sph;
-
-// Staged candidate feature rows of the v3 sweeps:
-//   sweep A: pos3 | cvel3 | vol_prev | mass | hash | 0
-//   sweep B: pos3 | ivel3 | vol | pres | vm | hash | 0
-using RowsA = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13>;
-using RowsB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
 
 // Sweep A's epilogue (_a_epilogue, cpp:483-503, 575-593, 699): the OUT_A row
 // `o` from the QM_A row `q` and the pair sums. Columns 12-14 (the cell
@@ -138,49 +127,86 @@ __device__ __forceinline__ void epilogue_b(const float* q, const PairSumsB& s,
   o[15] = 0.0f;
 }
 
-// Sweep A over the v3 run windows (replaces _kernel_a3 with stencil
-// "hash9"): XSPH + density gather under the full hash mask, then the EOS /
-// stim gate / FHN epilogue. The v4 form is sweep_a3_xyz3_kernel below.
-__global__ void sweep_a3_hash9_kernel(const float* __restrict__ qm,
-                                      const float* __restrict__ feats,
-                                      const int* __restrict__ blk_lo,
-                                      const int* __restrict__ blk_hi,
-                                      const float* __restrict__ prm,
-                                      float* __restrict__ out, int n,
-                                      int with_ep, int gx, int gy,
-                                      int q_double, int q_gate, int q_acc) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+// The v3 sweeps A and B (K6; replace _kernel_a3 / _kernel_b3 with stencil
+// "hash9"): K1's / K2's pair sums under the full hash mask over the nine
+// run windows of the row's sub-block, walked by for_each_warp_candidate
+// under HashWindows, then the same epilogues. One block of `Slices` warps
+// per 32 sorted query rows, the slices' sums added in slice order.
+//
+// What bounded the first form (one block of sub_q threads a sub-block, one
+// thread a row, the nine windows staged through shared memory in tiles of
+// sub_q rows, two block barriers a tile) on the H100 80GB HBM3 at 700 W: 145
+// blocks of 4 warps on 132 SMs at biceps_full (sub_q 128), each thread
+// walking all of its sub-block's ~1,700-1,876 window rows, of which the
+// mask kept ~554; A 0.290 ms, B 0.302 ms of device time. This form stages
+// only the run of each window inside the warp's hash range, found by binary
+// search: 829 candidates a row warp there, of which a row pairs with 67%
+// (tests/test_torch_warp_walk.py).
+//
+// Measured (same card, torch.profiler device time, compare_builds.py; the
+// first form in brackets): biceps_full (16 slices) A 0.040 ms [0.290], B
+// 0.056 ms [0.302], at 5.0% and 12.5% of their operation bounds; the trim
+// is worth 12-20% at sub_q 128 and costs 7% at sub_q 32, where a warp's
+// range is its sub-block's. On x56 (2 slices) A 3.22 ms [4.25], B 3.36 ms
+// [4.38]: 7 of its 32,332 row warps span a hash range of a whole x-row
+// (2,100 cells) or more and stage up to ~100,000 candidates each.
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_a3_hash9_kernel(const float* __restrict__ qm,
+                          const float* __restrict__ feats,
+                          const int* __restrict__ blk_lo,
+                          const int* __restrict__ blk_hi,
+                          const float* __restrict__ prm,
+                          float* __restrict__ out, int n, int sub_q,
+                          int with_ep, int gx, int gy, int q_double,
+                          int q_gate, int q_acc) {
+  constexpr int V = (WordsHashA::count + 1) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
   const float* q = qm + row * 16;
   const float qh = q[12];
-  // dead rows (cell sentinel) keep zero sums, like the plain version
-  const bool qlive = qh >= 0.0f;
   PairSumsA s(q, prm);
-  for_each_neighbor_hash9(RowsA{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
-                          qh, qlive, [&](int k) { s.add(tile, T, k); });
+  // dead rows (hash sentinel) keep zero sums, like the plain version
+  for_each_warp_candidate(HashWindows{gx, gy}, WordsHashA{}, stage[w], feats,
+                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          qh, 0.0f, qh >= 0.0f,
+                          [&](const float* c) { s.add(c, 1, 0); });
+  float acc[4] = {s.a_d, s.a_x, s.a_y, s.a_z};
+  if (!add_slices(stage, acc)) return;
+  s.a_d = acc[0];
+  s.a_x = acc[1];
+  s.a_y = acc[2];
+  s.a_z = acc[3];
   epilogue_a(q, s, prm, with_ep, q_double, q_gate, q_acc, out + row * 16);
 }
 
-// Sweep B over the v3 run windows (replaces _kernel_b3 with stencil
-// "hash9"): force + Vm Laplacian gather under the full hash mask, then the
-// integration epilogue. The v4 form is sweep_b3_xyz3_kernel below.
-__global__ void sweep_b3_hash9_kernel(const float* __restrict__ qm,
-                                      const float* __restrict__ feats,
-                                      const int* __restrict__ blk_lo,
-                                      const int* __restrict__ blk_hi,
-                                      const float* __restrict__ prm,
-                                      float* __restrict__ out, int n,
-                                      int with_ep, int gx, int gy) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_b3_hash9_kernel(const float* __restrict__ qm,
+                          const float* __restrict__ feats,
+                          const int* __restrict__ blk_lo,
+                          const int* __restrict__ blk_hi,
+                          const float* __restrict__ prm,
+                          float* __restrict__ out, int n, int sub_q,
+                          int with_ep, int gx, int gy) {
+  constexpr int V = (WordsHashB::count + 1) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
   const float* q = qm + row * 16;
   const float qh = q[12];
-  const bool qlive = qh >= 0.0f;
   PairSumsB s(q, prm, with_ep);
-  for_each_neighbor_hash9(RowsB{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
-                          qh, qlive, [&](int k) { s.add(tile, T, k); });
+  for_each_warp_candidate(HashWindows{gx, gy}, WordsHashB{}, stage[w], feats,
+                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          qh, 0.0f, qh >= 0.0f,
+                          [&](const float* c) { s.add(c, 1, 0); });
+  float acc[4] = {s.a_ax, s.a_ay, s.a_az, s.a_lap};
+  if (!add_slices(stage, acc)) return;
+  s.a_ax = acc[0];
+  s.a_ay = acc[1];
+  s.a_az = acc[2];
+  s.a_lap = acc[3];
   epilogue_b(q, s, prm, out + row * 16);
 }
 
@@ -247,8 +273,9 @@ __global__ void __launch_bounds__(32 * Slices)
   // dead rows (cell sentinel) keep zero sums, like the plain version
   const bool qlive = qcx >= 0.0f;
   PairSumsA s(q, prm);
-  for_each_warp_candidate(WordsA{}, stage[w], feats, blk_lo, blk_hi, n, g_mid,
-                          (int)(row / sub_q), w, Slices, qcx, qcyz, qlive,
+  for_each_warp_candidate(CellWindows{g_mid}, WordsA{}, stage[w], feats,
+                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          qcyz, qcx, qlive,
                           [&](const float* c) { s.add(c, 1, 0); });
   part[0][w][lane] = s.a_d;
   part[1][w][lane] = s.a_x;
@@ -290,8 +317,9 @@ __global__ void __launch_bounds__(32 * Slices)
   const float qcx = q[12], qcyz = q[13];
   const bool qlive = qcx >= 0.0f;
   PairSumsB s(q, prm, with_ep);
-  for_each_warp_candidate(WordsB{}, stage[w], feats, blk_lo, blk_hi, n, g_mid,
-                          (int)(row / sub_q), w, Slices, qcx, qcyz, qlive,
+  for_each_warp_candidate(CellWindows{g_mid}, WordsB{}, stage[w], feats,
+                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          qcyz, qcx, qlive,
                           [&](const float* c) { s.add(c, 1, 0); });
   part[0][w][lane] = s.a_ax;
   part[1][w][lane] = s.a_ay;
@@ -342,8 +370,8 @@ __global__ void __launch_bounds__(32 * Slices)
 
   float a_vw = 0.0f, a_vwvm = 0.0f;
   for_each_warp_candidate(
-      WordsL{}, stage[w], feats, blk_lo, blk_hi, n, g_mid, (int)(row / sub_q),
-      w, Slices, qcx, qcyz, qlive, [&](const float* c) {
+      CellWindows{g_mid}, WordsL{}, stage[w], feats, blk_lo, blk_hi, n,
+      (int)(row / sub_q), w, Slices, qcyz, qcx, qlive, [&](const float* c) {
         const float dx = qx - c[0], dy = qy - c[1], dz = qz - c[2];
         const float r2 = dx * dx + dy * dy + dz * dz;
         if (!(r2 > kPairEps)) return;  // cpp:546
@@ -483,26 +511,6 @@ __global__ void __launch_bounds__(32 * Slices)
   epilogue_b(q, s, prm, out + row * 16);
 }
 
-int launch_a3_hash9(const float* qm, const float* feats, const int* blk_lo,
-                    const int* blk_hi, const float* prm, float* out, int n,
-                    int sub_q, int with_ep, int gx, int gy, int q_double,
-                    int q_gate, int q_acc, void* stream) {
-  const size_t smem = RowsA::count * (size_t)sub_q * sizeof(float);
-  sweep_a3_hash9_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, gx, gy, q_double,
-      q_gate, q_acc);
-  return (int)cudaGetLastError();
-}
-
-int launch_b3_hash9(const float* qm, const float* feats, const int* blk_lo,
-                    const int* blk_hi, const float* prm, float* out, int n,
-                    int sub_q, int with_ep, int gx, int gy, void* stream) {
-  const size_t smem = RowsB::count * (size_t)sub_q * sizeof(float);
-  sweep_b3_hash9_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, with_ep, gx, gy);
-  return (int)cudaGetLastError();
-}
-
 template <int Slices>
 struct LaunchA3 {
   template <class... Args>
@@ -516,6 +524,22 @@ struct LaunchB3 {
   template <class... Args>
   static void run(dim3 grid, cudaStream_t st, Args... args) {
     sweep_b3_xyz3_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
+struct LaunchA3Hash9 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_a3_hash9_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
+struct LaunchB3Hash9 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_b3_hash9_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
   }
 };
 
@@ -576,18 +600,19 @@ int sph_sweep_a3_hash9(const float* qm, const float* feats,
                        int gy, int quirk_double_self_density,
                        int quirk_pressure_stim_gate,
                        int quirk_iion_accumulate, void* stream) {
-  return launch_a3_hash9(qm, feats, blk_lo, blk_hi, prm, out, n, sub_q,
-                         with_ep, gx, gy, quirk_double_self_density,
-                         quirk_pressure_stim_gate, quirk_iion_accumulate,
-                         stream);
+  return launch_sliced<LaunchA3Hash9>(n, stream, qm, feats, blk_lo, blk_hi,
+                                      prm, out, n, sub_q, with_ep, gx, gy,
+                                      quirk_double_self_density,
+                                      quirk_pressure_stim_gate,
+                                      quirk_iion_accumulate);
 }
 
 int sph_sweep_b3_hash9(const float* qm, const float* feats,
                        const int* blk_lo, const int* blk_hi, const float* prm,
                        float* out, int n, int sub_q, int with_ep, int gx,
                        int gy, void* stream) {
-  return launch_b3_hash9(qm, feats, blk_lo, blk_hi, prm, out, n, sub_q,
-                         with_ep, gx, gy, stream);
+  return launch_sliced<LaunchB3Hash9>(n, stream, qm, feats, blk_lo, blk_hi,
+                                      prm, out, n, sub_q, with_ep, gx, gy);
 }
 
 int sph_sweep_a5(const float* qm, const float* slab, const int* trips,

@@ -28,12 +28,16 @@
 // 32 sorted rows of a warp mostly share a cell and so its runs: their loads
 // broadcast; lanes diverge where their runs differ in length.
 //
-// K9 design. K6's enumeration (sweep_common.cuh for_each_neighbor_hash9):
-// one thread block per bookkeeping sub-block of sub_q rows stages each of
-// its nine run windows [lo, hi) (sweep_bookkeeping2) through shared memory,
-// exactly (the TPU's 128-aligned start only adds rows the hash test
-// rejects), with the mask |qh + d_r - ch| <= 1 on the linear cell hash in
-// row / column 12; the pair sums are K1's / K2's (PairSumsA / PairSumsB).
+// K9 design. K6's (sweep_common.cuh for_each_warp_candidate under
+// HashWindows): blocks of `Slices` warps (2 to 16, from warp_slices) per
+// 32 sorted query rows of a sub-block of sub_q rows; each warp trims the
+// sub-block's nine run windows [lo, hi) (sweep_bookkeeping2) to the runs
+// inside its rows' hash range, walks its slice of them laid end to end,
+// stages the candidates per warp (no block barrier in the walk) and masks
+// each by |qh + d_r - ch| <= 1 on the linear cell hash in row / column 12;
+// the slices' raw sums are added in slice order (add_slices). The TPU's
+// 128-aligned window start only adds rows the hash test rejects. The pair
+// sums are K1's / K2's (PairSumsA / PairSumsB).
 //
 // Pair arithmetic. K8 A and both K9 sweeps use PairSumsA / PairSumsB. K8 B
 // keeps v1's own (PairSumsB1): r = sqrtf(r^2) and 1/r a division (IEEE:
@@ -44,24 +48,22 @@
 // layout of the MXU output contraction (_dotT), and it loses about |x|/|dx|
 // of relative precision; this card runs fp32 without tensor cores.
 //
-// What bounds them on the H100: not memory (the features and run bounds are
-// a few MB and stay in L2) but instruction issue at low occupancy: 18,560
-// rows make 580 warps, about 4.4 per SM, each thread a serial loop over its
-// candidates (about 554 in its runs for K8, its block's ~1,700 window rows
-// for K9).
+// What bounds K8 on the H100: not memory (the features and run bounds are a
+// few MB and stay in L2) but instruction issue at low occupancy: 18,560
+// rows make 580 warps, about 4.4 per SM, each thread a serial loop over the
+// ~554 candidates in its runs. K9's bound, like K6's, is the pair
+// arithmetic. Measured (H100 80GB HBM3, 700 W, torch.profiler device time,
+// compare_builds.py, on the inputs the v2 step gives it; the first form,
+// one block of sub_q threads a sub-block with two block barriers a staged
+// tile, in brackets): biceps_full A 0.037 ms [0.261], B 0.055 ms [0.300]
+// at sub_q 128, the same [0.220, 0.252] at sub_q 32; x56 (2 slices, on
+// K6's matrices) A 3.60 ms [3.71], B 3.27 ms [4.30].
 
 #include "sweep_common.cuh"
 
 namespace {
 
 using namespace sph;
-
-// Staged candidate feature rows of the v2 sweeps (the hash in row 12, zero in
-// row 13):
-//   sweep A: pos3 | cvel3 | vol_prev | mass | hash | 0
-//   sweep B: pos3 | ivel3 | vol | pres | vm | hash | 0
-using RowsA2 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 12, 13>;
-using RowsB2 = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13>;
 
 constexpr int kRunThreads = 32;  // K8 rows per block: 580 blocks at 18,560
 
@@ -152,52 +154,74 @@ __global__ void sweep_b1_kernel(const float* __restrict__ qm,
   o[3] = s.a_lap;
 }
 
-// v2 sweep A (replaces _sweep_a2_kernel): K6's run windows and hash mask,
-// raw sums. A dead query (hash sentinel) keeps zero sums.
-__global__ void sweep_a2_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ blk_lo,
-                                const int* __restrict__ blk_hi,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n, int gx,
-                                int gy) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+// v2 sweep A (replaces _sweep_a2_kernel): K6's run windows, hash mask and
+// walk, raw sums. A dead query (hash sentinel) keeps zero sums.
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_a2_kernel(const float* __restrict__ qm,
+                    const float* __restrict__ feats,
+                    const int* __restrict__ blk_lo,
+                    const int* __restrict__ blk_hi,
+                    const float* __restrict__ prm, float* __restrict__ out,
+                    int n, int sub_q, int gx, int gy) {
+  constexpr int V = (WordsHashA::count + 1) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
   const float* q = qm + row * 16;
   PairSumsA s(q, prm);
-  for_each_neighbor_hash9(RowsA2{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
-                          q[12], q[12] >= 0.0f,
-                          [&](int k) { s.add(tile, T, k); });
+  for_each_warp_candidate(HashWindows{gx, gy}, WordsHashA{}, stage[w], feats,
+                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          q[12], 0.0f, q[12] >= 0.0f,
+                          [&](const float* c) { s.add(c, 1, 0); });
+  float acc[4] = {s.a_d, s.a_x, s.a_y, s.a_z};
+  if (!add_slices(stage, acc)) return;
   float* o = out + row * 4;
-  o[0] = s.a_d;
-  o[1] = s.a_x;
-  o[2] = s.a_y;
-  o[3] = s.a_z;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = acc[k];
 }
 
 // v2 sweep B (replaces _sweep_b2_kernel).
-__global__ void sweep_b2_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ blk_lo,
-                                const int* __restrict__ blk_hi,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n, int gx,
-                                int gy) {
-  extern __shared__ float tile[];
-  const int T = blockDim.x;
-  const size_t row = (size_t)blockIdx.x * T + threadIdx.x;
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_b2_kernel(const float* __restrict__ qm,
+                    const float* __restrict__ feats,
+                    const int* __restrict__ blk_lo,
+                    const int* __restrict__ blk_hi,
+                    const float* __restrict__ prm, float* __restrict__ out,
+                    int n, int sub_q, int gx, int gy) {
+  constexpr int V = (WordsHashB::count + 1) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
   const float* q = qm + row * 16;
   PairSumsB s(q, prm, 1);
-  for_each_neighbor_hash9(RowsB2{}, tile, feats, blk_lo, blk_hi, n, gx, gy,
-                          q[12], q[12] >= 0.0f,
-                          [&](int k) { s.add(tile, T, k); });
+  for_each_warp_candidate(HashWindows{gx, gy}, WordsHashB{}, stage[w], feats,
+                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          q[12], 0.0f, q[12] >= 0.0f,
+                          [&](const float* c) { s.add(c, 1, 0); });
+  float acc[4] = {s.a_ax, s.a_ay, s.a_az, s.a_lap};
+  if (!add_slices(stage, acc)) return;
   float* o = out + row * 4;
-  o[0] = s.a_ax;
-  o[1] = s.a_ay;
-  o[2] = s.a_az;
-  o[3] = s.a_lap;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = acc[k];
 }
+
+template <int Slices>
+struct LaunchA2 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_a2_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
+struct LaunchB2 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_b2_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
 
 int run_blocks(int n) { return (n + kRunThreads - 1) / kRunThreads; }
 
@@ -224,19 +248,15 @@ int sph_sweep_b1(const float* qm, const float* feats, const int* qstart,
 int sph_sweep_a2(const float* qm, const float* feats, const int* blk_lo,
                  const int* blk_hi, const float* prm, float* out, int n,
                  int sub_q, int gx, int gy, void* stream) {
-  const size_t smem = RowsA2::count * (size_t)sub_q * sizeof(float);
-  sweep_a2_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, gx, gy);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchA2>(n, stream, qm, feats, blk_lo, blk_hi, prm,
+                                 out, n, sub_q, gx, gy);
 }
 
 int sph_sweep_b2(const float* qm, const float* feats, const int* blk_lo,
                  const int* blk_hi, const float* prm, float* out, int n,
                  int sub_q, int gx, int gy, void* stream) {
-  const size_t smem = RowsB2::count * (size_t)sub_q * sizeof(float);
-  sweep_b2_kernel<<<n / sub_q, sub_q, smem, (cudaStream_t)stream>>>(
-      qm, feats, blk_lo, blk_hi, prm, out, n, gx, gy);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchB2>(n, stream, qm, feats, blk_lo, blk_hi, prm,
+                                 out, n, sub_q, gx, gy);
 }
 
 }  // extern "C"

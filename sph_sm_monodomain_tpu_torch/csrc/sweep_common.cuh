@@ -1,32 +1,31 @@
 // Shared pieces of the port's neighbor-sweep kernels (fused_sweeps.cu:
-// sweep A / sweep B in their v4, v3 and v5 forms; fused_adjoint.cu: their
-// backward sweeps; legacy_sweeps.cu: the v1 / v2 raw-sum sweeps): the slots
-// of the physics-constant vector, the staging of candidate features into
-// shared memory, the pair sums of sweep A and sweep B, the three candidate
-// loops with their exact masks, and the warp-slice picker and launcher of
-// the warp-trimmed sweeps.
+// sweep A / sweep B in their v4, v3 and v5 forms and the Laplacian sweep;
+// fused_adjoint.cu: the backward sweeps of v4's A and B; legacy_sweeps.cu:
+// the v1 / v2 raw-sum sweeps): the slots of the physics-constant vector, the
+// pair sums of sweep A and sweep B, the two warp walks with their exact
+// masks, the slices' ordered sum, and the warp-slice picker and launcher.
 //
-// The first-form sweeps (v3, v1 / v2) run one thread block per bookkeeping
-// sub-block of `sub_q` sorted query rows, one thread per query row. The
-// block stages tiles of sub_q candidate rows into shared memory (one
-// coalesced load per staged feature row); then every query thread walks
-// the tile and calls the kernel's pair function for each candidate that
-// passes the mask.
-//   v3 (for_each_neighbor_hash9): the nine (dy, dz) run windows, mask
-//     |qh + d_r - ch| <= 1 on the linear cell hash, d_r = Gx*(dy + Gy*dz).
-//   v4, warp-trimmed (for_each_warp_candidate: sweeps A and B, the
-//     Laplacian sweep and the backward sweeps of A and B): blocks of
-//     several warps per 32 query rows, each warp walking its slice of the
-//     three slow-plane windows [lo, hi) of the (16, N) feature matrix and
-//     only the candidates inside the warp's cell ranges, with the full
-//     per-axis mask |qcyz + (r-1)*G_mid - ccyz| <= 1 for window r and
-//     |qcx - ccx| <= 1 (see the loop).
-//   v5, warp-trimmed (for_each_warp_slab_candidate, sweeps A and B): the
-//     same split over the first `count` slots of the rows' own packed
-//     (16, kb) slabs, mask |dcf|, |dcm|, |dcs| <= 1 on the per-axis cell
-//     coordinates.
-// Under v4 and v3 a pair passes under one window only, even where sparse
-// blocks' windows overlap, and the windows are iterated exactly.
+// Every sweep but v1's runs blocks of `Slices` warps per 32 consecutive
+// sorted query rows (lane = row). Each warp walks its slice of the rows'
+// candidates, stages only those that some live row of the warp can accept
+// into its own shared-memory slots (a ballot per 32-candidate pass, no
+// barrier but __syncwarp), and every live row applies the exact mask to
+// each staged slot and calls the kernel's pair function; then the slices'
+// partial sums are added in slice order through shared memory.
+//   for_each_warp_candidate, over a sub-block's windows of the (16, N)
+//     feature matrix laid end to end, in one of two geometries:
+//     CellWindows (v4: sweeps A and B, the Laplacian sweep, the backward
+//       sweeps): three slow-plane windows, mask |qcyz + (r-1)*G_mid -
+//       ccyz| <= 1 and |qcx - ccx| <= 1;
+//     HashWindows (v3 and v2: sweeps A and B): nine (dy, dz) run windows,
+//       mask |qh + d_r - ch| <= 1 on the linear cell hash, d_r = Gx*(dy +
+//       Gy*dz), each window first trimmed to the run inside the warp's hash
+//       range.
+//   for_each_warp_slab_candidate (v5, sweeps A and B): the first `count`
+//     slots of the rows' own packed (16, kb) slabs, mask |dcf|, |dcm|,
+//     |dcs| <= 1 on the per-axis cell coordinates.
+// Under the window walks a pair passes under one window only, even where
+// sparse blocks' windows overlap, and the windows are iterated exactly.
 
 #pragma once
 
@@ -47,29 +46,13 @@ enum Slot {
 
 constexpr float kPairEps = 1e-12f;  // INF guard, SPH_SM_monodomain.h:24
 
-// The feature rows a sweep stages, in slot order. For the v3 loop the last
-// two must be the hash (row 12) then row 13; for the warp walks these are
-// the staged words before the cell features the walk appends itself, and a
-// row of -1 stages a zero pad.
+// The feature rows a warp walk stages for each candidate, in slot order,
+// before the cell key(s) the walk appends itself; a row of -1 stages a
+// zero pad.
 template <int... R>
 struct Rows {
   static constexpr int count = sizeof...(R);
 };
-
-// Copy candidate rows [base, base + T) (clipped at hi) of the feature rows
-// R... of the (16, N) matrix into shared memory: slot f of candidate k at
-// tile[f*T + k].
-template <int... R>
-__device__ __forceinline__ void stage_rows(Rows<R...>, float* tile,
-                                           const float* feats, int n,
-                                           int base, int hi) {
-  const int T = blockDim.x;
-  const int j = base + threadIdx.x;
-  if (j < hi) {
-    int f = 0;
-    ((tile[(f++) * T + threadIdx.x] = feats[(size_t)R * n + j]), ...);
-  }
-}
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -143,58 +126,62 @@ struct PairSumsB {
   }
 };
 
-// The v3 window loop: nine run windows per sub-block at stride 16 of the
-// bounds, in the JAX package's _RUN_OFFSETS order (dy fast, dz slow), each
-// masked by |qh + d_r - ch| <= 1 on the staged hash row. The hash admits
-// wrap pairs across a world edge that the per-axis stencil excludes; they
-// lie far outside every kernel support and add exactly 0. pair(k) runs for
-// each staged candidate k of the tile that passes, in window order. All
-// threads of the block must call it (it synchronizes); dead query rows
-// (qlive false) stage tiles but call no pair.
-template <class RowList, class Pair>
-__device__ __forceinline__ void for_each_neighbor_hash9(
-    RowList rows, float* tile, const float* feats, const int* blk_lo,
-    const int* blk_hi, int n, int gx, int gy, float qh, bool qlive,
-    Pair&& pair) {
-  const int T = blockDim.x;
-  const int b = blockIdx.x;
-  const float* s_h = tile + (RowList::count - 2) * T;
-  for (int r = 0; r < 9; ++r) {
-    const int lo = blk_lo[b * 16 + r], hi = blk_hi[b * 16 + r];
-    const float qd = qh + (float)(gx * (r % 3 - 1 + gy * (r / 3 - 1)));
-    for (int base = lo; base < hi; base += T) {
-      stage_rows(rows, tile, feats, n, base, hi);
-      __syncthreads();
-      const int cnt = min(T, hi - base);
-      if (qlive) {
-        for (int k = 0; k < cnt; ++k) {
-          if (!(fabsf(qd - s_h[k]) <= 1.0f)) continue;
-          pair(k);
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
+// The window geometries of for_each_warp_candidate: how many windows a
+// sub-block has, the stride of its bounds in blk_lo / blk_hi, the feature
+// row (and query column) of the cell key the windows are sorted by, the
+// key's offset in window r, whether a second cell axis is masked on its own
+// (read from row / column 12), and whether a window is first trimmed to the
+// warp's key range.
+//   CellWindows (v4): the sort key is cx + Gf * cyz, so the key cyz (row
+//     13) is nondecreasing inside a window, offset (r - 1) * G_mid, and cx
+//     has a range of its own.
+//   HashWindows (v3, v2): the sort key is the linear hash itself (row 12,
+//     an integer below 2^24 held exactly in fp32; row 13 is 0), windows in
+//     the JAX package's _RUN_OFFSETS order (dy fast, dz slow). Each window
+//     is a searchsorted range of the sorted hashes and dead rows sort past
+//     every window, so the candidates a warp can accept in window r are
+//     one contiguous run: the walk finds it by binary search (kTrim).
+struct CellWindows {
+  static constexpr int kWindows = 3, kStride = 4, kKeyRow = 13;
+  static constexpr bool kAxis = true, kTrim = false;
+  int g_mid;
+  __device__ float offset(int r) const { return (float)((r - 1) * g_mid); }
+};
 
-// The warp-trimmed v4 window walk of the redesigned sweeps A (K1) and B
-// (K2), the Laplacian sweep (K3) and the backward sweeps (K4, K5). The
+struct HashWindows {
+  static constexpr int kWindows = 9, kStride = 16, kKeyRow = 12;
+  static constexpr bool kAxis = false, kTrim = true;
+  int gx, gy;
+  __device__ float offset(int r) const {
+    return (float)(gx * (r % 3 - 1 + gy * (r / 3 - 1)));
+  }
+};
+
+// Staged words of the hash walk's sweeps (v3 K6, v2 K9; before the hash):
+// sweep A pos3 | cvel3 | vol_prev | mass | 0 0 0, sweep B pos3 | ivel3 | vol
+// | pres | vm | 0 0
+using WordsHashA = Rows<0, 1, 2, 3, 4, 5, 6, 7, -1, -1, -1>;
+using WordsHashB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, -1, -1>;
+
+// The warp walk over a sub-block's windows, of the v4 sweeps A (K1), B
+// (K2), the Laplacian sweep (K3) and the backward sweeps (K4, K5) under
+// CellWindows, and of the v3 / v2 sweeps (K6, K9) under HashWindows. The
 // calling block holds `slices` warps that serve the same 32 consecutive
-// sorted query rows (lane = row) of sub-block b; warp `slice` walks the
-// slice-th of `slices` equal parts of the block's three windows laid end
-// to end, so a sub-block gives sub_q / 32 * slices independent warps. The
-// sort key is cx + Gf * cyz, so within a window the candidates that some
-// live row of the warp can accept have ccyz in [min qcyz + d - 1, max qcyz
-// + d + 1] (d = (r - 1) * G_mid) and ccx in [min qcx - 1, max qcx + 1].
-// Each pass the warp reads the cell features of 32 candidates (coalesced:
-// rows 12 and 13 of the feature matrix), keeps those inside both ranges (a
-// ballot), stages their words into its own `stage` (32 slots of
-// Words::count + 2 floats, the cell pair last) with no barrier but
-// __syncwarp, and every live row then applies the exact mask |qcyz + d -
-// ccyz| <= 1, |qcx - ccx| <= 1 to each staged slot and calls pair(slot) in
-// window order. Dead rows (qlive false) take part in the warp's steps but
-// call no pair; a warp with no live row returns at once. The cell features
-// are integers, so the ranges hold every candidate the exact mask accepts.
+// sorted query rows (lane = row) of sub-block b (sub_q is a multiple of 32,
+// so a warp never spans two); warp `slice` walks the slice-th of `slices`
+// equal parts of the block's windows laid end to end, so a sub-block gives
+// sub_q / 32 * slices independent warps. Within window r the candidates
+// that some live row of the warp can accept have their key in [min qkey +
+// d_r - 1, max qkey + d_r + 1] (and, with an axis, cx in [min qcx - 1, max
+// qcx + 1]). Each pass the warp reads the cell key(s) of 32 candidates
+// (coalesced), keeps those inside the ranges (a ballot), stages their words
+// into its own `stage` (32 slots of Words::count + 1 + kAxis floats, the
+// axis then the key last) with no barrier but __syncwarp, and every live
+// row then applies the exact mask |qkey + d_r - ckey| <= 1 (and |qcx - ccx|
+// <= 1) to each staged slot and calls pair(slot) in window order. Dead rows
+// (qlive false) take part in the warp's steps but call no pair; a warp with
+// no live row returns at once. The keys are integers, so the ranges hold
+// every candidate the exact mask accepts.
 constexpr unsigned kFullMask = 0xffffffffu;
 
 template <int... R>
@@ -205,62 +192,92 @@ __device__ __forceinline__ void load_slot(Rows<R...>, float* v,
    ...);
 }
 
-template <class Words, class Pair>
+template <class Geom, class Words, class Pair>
 __device__ __forceinline__ void for_each_warp_candidate(
-    Words words, float4* stage, const float* feats, const int* blk_lo,
-    const int* blk_hi, int n, int g_mid, int b, int slice, int slices,
-    float qcx, float qcyz, bool qlive, Pair&& pair) {
-  constexpr int W = Words::count + 2;
+    Geom geom, Words words, float4* stage, const float* feats,
+    const int* blk_lo, const int* blk_hi, int n, int b, int slice,
+    int slices, float qkey, float qcx, bool qlive, Pair&& pair) {
+  constexpr int W = Words::count + 1 + Geom::kAxis;
   static_assert(W % 4 == 0, "a slot is a whole number of float4");
+  static_assert(Geom::kWindows <= 16, "one lane per window bound");
   constexpr int V = W / 4;
   const int lane = threadIdx.x & 31;
   const float inf = __int_as_float(0x7f800000);
+  float klo = qlive ? qkey : inf, khi = qlive ? qkey : -inf;
   float xlo = qlive ? qcx : inf, xhi = qlive ? qcx : -inf;
-  float clo = qlive ? qcyz : inf, chi = qlive ? qcyz : -inf;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    xlo = fminf(xlo, __shfl_xor_sync(kFullMask, xlo, o));
-    xhi = fmaxf(xhi, __shfl_xor_sync(kFullMask, xhi, o));
-    clo = fminf(clo, __shfl_xor_sync(kFullMask, clo, o));
-    chi = fmaxf(chi, __shfl_xor_sync(kFullMask, chi, o));
+    klo = fminf(klo, __shfl_xor_sync(kFullMask, klo, o));
+    khi = fmaxf(khi, __shfl_xor_sync(kFullMask, khi, o));
+    if (Geom::kAxis) {
+      xlo = fminf(xlo, __shfl_xor_sync(kFullMask, xlo, o));
+      xhi = fmaxf(xhi, __shfl_xor_sync(kFullMask, xhi, o));
+    }
   }
-  if (!(xlo <= xhi)) return;  // no live row in this warp
+  if (!(klo <= khi)) return;  // no live row in this warp
   xlo -= 1.0f;
   xhi += 1.0f;
-  int lo[3], len[3], total = 0;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    lo[r] = blk_lo[b * 4 + r];
-    len[r] = max(blk_hi[b * 4 + r] - lo[r], 0);
-    total += len[r];
+  const float* f_key = feats + (size_t)Geom::kKeyRow * n;
+  const float* f_cx = feats + (size_t)12 * n;
+  // The window bounds: lane r (< kWindows) holds where window r starts,
+  // lane 16 + r where it ends; with kTrim, where the run of keys in [min
+  // qkey + d_r - 1, max qkey + d_r + 1] starts and ends (binary search).
+  const int wr = lane & 15;
+  int bnd = 0;
+  if (wr < Geom::kWindows) {
+    const int lo = blk_lo[b * Geom::kStride + wr];
+    const int hi = max(blk_hi[b * Geom::kStride + wr], lo);
+    bnd = lane < 16 ? lo : hi;
+    if (Geom::kTrim) {
+      const float d = geom.offset(wr);
+      const bool upper = lane >= 16;
+      const float t = upper ? khi + d + 1.0f : klo + d - 1.0f;
+      int a = lo, e = hi;
+      while (a < e) {
+        const int m = (a + e) >> 1;
+        const float v = f_key[m];
+        if (upper ? v <= t : v < t)
+          a = m + 1;
+        else
+          e = m;
+      }
+      bnd = a;
+    }
   }
+  const int end = __shfl_down_sync(kFullMask, bnd, 16);
+  int total = lane < Geom::kWindows ? end - bnd : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    total += __shfl_xor_sync(kFullMask, total, o);
   const int s0 = (int)((long long)total * slice / slices);
   const int s1 = (int)((long long)total * (slice + 1) / slices);
-  const float* f_cx = feats + (size_t)12 * n;
-  const float* f_cyz = feats + (size_t)13 * n;
   int off = 0;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const int a = lo[r] + max(s0 - off, 0);
-    const int e = lo[r] + min(s1 - off, len[r]);
-    off += len[r];
-    const float d = (float)((r - 1) * g_mid);
-    const float qd = qcyz + d, wlo = clo + d - 1.0f, whi = chi + d + 1.0f;
+  for (int r = 0; r < Geom::kWindows && off < s1; ++r) {
+    const int lo = __shfl_sync(kFullMask, bnd, r);
+    const int len = __shfl_sync(kFullMask, bnd, 16 + r) - lo;
+    const int a = lo + max(s0 - off, 0);
+    const int e = lo + min(s1 - off, len);
+    off += len;
+    const float d = geom.offset(r);
+    const float qd = qkey + d, wlo = klo + d - 1.0f, whi = khi + d + 1.0f;
     for (int base = a; base < e; base += 32) {
       const int j = base + lane;
-      float ccx = 0.0f, ccyz = 0.0f;
+      float ccx = 0.0f, ckey = 0.0f;
       bool take = false;
       if (j < e) {
-        ccx = f_cx[j];
-        ccyz = f_cyz[j];
-        take = ccyz >= wlo && ccyz <= whi && ccx >= xlo && ccx <= xhi;
+        ckey = f_key[j];
+        take = ckey >= wlo && ckey <= whi;
+        if (Geom::kAxis) {
+          ccx = f_cx[j];
+          take = take && ccx >= xlo && ccx <= xhi;
+        }
       }
       const unsigned m = __ballot_sync(kFullMask, take);
       if (take) {
         float v[W];
         load_slot(words, v, feats, n, j);
-        v[W - 2] = ccx;
-        v[W - 1] = ccyz;
+        if (Geom::kAxis) v[W - 2] = ccx;
+        v[W - 1] = ckey;
         float4* s = stage + __popc(m & ((1u << lane) - 1u)) * V;
 #pragma unroll
         for (int i = 0; i < V; ++i)
@@ -281,12 +298,39 @@ __device__ __forceinline__ void for_each_warp_candidate(
         }
         if (!qlive) continue;
         if (!(fabsf(qd - c[W - 1]) <= 1.0f)) continue;
-        if (!(fabsf(qcx - c[W - 2]) <= 1.0f)) continue;
+        if (Geom::kAxis && !(fabsf(qcx - c[W - 2]) <= 1.0f)) continue;
         pair(c);
       }
       __syncwarp();
     }
   }
+}
+
+// The slices' partial sums `acc` of a block of for_each_warp_candidate or
+// for_each_warp_slab_candidate, added in slice order for warp 0's rows (no
+// atomics: two launches on the same inputs give the same bits). Each warp
+// leaves its partials in shared memory, in the block's stages once every
+// warp has left its walk; returns true on warp 0, whose `acc` then holds
+// the row's sums, and false on the others.
+template <int Slices, int N, int kSums>
+__device__ __forceinline__ bool add_slices(float4 (&stage)[Slices][N],
+                                           float (&acc)[kSums]) {
+  static_assert(kSums * 32 <= 4 * N, "the partial sums fit in a stage");
+  float* part = reinterpret_cast<float*>(stage);  // [kSums][Slices][32]
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  __syncthreads();  // every warp is done with the stages
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) part[(k * Slices + w) * 32 + lane] = acc[k];
+  __syncthreads();
+  if (w != 0) return false;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    acc[k] = part[k * Slices * 32 + lane];
+#pragma unroll
+    for (int s = 1; s < Slices; ++s)
+      acc[k] += part[(k * Slices + s) * 32 + lane];
+  }
+  return true;
 }
 
 // The warp-trimmed v5 slab walk of the redesigned slab sweeps (K7). The
@@ -404,7 +448,7 @@ __device__ __forceinline__ void for_each_warp_slab_candidate(
 // warps. The slice count, and so the sum order, depends on N and the
 // card's SM count only: launches on the same inputs and card give the same
 // bits. One picker serves every sliced kernel (fused_sweeps.cu,
-// fused_adjoint.cu).
+// fused_adjoint.cu, legacy_sweeps.cu).
 inline int warp_slices(int n) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);

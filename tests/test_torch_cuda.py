@@ -524,13 +524,98 @@ def test_backward_kernels_match_plain(device, case):
             assert fad.sweep_bwd_b.launches == n_b + 2
 
 
+def _raw_inputs(st, order, chash, cfg):
+    """The v2 raw-sum sweeps' sorted sweep-A fields (pos, cvel, vol, mass,
+    hash) of a state, the volume from the state's densities."""
+    pos, cvel, mass, dens = (st.pos[order], st.corrected_vel[order],
+                             st.mass[order], st.dens[order])
+    return (pos, cvel, fst._safe_div(mass, dens, dens > 0.0), mass,
+            chash[order])
+
+
+def _raw_b_inputs(a_in, dens, xsph, vm, cfg):
+    """The v2 sweep-B fields derived from sweep A's fields and sums, as
+    ablation/legacy_steps.py derives them."""
+    pos, cvel, _, mass, hash_s = a_in
+    vol = fst._safe_div(mass, dens, dens > 0.0)
+    pres = cfg.k_stiffness * (dens - cfg.stand_density)
+    return (pos, cvel + xsph * cfg.velocity_mixing, vol, pres, vm, hash_s)
+
+
+def _hash9_runs(st, cfg, sub_q, dynp):
+    """{label: (launch, plain(query rows), query matrix)} of the v3 hash9
+    sweeps K6 A / B (default, no_ep, dynp) and the v2 raw-sum sweeps K9 A /
+    B at `sub_q` on a state; sweep B's inputs come from the sweep-A kernels
+    (the plain versions would take minutes on 296k rows), and each launch
+    counts one launch."""
+    order, _, lo, hi, chash = sweep_bookkeeping2(st.pos, st.active, cfg,
+                                                 sub_q)
+    fs, fa = fst.build_qm_feats(st, chash, torch.zeros_like(chash), order)
+    runs = {}
+    for tag, kw in (("", {}), (" no_ep", {"with_ep": False}),
+                    (" dynp", {"dynp": dynp})):
+        ep, d = kw.get("with_ep", True), kw.get("dynp")
+        out_a = fst.sweep_a3_hash9(fs, fa, lo, hi, cfg, sub_q=sub_q, **kw)
+        fb = fst.feats_b(out_a)
+        runs[f"K6 A{tag}"] = (
+            lambda kw=kw: fst.sweep_a3_hash9(fs, fa, lo, hi, cfg,
+                                             sub_q=sub_q, **kw),
+            lambda q, ep=ep, d=d: fst.sweep_a3_plain(q, fa, cfg, ep, d,
+                                                     "hash9"), fs)
+        runs[f"K6 B{tag}"] = (
+            lambda kw=kw, o=out_a, f=fb: fst.sweep_b3_hash9(
+                o, f, lo, hi, cfg, sub_q=sub_q, **kw),
+            lambda q, ep=ep, d=d, f=fb: fst.sweep_b3_plain(q, f, cfg, ep, d,
+                                                           "hash9"), out_a)
+    a_in = _raw_inputs(st, order, chash, cfg)
+    qa, feats_a = tls._inputs_a(*a_in)
+    dens, xsph = tls.sweep_a2(*a_in, lo, hi, cfg, sub_q=sub_q)
+    b_in = _raw_b_inputs(a_in, dens, xsph, st.vm[order], cfg)
+    qb, feats_b = tls._inputs_b(*b_in)
+    cat = lambda *t: torch.cat([x.reshape(x.shape[0], -1)  # noqa: E731
+                                for x in t], dim=1)
+    runs["K9 A"] = (lambda: cat(*tls.sweep_a2(*a_in, lo, hi, cfg,
+                                              sub_q=sub_q)),
+                    lambda q: tls._plain_a2(q, feats_a, cfg), qa)
+    runs["K9 B"] = (lambda: cat(*tls.sweep_b2(*b_in, lo, hi, cfg,
+                                              sub_q=sub_q)),
+                    lambda q: tls._plain_b2(q, feats_b, cfg), qb)
+    return runs
+
+
+@pytest.mark.parametrize("case", ["blob", "sparse", "isolated",
+                                  "biceps_full"])
+def test_hash9_kernels_match_plain(device, case):
+    """The hash-walk sweeps (K6 A / B with and without EP and with dynp; K9
+    A / B) against their plain versions at every sub_q the wrappers accept
+    (on "sparse" the sub-blocks' nine windows overlap), two launches of
+    each bitwise equal, one launch counted per call."""
+    cfg, st, sub_qs = _redesign_state(device, case)
+    dynp = fst.build_dynp(T.resolve_params(cfg, {"k_stiffness": 0.8,
+                                                 "mu_viscosity": 40.0}),
+                          device)
+    counters = (fst.sweep_a3_hash9, fst.sweep_b3_hash9, tls.sweep_a2,
+                tls.sweep_b2)
+    for sub_q in sub_qs:
+        runs = _hash9_runs(st, cfg, sub_q, dynp)
+        before = [k.launches for k in counters]
+        for name, (launch, plain, qm) in runs.items():
+            got, again = launch(), launch()
+            torch.cuda.synchronize()
+            _check(got, plain(qm), f"{case} sub_q {sub_q} {name}")
+            assert torch.equal(got, again), (case, sub_q, name)
+        assert [k.launches - b for k, b in zip(counters, before)] == \
+            [6, 6, 2, 2]
+
+
 @pytest.mark.parametrize("replicate", [2, 4, 8, 16])
 def test_redesigned_kernels_every_slice_count(device, replicate):
-    """K1, K2, K3, K4 and K5 on biceps_full tiled 2, 4, 8 and 16 times (37k
-    to 296k particles), where the launch takes 8, 4, 2 and 2 warp slices a
-    row warp on the H100's 132 SMs (biceps_full itself takes 16): held to
-    their plain versions on 64 sampled warps of rows (K4 and K5 on seeded
-    random cotangents), and two launches of each bitwise equal."""
+    """K1-K5, K6 A / B (with and without EP and with dynp) and K9 A / B on
+    biceps_full tiled 2, 4, 8 and 16 times (37k to 296k particles), where
+    the launch takes 8, 4, 2 and 2 warp slices a row warp on the H100's 132
+    SMs (biceps_full itself takes 16): held to their plain versions on 64
+    sampled warps of rows (K4 and K5 on seeded random cotangents), and two
+    launches of each bitwise equal."""
     sc = T.build_scene("biceps_full", replicate=replicate, device=device)
     cfg, sq, n = sc.cfg, sc.sub_block, sc.state.capacity
     w = torch.linspace(0, n // 32 - 1, 64, device=device).long()
@@ -582,6 +667,15 @@ def test_redesigned_kernels_every_slice_count(device, replicate):
         torch.cuda.synchronize()
         _check(got[rows], torch.cat([plain(qm[r], feats, cfg)
                                      for r in rows.split(32)]),
+               f"x{replicate} {name}")
+        assert torch.equal(got, again), name
+    dynp = fst.build_dynp(T.resolve_params(cfg, {"k_stiffness": 0.8,
+                                                 "mu_viscosity": 40.0}),
+                          device)
+    for name, (launch, plain, qm) in _hash9_runs(st, cfg, sq, dynp).items():
+        got, again = launch(), launch()
+        torch.cuda.synchronize()
+        _check(got[rows], torch.cat([plain(qm[r]) for r in rows.split(32)]),
                f"x{replicate} {name}")
         assert torch.equal(got, again), name
 

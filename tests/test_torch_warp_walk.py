@@ -18,6 +18,14 @@ in numpy on the CPU.
   of their feature matrix, the transposed backward query matrix: over
   those columns of bwd_a_query / bwd_b_query the walk stages every pair
   of the plain backward sweeps' stencil exactly once.
+- The same walk under HashWindows (the v3 sweeps K6 and the v2 sweeps K9):
+  nine run windows a sub-block at stride 16 of the bounds, the linear
+  hash in row 12, each window first trimmed by binary search to the run
+  of hashes in [min qh + d_r - 1, max qh + d_r + 1] over the warp's live
+  rows. Every pair that the plain hash9 mask admits is staged exactly once,
+  by one slice, in the window whose offset admits it; fewer candidates are
+  staged than the windows hold; and the trim is exact because the hash is
+  nondecreasing inside every window and the windows hold live rows only.
 - for_each_warp_slab_candidate (the v5 slab sweeps): every (row, slot)
   pair of the plain slab mask is staged exactly once, at sub_q 16 (a
   warp's rows span two slabs), 32 and 64, and by the same slice whether
@@ -27,6 +35,8 @@ The kernels themselves are held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +44,9 @@ import torch
 import sph_sm_monodomain_tpu_torch as T
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
-from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
+from sph_sm_monodomain_tpu_torch.ops.sweeps import (RUN_OFFSETS,
+                                                    auto_sweep5_params,
+                                                    sweep_bookkeeping2,
                                                     sweep_bookkeeping3,
                                                     sweep_bookkeeping5)
 from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
@@ -201,6 +213,145 @@ def test_sweep_a_x_trim_drops_only_zero_weights(case):
     assert margin > 1.0 + 1e-4, margin
 
 
+def hash9_warp_walk(h, lo, hi, sub_q, gx, gy, slices):
+    """The v3 / v2 hash walk (for_each_warp_candidate under HashWindows),
+    step for step over sorted hashes h (N,) (negative on dead rows) and the
+    bounds lo / hi (B * 16,): for each row warp with a live row, (its live
+    rows, and for each staged candidate in staging order its row, window,
+    slice and window offset d_r)."""
+    n = h.shape[0]
+    offs = np.asarray([gx * (dy + gy * dz) for dy, dz in RUN_OFFSETS],
+                      np.float64)
+    for w0 in range(0, n, 32):
+        lv = np.arange(w0, w0 + 32)
+        lv = lv[h[lv] >= 0.0]
+        if lv.size == 0:
+            continue                 # a warp with no live row returns
+        b = w0 // sub_q              # sub_q % 32 == 0: one sub-block a warp
+        klo, khi = h[lv].min(), h[lv].max()
+        wlo = lo[16 * b:16 * b + 9]
+        whi = np.maximum(hi[16 * b:16 * b + 9], wlo)
+        # the trim: lane r's lower and lane 16 + r's upper binary search
+        a = np.asarray([wlo[r] + np.searchsorted(
+            h[wlo[r]:whi[r]], klo + offs[r] - 1.0, "left") for r in range(9)])
+        e = np.asarray([wlo[r] + np.searchsorted(
+            h[wlo[r]:whi[r]], khi + offs[r] + 1.0, "right")
+            for r in range(9)])
+        lens = e - a
+        total = int(lens.sum())
+        # the windows laid end to end; slice s takes [total*s // slices,
+        # total*(s+1) // slices)
+        j = np.concatenate([np.arange(a[r], e[r]) for r in range(9)])
+        win = np.repeat(np.arange(9), lens)
+        cuts = np.asarray([total * s // slices for s in range(slices + 1)])
+        sl = np.searchsorted(cuts, np.arange(total), "right") - 1
+        d = offs[win]
+        take = (h[j] >= klo + d - 1.0) & (h[j] <= khi + d + 1.0)
+        yield lv, j[take], win[take], sl[take], d[take]
+
+
+def staged_hash9_pairs(h, lo, hi, sub_q, gx, gy, slices):
+    """(int64 keys q * N + j of every (query row, candidate row) pair that a
+    live row of the hash walk pairs, in staging order; the window and the
+    slice each pair was staged in; the number of staged (warp, candidate)
+    slots)."""
+    n = h.shape[0]
+    keys, wins, sls, slots = [], [], [], 0
+    for lv, j, win, sl, d in hash9_warp_walk(h, lo, hi, sub_q, gx, gy,
+                                             slices):
+        slots += j.size
+        # every live row against every staged slot, in staging order
+        m = np.abs(h[lv][:, None] + d[None, :] - h[j][None, :]) <= 1.0
+        qi, ci = np.nonzero(m.T)
+        keys.append(lv[ci] * n + j[qi])
+        wins.append(win[qi])
+        sls.append(sl[qi])
+    if not keys:
+        return (np.zeros(0, np.int64),) * 3 + (slots,)
+    return (np.concatenate(keys), np.concatenate(wins), np.concatenate(sls),
+            slots)
+
+
+def _hash9_case(case, sub_q):
+    """(sorted hashes, blk_lo, blk_hi, gx, gy) of a case's v3 bookkeeping."""
+    cfg, st = _state(case)
+    if st.capacity % sub_q:
+        pytest.fail(f"capacity {st.capacity} is not a multiple of {sub_q}")
+    order, _, lo, hi, chash = sweep_bookkeeping2(st.pos, st.active, cfg,
+                                                 sub_q)
+    gx, gy, _ = cfg.grid_size
+    return (chash[order].numpy().astype(np.float64), lo.numpy(), hi.numpy(),
+            gx, gy)
+
+
+@functools.lru_cache(maxsize=None)
+def _hash9_mask_pairs(case):
+    """Sorted keys q * N + j of every pair that the plain versions' hash9
+    mask (fused_step._stencil_hash9, the mask of sweep_a3_plain(...,
+    stencil="hash9") and the v2 plain sums) admits, over the rows in
+    sorted order, 512 query rows at a time."""
+    cfg, st = _state(case)
+    order, _, _, _, chash = sweep_bookkeeping2(st.pos, st.active, cfg, 128)
+    gx, gy, _ = cfg.grid_size
+    fs = torch.zeros((chash.shape[0], 16))
+    fs[:, 12] = chash[order]
+    n, out = fs.shape[0], []
+    for s in range(0, n, 512):
+        qi, ci = torch.nonzero(fst._stencil_hash9(fs[s:s + 512], fs.T, gx,
+                                                  gy), as_tuple=True)
+        out.append((qi + s).numpy().astype(np.int64) * n + ci.numpy())
+    return np.sort(np.concatenate(out))
+
+
+@pytest.mark.parametrize("slices", [2, 4, 16])
+@pytest.mark.parametrize("case", ["biceps_full", "slice", "sparse",
+                                  "scattered"])
+@pytest.mark.parametrize("sub_q", [32, 128])
+def test_hash_walk_stages_every_admitted_pair_once(case, sub_q, slices):
+    h, lo, hi, gx, gy = _hash9_case(case, sub_q)
+    keys, wins, sls, slots = staged_hash9_pairs(h, lo, hi, sub_q, gx, gy,
+                                                slices)
+    n = h.shape[0]
+    want = _hash9_mask_pairs(case)
+    assert want.size > 0
+    got, counts = np.unique(keys, return_counts=True)
+    # every admitted pair staged exactly once (so by one slice), no other
+    assert np.array_equal(got, want)
+    assert (counts == 1).all()
+    # ... in the window whose offset admits it: the offsets differ by >=
+    # Gx > 2, so one window's offset passes |qh + d_r - ch| <= 1
+    q, j = keys // n, keys % n
+    offs = np.asarray([gx * (dy + gy * dz) for dy, dz in RUN_OFFSETS])
+    hit = np.abs(h[q][:, None] + offs[None, :] - h[j][:, None]) <= 1.0
+    assert (hit.sum(1) == 1).all() and (hit.argmax(1) == wins).all()
+    assert ((sls >= 0) & (sls < slices)).all()
+    # each warp stages at most its sub-block's window rows, and fewer where
+    # several warps share a sub-block (its windows span all their ranges)
+    windows = int(np.maximum(hi - lo, 0).sum()) * (sub_q // 32)
+    assert slots <= windows and (sub_q == 32 or slots < windows)
+
+
+@pytest.mark.parametrize("case", ["biceps_full", "slice", "sparse",
+                                  "scattered"])
+@pytest.mark.parametrize("sub_q", [32, 128])
+def test_hash_windows_hold_sorted_live_hashes(case, sub_q):
+    """What the walk's binary-search trim needs: inside every one of a
+    sub-block's nine windows the hash (feature row 12) is nondecreasing and
+    no row is dead (dead rows sort past every window), so the candidates a
+    warp can accept in a window form one run; the seven unused bound slots
+    of each 16 are empty."""
+    h, lo, hi, _, _ = _hash9_case(case, sub_q)
+    lo, hi = lo.reshape(-1, 16), hi.reshape(-1, 16)
+    assert (lo[:, 9:] == hi[:, 9:]).all()
+    held = 0
+    for b in range(lo.shape[0]):
+        for r in range(9):
+            w = h[lo[b, r]:hi[b, r]]
+            assert (w >= 0.0).all() and (np.diff(w) >= 0.0).all()
+            held += w.size
+    assert held > 0
+
+
 def staged_slab_pairs(qc, slab_c, count, sub_q, slices):
     """{(query row, slab, slot, slice): times staged} and the number of
     staged (warp, slot) entries of the v5 slab walk: qc (N, 3) sorted query
@@ -270,3 +421,31 @@ def test_slab_walk_stages_every_admitted_slot_once(case, sub_q, slices,
     assert len(got) == len(want) and all(v == 1 for v in got.values())
     warps_a_slab = max(sub_q // 32, 1)
     assert slots <= int(count.sum()) * warps_a_slab
+
+
+if __name__ == "__main__":
+    # Staged candidates per row warp of the hash walk (v3 / v2 sweeps) at
+    # sub_q 128, on biceps_full and on biceps_full x56, where a warp whose
+    # live rows span a hash range of a whole x-row (Gx cells) or more
+    # stages every candidate of that range:
+    #   PYTHONPATH=.:tests python tests/test_torch_warp_walk.py
+    for rep in (1, 56):
+        sc = T.build_scene("biceps_full", replicate=rep, device="cpu")
+        order, _, lo, hi, chash = sweep_bookkeeping2(
+            sc.state.pos, sc.state.active, sc.cfg, 128)
+        h = chash[order].numpy().astype(np.float64)
+        gx, gy, _ = sc.cfg.grid_size
+        staged, span = [], []
+        for lv, j, *_ in hash9_warp_walk(h, lo.numpy(), hi.numpy(), 128, gx,
+                                         gy, 2):
+            staged.append(j.size)
+            span.append(h[lv].max() - h[lv].min())
+        staged, span = np.asarray(staged), np.asarray(span)
+        wide = span >= gx
+        rows = int((hi - lo).clamp(min=0).sum()) / (lo.numel() // 16)
+        print(f"biceps_full x{rep} (Gx {gx}): {staged.size} row warps, "
+              f"staged a warp mean {staged.mean():.1f}, median "
+              f"{np.median(staged):.0f}, max {staged.max()}; window rows a "
+              f"sub-block {rows:.1f}; {int(wide.sum())} warps span >= Gx "
+              f"cells, staging {staged[wide].sum() / staged.sum():.4f} of "
+              "all")
