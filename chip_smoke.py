@@ -62,11 +62,12 @@ printing its lines; any failure raises and exits non-zero:
               biceps_full x56 (built in phase 7): prepare time, ms/step
               of 100 monodomain-only steps, peak memory, the Laplacian
               kernel's time and its bound from that scene's pairs; there
-              the Laplacian kernel (both forms), sweeps A and B and the
-              hash9 sweeps K6 A / B and K9 A / B, which launch fewer warp
-              slices than on biceps_full, against their plain versions on
-              sampled rows, two launches of each bitwise equal, the sweeps'
-              times; the Laplacian kernel's bound on biceps_full
+              the Laplacian kernel (both forms), sweeps A and B, the
+              hash9 sweeps K6 A / B and K9 A / B and the v1 run sweeps K8
+              A / B (on v1's bookkeeping of that state), which launch fewer
+              warp slices than on biceps_full, against their plain versions
+              on sampled rows, two launches of each bitwise equal, the
+              sweeps' times; the Laplacian kernel's bound on biceps_full
  16. v3/v5    the v3 (hash9) and v5 (slab) bookkeeping on the card equals
               the CPU's; the hash9 sweep A / B kernels and the v5 slab
               sweep A / B kernels against their plain versions on the
@@ -83,11 +84,11 @@ printing its lines; any failure raises and exits non-zero:
  20. v1/v2    the v1 run bookkeeping on the card equals the CPU's; the v1
               (K8) and v2 (K9) raw-sum sweep kernels against their plain
               versions on the biceps_full step-0 inputs the step gives them,
-              per column; two launches of each K9 sweep bitwise equal
+              per column; two launches of each bitwise equal
  21. v1/v2    run_protocol(500 steps, chunk 100) on build_scene(
               "biceps_full", fused_impl="v1") and ("v2"), exact launch counts
  22. v1/v2    6 slice steps, card against CPU, for v1 and for v2
- 23. timing   K8, K9 (and K9's torch.profiler device time) and their plain
+ 23. timing   K8, K9 (and their torch.profiler device time) and their plain
               versions; the roofline tool on
               biceps_full, whose FMA-chain probe (K10) measures the fp32
               peak; K10 against its plain version; v1 / v2 / v4 ms/step in
@@ -516,6 +517,32 @@ def hash9_sweeps(fs, fa, out_a, fb, lo, hi, cfg, sub_q):
             lambda q: tls._plain_b2(q, fb, cfg), out_a)}
 
 
+def v1_sweeps(state, cfg, sub_q):
+    """The v1 raw-sum sweeps A / B (K8) on a state's v1 bookkeeping, sweep
+    B on the v1 step's glue of the K8 A kernel's sums, {name: (launch,
+    plain(query rows), row indices)}: each query row brings its own runs,
+    so the plain versions are called on the rows' indices."""
+    order, _, qs, qe, _, _ = tls.sweep_bookkeeping(state.pos, state.active,
+                                                   cfg, sub_q)
+    pos, cvel, mass, dens, vm = (t[order] for t in (
+        state.pos, state.corrected_vel, state.mass, state.dens, state.vm))
+    qa, fa = tls._inputs_a(pos, cvel, fst._safe_div(mass, dens, dens > 0.0),
+                           mass)
+    sa = tls._run_sweep("sph_sweep_a1", qa, fa, qs, qe, cfg)
+    d_now = sa[:, 0]
+    qb, fb = tls._inputs_b(pos, cvel + sa[:, 1:4] * cfg.velocity_mixing,
+                           fst._safe_div(mass, d_now, d_now > 0.0),
+                           cfg.k_stiffness * (d_now - cfg.stand_density), vm)
+    idx = torch.arange(qa.shape[0], device=qa.device)
+    return {name: (
+        lambda k=kern, q=q, f=f: tls._run_sweep(k, q, f, qs, qe, cfg),
+        lambda r, p=plain, q=q, f=f: tls.plain_on_run_rows(
+            lambda *a: p(*a, cfg), q, f, qs, qe, r), idx)
+        for name, kern, plain, q, f in (
+            ("sweep_a", "sph_sweep_a1", tls._plain_a1, qa, fa),
+            ("sweep_b", "sph_sweep_b1", tls._plain_b1, qb, fb))}
+
+
 def check_protocol_run(state, aux, cfg, what):
     """A 500-step run_protocol's end: finite and in the world box, stim
     off, no overflow."""
@@ -578,8 +605,11 @@ def counted_protocol(sc, names, **kw):
 # the v1 / v2 generations' raw-sum sweeps (ablation/legacy_sweeps.py), and
 # how many leading arguments of a recorded call are fields: sweep A's pos,
 # cvel, vol, mass, sweep B's pos, ivel, vol, pres, vm, and v2's hash; the
-# two bounds arrays follow (v1: qstart, qend; v2: blk_lo, blk_hi)
+# two bounds arrays follow (v1: qstart, qend; v2: blk_lo, blk_hi); what
+# torch.profiler's kernel names hold
 RAW_SWEEPS = {"v1": ("sweep_a", "sweep_b"), "v2": ("sweep_a2", "sweep_b2")}
+RAW_KERNEL_NAMES = {"sweep_a": "sweep_a1", "sweep_b": "sweep_b1",
+                    "sweep_a2": "sweep_a2", "sweep_b2": "sweep_b2"}
 RAW_FIELDS = {"sweep_a": 4, "sweep_b": 5, "sweep_a2": 5, "sweep_b2": 6}
 
 
@@ -659,8 +689,7 @@ def phase_raw_kernels(dev, report):
             check_kernel(report, name, stack4(getattr(tls, name)(*args)),
                          stack4(getattr(tls, f"{name}_plain")(
                              *args[:nb], sc.cfg)))
-            if impl == "v2":
-                check_repeatable(name, raw_launchers(name, args)[0])
+            check_repeatable(name, raw_launchers(name, args)[0])
     return raw
 
 
@@ -693,14 +722,15 @@ def phase_raw_timing(dev, raw, scene, counts, times, bounds, launches,
     K10; K10 against its plain version; v1 / v2 / v4 ms/step; the bounds.
     Returns the numbers for the JSON line."""
     n_rows = scene.state.capacity
+    raw_device = {}
     for impl, (sc, calls) in raw.items():
         for name in RAW_SWEEPS[impl]:
             kern, plain = raw_launchers(name, calls[name])
             times[name] = (cuda_ms(kern, 200), cuda_ms(plain, 5))
-            dev_ms = (f", {device_ms(kern, 50, name):.4f} ms device "
-                      "(torch.profiler)" if impl == "v2" else "")
-            print(f"{name}: kernel {times[name][0]:.4f} ms{dev_ms}, plain "
-                  f"{times[name][1]:.4f} ms", flush=True)
+            raw_device[name] = device_ms(kern, 50, RAW_KERNEL_NAMES[name])
+            print(f"{name}: kernel {times[name][0]:.4f} ms, "
+                  f"{raw_device[name]:.4f} ms device (torch.profiler), "
+                  f"plain {times[name][1]:.4f} ms", flush=True)
 
     roofline.fma_chains.launches = 0
     torch.cuda.synchronize()
@@ -774,7 +804,7 @@ def phase_raw_timing(dev, raw, scene, counts, times, bounds, launches,
               raw.items()}
     print(f"candidates walked per query row (step 0): {walked}", flush=True)
     return {"raw_impl_ms_per_step": impl_ms, "roofline": roof,
-            "raw_walked_per_row": walked}
+            "raw_walked_per_row": walked, "raw_device_ms": raw_device}
 
 
 def main() -> int:
@@ -1285,8 +1315,9 @@ def main() -> int:
           f"max {float(bvm.max()):.6g}", flush=True)
     big_sweep_ms = check_big_kernels(big, btab, dev)
     big_sweep_ms.update(check_big_sweeps(
-        hash9_sweeps(*hash9_inputs(big.state, big.cfg, big.sub_block),
-                     big.cfg, big.sub_block),
+        {**hash9_sweeps(*hash9_inputs(big.state, big.cfg, big.sub_block),
+                        big.cfg, big.sub_block),
+         **v1_sweeps(big.state, big.cfg, big.sub_block)},
         sampled_rows(big.state.capacity, dev)))
     big_counts = roofline.pair_counts(qm_b, btab.blk_lo, btab.blk_hi,
                                       big.cfg, big.sub_block)
@@ -1528,7 +1559,7 @@ def main() -> int:
                       "sweep_b3_ms": big_sweep_ms["sweep_b3"],
                       **{f"{k}_ms": big_sweep_ms[k] for k in (
                           "sweep_a3_hash9", "sweep_b3_hash9", "sweep_a2",
-                          "sweep_b2")},
+                          "sweep_b2", "sweep_a", "sweep_b")},
                       "sweep_bwd_a_ms": big_bwd_ms["sweep_bwd_a"],
                       "sweep_bwd_b_ms": big_bwd_ms["sweep_bwd_b"],
                       "peak_gib": big_peak / 2**30}}), flush=True)

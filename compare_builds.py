@@ -14,17 +14,18 @@ directory with `git archive <commit> sph_sm_monodomain_tpu_torch/csrc | tar
      with and without dynp, on seeded random cotangents), the v3 hash9
      sweeps (K6 A and B, with and without EP and with dynp), the v5 slab
      sweeps (K7 A and B, with and without EP, over the trips and the whole
-     slab) and the v2 raw-sum sweeps (K9 A and B at sub_q 128 and 32, on
-     the inputs the v2 step gives them), to their plain versions per
-     column within 1e-5 * max(1, max|plain|), and two launches of each to
-     the same bits;
-  2. prints, for every kernel this csrc/ did not redesign (K1-K3, K7, K8
-     and K10), whether the two builds give the same bits, and fails where
-     they do not;
-  3. times K1-K5, K6 A / B, K7 A / B, K9 A / B (sub_q 128 and 32) and a
-     CSR SpMV of K3's operator in both builds in turns (other, this, this,
-     other), then K1, K3, K4, K5, K6 A / B and K9 A / B on biceps_full x56
-     the same way;
+     slab), the v2 raw-sum sweeps (K9 A and B at sub_q 128 and 32, on
+     the inputs the v2 step gives them) and the v1 run sweeps (K8 A and
+     B, on the inputs the v1 step gives them), to their plain versions
+     per column within 1e-5 * max(1, max|plain|), and two launches of each
+     to the same bits;
+  2. prints, for every kernel this csrc/ did not redesign (`REDESIGNED`:
+     K8 here, so K1-K7, K9 and K10), whether the two builds give the same
+     bits, and fails where they do not;
+  3. times K1-K5, K6 A / B, K7 A / B, K8 A / B, K9 A / B (sub_q 128 and
+     32) and a CSR SpMV of K3's operator in both builds in turns (other,
+     this, this, other), then K1, K3, K4, K5, K6 A / B, K8 A / B and K9 A
+     / B on biceps_full x56 the same way;
   4. with --slices, also builds this csrc/ with the warp-slice count of
      the sliced kernels fixed to each value, checks each against the plain
      versions, and times them in turns beside the build's own choice, on
@@ -64,29 +65,32 @@ OUT_DIR = cuda_lib.BUILD_DIR.parent / "compare"
 # the kernels timed in turns: (label, entry of the sliced kernels)
 TIMED = (("K1", "K1"), ("K2", "K2"), ("K3", "K3 forward"), ("K4", "K4"),
          ("K5", "K5"), ("K6 A", "K6 A"), ("K6 B", "K6 B"), ("K7 A", "K7 A"),
-         ("K7 B", "K7 B"), ("K9 A", "K9 A"), ("K9 B", "K9 B"),
+         ("K7 B", "K7 B"), ("K8 A", "K8 A"), ("K8 B", "K8 B"),
+         ("K9 A", "K9 A"), ("K9 B", "K9 B"),
          ("K9 A sub_q 32", "K9 A sub_q 32"),
          ("K9 B sub_q 32", "K9 B sub_q 32"))
 # what torch.profiler's kernel names hold, by kernel
 KERNEL_NAMES = {"K1": "sweep_a3_xyz3", "K2": "sweep_b3_xyz3",
                 "K3": "sweep_lap3", "K4": "sweep_bwd_a", "K5": "sweep_bwd_b",
                 "K6 A": "sweep_a3_hash9", "K6 B": "sweep_b3_hash9",
-                "K7 A": "sweep_a5", "K7 B": "sweep_b5", "K9 A": "sweep_a2",
+                "K7 A": "sweep_a5", "K7 B": "sweep_b5", "K8 A": "sweep_a1",
+                "K8 B": "sweep_b1", "K9 A": "sweep_a2",
                 "K9 B": "sweep_b2", "K9 A sub_q 32": "sweep_a2",
                 "K9 B sub_q 32": "sweep_b2"}
 # the kernels this csrc/ redesigned: they may differ from the other build
 # in the last bits; every other kernel must not
-REDESIGNED = ("K6", "K9")
-# chip_smoke.hash9_sweeps' kernels by label
-HASH9_LABELS = {"sweep_a3_hash9": "K6 A", "sweep_b3_hash9": "K6 B",
-                "sweep_a2": "K9 A", "sweep_b2": "K9 B"}
+REDESIGNED = ("K8",)
+# chip_smoke.hash9_sweeps' and v1_sweeps' kernels by label
+BIG_LABELS = {"sweep_a3_hash9": "K6 A", "sweep_b3_hash9": "K6 B",
+              "sweep_a2": "K9 A", "sweep_b2": "K9 B", "sweep_a": "K8 A",
+              "sweep_b": "K8 B"}
 # the line of warp_slices (csrc/sweep_common.cuh) that --slices overrides
 SLICES_FILE, SLICES_LINE = "sweep_common.cuh", "  int slices = 2;\n"
 
 
 def fixed_slices_csrc(k: int) -> Path:
-    """A copy of this csrc/ whose sliced launches (K1-K5, K7) take k warp
-    slices."""
+    """A copy of this csrc/ whose sliced launches (every kernel but K10)
+    take k warp slices."""
     d = OUT_DIR / f"slices{k}" / "csrc"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(cuda_lib.CSRC_DIR, d)
@@ -192,12 +196,16 @@ def main(argv=None) -> int:
     fb3 = fst.feats_b(oa3)
     sq3 = sc3.sub_block
     sc2 = T.build_scene("biceps_full", fused_impl="v2", device=dev)
-    raw9 = {}
+    raw = {}
     for sq9 in (sc2.sub_block, 32):
         calls = cs.raw_sweep_calls(sc2._replace(sub_block=sq9))
         tag = "" if sq9 == sc2.sub_block else f" sub_q {sq9}"
         for k, name in zip(("A", "B"), cs.RAW_SWEEPS["v2"]):
-            raw9[f"K9 {k}{tag}"] = cs.raw_launchers(name, calls[name])
+            raw[f"K9 {k}{tag}"] = cs.raw_launchers(name, calls[name])
+    calls = cs.raw_sweep_calls(T.build_scene("biceps_full", fused_impl="v1",
+                                             device=dev))
+    for k, name in zip(("A", "B"), cs.RAW_SWEEPS["v1"]):
+        raw[f"K8 {k}"] = cs.raw_launchers(name, calls[name])
     sliced = {
         **{f"K1{tag}": (lambda kw=kw: fst.sweep_a3(fs, fa, lo, hi, cfg,
                                                    sub_q=sq, **kw),
@@ -232,7 +240,7 @@ def main(argv=None) -> int:
                               oa3, fb3, cfg, kw.get("with_ep", True),
                               kw.get("dynp"), "hash9"))
            for tag, kw in forms.items()},
-        **raw9,
+        **raw,
         **{f"K7 A{tag}": (lambda kw=kw: fst.sweep_a5(fs5, pa5, trips5, cfg,
                                                      **kw5, **kw),
                           lambda kw=kw: fst.sweep_a5_plain(
@@ -264,10 +272,6 @@ def main(argv=None) -> int:
         "K10": lambda: roofline.fma_chains(x, 4096),
         **{name: kernel for name, (kernel, _) in sliced.items()
            if not name.startswith(REDESIGNED)}}
-    calls = cs.raw_sweep_calls(T.build_scene("biceps_full", fused_impl="v1",
-                                             device=dev))
-    for k, name in zip(("A", "B"), cs.RAW_SWEEPS["v1"]):
-        others[f"K8 {k}"] = cs.raw_launchers(name, calls[name])[0]
     identical = {}
     for name, fn in others.items():
         identical[name] = torch.equal(flat(run_on(libs["this"], fn)),
@@ -305,9 +309,10 @@ def main(argv=None) -> int:
         "K4": lambda: fad.sweep_bwd_a(qa_b, fqa_b, lo_b, hi_b, big.cfg, bsq),
         "K5": lambda: fad.sweep_bwd_b(qb_b, fqb_b, lo_b, hi_b, big.cfg,
                                       bsq),
-        **{HASH9_LABELS[name]: launch for name, (launch, _, _) in
-           cs.hash9_sweeps(*cs.hash9_inputs(big.state, big.cfg, bsq),
-                           big.cfg, bsq).items()}}
+        **{BIG_LABELS[name]: launch for name, (launch, _, _) in {
+            **cs.hash9_sweeps(*cs.hash9_inputs(big.state, big.cfg, bsq),
+                              big.cfg, bsq),
+            **cs.v1_sweeps(big.state, big.cfg, bsq)}.items()}}
     for kname, run in big_runs.items():
         ref = run_on(libs["this"], run)
         for label in args.slices:

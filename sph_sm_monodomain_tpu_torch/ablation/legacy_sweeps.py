@@ -240,6 +240,34 @@ def _run_sums(qm, feats, qstart, qend, terms) -> torch.Tensor:
     return torch.cat(out)
 
 
+def plain_on_run_rows(plain, qm, feats, qstart, qend, rows) -> torch.Tensor:
+    """plain(qm, feats, qstart, qend) (`_plain_a1` / `_plain_b1`) of the
+    query rows `rows` only, for a cloud whose dense plain sums over every
+    row would take minutes. `_run_sums` pairs query rows with the
+    candidates of the same index range, so this takes the candidates of
+    the rows' runs, renumbered in order (each run stays one range), pads
+    the queries with empty runs and the candidates with zero columns to
+    as many rows, and keeps the first len(rows) sums."""
+    s, e = qstart[rows, :9], qend[rows, :9]
+    runs = [torch.arange(a, b, device=qm.device)
+            for a, b in zip(s.flatten().tolist(), e.flatten().tolist())
+            if b > a]
+    cand = (torch.unique(torch.cat(runs)) if runs
+            else torch.zeros(0, dtype=torch.int64, device=qm.device))
+    m, c = rows.numel(), max(cand.numel(), rows.numel())
+    ne = e > s
+    bounds = [torch.zeros((c, 16), dtype=torch.int32, device=qm.device)
+              for _ in range(2)]
+    for b, t in zip(bounds, (s, e)):
+        b[:m, :9] = torch.where(ne, torch.searchsorted(cand, t.long()),
+                                0).to(torch.int32)
+    q = qm.new_zeros((c, 16))
+    q[:m] = qm[rows]
+    f = feats.new_zeros((16, c))
+    f[:, :cand.numel()] = feats[:, cand]
+    return plain(q, f, *bounds)[:m]
+
+
 def _hash9_sums(qm, feats, cfg: SimConfig, terms) -> torch.Tensor:
     """(N, 4) pair sums of every query row over every candidate under v3's
     hash9 stencil."""

@@ -16,17 +16,19 @@
 // lap]. The step's glue (ablation/legacy_steps.py) runs the pointwise phases
 // in PyTorch.
 //
-// K8 design. One thread per sorted query row walks its own nine exact runs
+// K8 design. K9's blocks and slices (2 to 16 warps per 32 sorted query
+// rows, from warp_slices; the slices' raw sums added in slice order by
+// add_slices) on the run walk (sweep_common.cuh
+// for_each_warp_run_candidate): each sorted row brings its nine exact runs
 // [qstart[i, r], qend[i, r]) (sweep_bookkeeping: the x-neighbour cells of
-// one (dy, dz) row of its 27-cell stencil) straight from the (16, N) feature
-// matrix in global memory: 1.2 MB at biceps_full, so it sits in the 50 MB L2.
-// The runs are exact, so there is no shared-memory tile and no cell mask,
-// and a dead query has empty runs. The TPU kernel walks each sub-block's
-// 128-aligned block windows and masks every candidate by the query's runs;
-// the block windows are supersets of their queries' runs, so walking the
-// runs computes the same function, and the kernel does not read them. The
-// 32 sorted rows of a warp mostly share a cell and so its runs: their loads
-// broadcast; lanes diverge where their runs differ in length.
+// one (dy, dz) row of its 27-cell stencil), and window r of a warp is the
+// union of its rows' nonempty runs r, cut at the widest gap between them
+// (the warp whose rows span two x-rows skips the x-row between). No binary
+// search and no hash: each staged slot carries its candidate's row index,
+// and each row masks it by its own run. The TPU kernel walks each
+// sub-block's 128-aligned block windows and masks every candidate by the
+// query's runs; the block windows are supersets of the runs, so walking
+// the runs computes the same function, and the kernel does not read them.
 //
 // K9 design. K6's (sweep_common.cuh for_each_warp_candidate under
 // HashWindows): blocks of `Slices` warps (2 to 16, from warp_slices) per
@@ -48,16 +50,19 @@
 // layout of the MXU output contraction (_dotT), and it loses about |x|/|dx|
 // of relative precision; this card runs fp32 without tensor cores.
 //
-// What bounds K8 on the H100: not memory (the features and run bounds are a
-// few MB and stay in L2) but instruction issue at low occupancy: 18,560
-// rows make 580 warps, about 4.4 per SM, each thread a serial loop over the
-// ~554 candidates in its runs. K9's bound, like K6's, is the pair
-// arithmetic. Measured (H100 80GB HBM3, 700 W, torch.profiler device time,
-// compare_builds.py, on the inputs the v2 step gives it; the first form,
-// one block of sub_q threads a sub-block with two block barriers a staged
-// tile, in brackets): biceps_full A 0.037 ms [0.261], B 0.055 ms [0.300]
-// at sub_q 128, the same [0.220, 0.252] at sub_q 32; x56 (2 slices, on
-// K6's matrices) A 3.60 ms [3.71], B 3.27 ms [4.30].
+// What bounds K8 and K9 on the H100, like K6: the pair arithmetic and the
+// warp's staging, not memory (the features and run bounds are a few MB and
+// stay in the 50 MB L2). The run walk stages 816 candidates a row warp on
+// biceps_full, of which a row pairs with 68% (554 pairs a row), and on x56
+// at most 8,933 (the union uncut: 100,572); the first form, one thread a
+// row looping over its own runs in 580 warps, ran at 1.7% / 1.9% of the
+// operation bound. Measured (H100 80GB HBM3, 700 W, torch.profiler device
+// time, compare_builds.py, on the inputs the v1 / v2 step gives them; the
+// first forms in brackets): K8 biceps_full A 0.045 ms [0.118], B 0.075 ms
+// [0.359], 4.4% / 9.3% of the bound; x56 (2 slices) A 1.09 ms [1.09], B
+// 2.38 ms [2.58]. K9 biceps_full A 0.037 ms [0.261], B 0.055 ms [0.300] at
+// sub_q 128, the same [0.220, 0.252] at sub_q 32; x56 (2 slices, on K6's
+// matrices) A 3.60 ms [3.71], B 3.27 ms [4.30].
 
 #include "sweep_common.cuh"
 
@@ -65,10 +70,9 @@ namespace {
 
 using namespace sph;
 
-constexpr int kRunThreads = 32;  // K8 rows per block: 580 blocks at 18,560
-
 // v1 sweep B's pair sums (legacy_sweeps.py:239-272), reading rows 0-8 of
-// candidate k of the (16, T) feature matrix.
+// candidate k of a row-major feature block of width T (a staged slot: T =
+// 1, k = 0).
 struct PairSumsB1 {
   float qx, qy, qz, qivx, qivy, qivz, qp, qvm, h, inv_h, spiky_c, bs_c, mu;
   float a_ax = 0.0f, a_ay = 0.0f, a_az = 0.0f, a_lap = 0.0f;
@@ -106,52 +110,56 @@ struct PairSumsB1 {
   }
 };
 
-// Walk the nine exact runs of sorted query row `row`, calling pair.add on
-// the (16, n) features for each candidate row.
-template <class Pair>
-__device__ __forceinline__ void walk_runs(Pair& pair, const float* feats,
-                                          const int* qstart, const int* qend,
-                                          size_t row, int n) {
-  for (int r = 0; r < 9; ++r) {
-    const int lo = qstart[row * 16 + r], hi = qend[row * 16 + r];
-    for (int j = lo; j < hi; ++j) pair.add(feats, n, j);
-  }
+// v1 sweep A (replaces _sweep_a_kernel): Poly6 density + XSPH over the
+// runs, on the run walk.
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_a1_kernel(const float* __restrict__ qm,
+                    const float* __restrict__ feats,
+                    const int* __restrict__ qstart,
+                    const int* __restrict__ qend,
+                    const float* __restrict__ prm, float* __restrict__ out,
+                    int n) {
+  constexpr int V = (WordsHashA::count + 1) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
+  const bool in = row < (size_t)n;
+  PairSumsA s(qm + (in ? row : 0) * 16, prm);
+  for_each_warp_run_candidate(WordsHashA{}, stage[w], feats, qstart, qend, n,
+                              row, w, Slices,
+                              [&](const float* c) { s.add(c, 1, 0); });
+  float acc[4] = {s.a_d, s.a_x, s.a_y, s.a_z};
+  if (!add_slices(stage, acc) || !in) return;
+  float* o = out + row * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = acc[k];
 }
 
-// v1 sweep A (replaces _sweep_a_kernel): Poly6 density + XSPH over the runs.
-__global__ void sweep_a1_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ qstart,
-                                const int* __restrict__ qend,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n) {
-  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= (size_t)n) return;
-  PairSumsA s(qm + row * 16, prm);
-  walk_runs(s, feats, qstart, qend, row, n);
+// v1 sweep B (replaces _sweep_b_kernel): forces + Vm Laplacian over the
+// runs, on the run walk.
+template <int Slices>
+__global__ void __launch_bounds__(32 * Slices)
+    sweep_b1_kernel(const float* __restrict__ qm,
+                    const float* __restrict__ feats,
+                    const int* __restrict__ qstart,
+                    const int* __restrict__ qend,
+                    const float* __restrict__ prm, float* __restrict__ out,
+                    int n) {
+  constexpr int V = (WordsHashB::count + 1) / 4;
+  __shared__ float4 stage[Slices][32 * V];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t row = (size_t)blockIdx.x * 32 + lane;
+  const bool in = row < (size_t)n;
+  PairSumsB1 s(qm + (in ? row : 0) * 16, prm);
+  for_each_warp_run_candidate(WordsHashB{}, stage[w], feats, qstart, qend, n,
+                              row, w, Slices,
+                              [&](const float* c) { s.add(c, 1, 0); });
+  float acc[4] = {s.a_ax, s.a_ay, s.a_az, s.a_lap};
+  if (!add_slices(stage, acc) || !in) return;
   float* o = out + row * 4;
-  o[0] = s.a_d;
-  o[1] = s.a_x;
-  o[2] = s.a_y;
-  o[3] = s.a_z;
-}
-
-// v1 sweep B (replaces _sweep_b_kernel): forces + Vm Laplacian over the runs.
-__global__ void sweep_b1_kernel(const float* __restrict__ qm,
-                                const float* __restrict__ feats,
-                                const int* __restrict__ qstart,
-                                const int* __restrict__ qend,
-                                const float* __restrict__ prm,
-                                float* __restrict__ out, int n) {
-  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= (size_t)n) return;
-  PairSumsB1 s(qm + row * 16, prm);
-  walk_runs(s, feats, qstart, qend, row, n);
-  float* o = out + row * 4;
-  o[0] = s.a_ax;
-  o[1] = s.a_ay;
-  o[2] = s.a_az;
-  o[3] = s.a_lap;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = acc[k];
 }
 
 // v2 sweep A (replaces _sweep_a2_kernel): K6's run windows, hash mask and
@@ -208,6 +216,22 @@ __global__ void __launch_bounds__(32 * Slices)
 }
 
 template <int Slices>
+struct LaunchA1 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_a1_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
+struct LaunchB1 {
+  template <class... Args>
+  static void run(dim3 grid, cudaStream_t st, Args... args) {
+    sweep_b1_kernel<Slices><<<grid, 32 * Slices, 0, st>>>(args...);
+  }
+};
+
+template <int Slices>
 struct LaunchA2 {
   template <class... Args>
   static void run(dim3 grid, cudaStream_t st, Args... args) {
@@ -223,8 +247,6 @@ struct LaunchB2 {
   }
 };
 
-int run_blocks(int n) { return (n + kRunThreads - 1) / kRunThreads; }
-
 }  // namespace
 
 extern "C" {
@@ -232,17 +254,15 @@ extern "C" {
 int sph_sweep_a1(const float* qm, const float* feats, const int* qstart,
                  const int* qend, const float* prm, float* out, int n,
                  void* stream) {
-  sweep_a1_kernel<<<run_blocks(n), kRunThreads, 0, (cudaStream_t)stream>>>(
-      qm, feats, qstart, qend, prm, out, n);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchA1>(n, stream, qm, feats, qstart, qend, prm, out,
+                                 n);
 }
 
 int sph_sweep_b1(const float* qm, const float* feats, const int* qstart,
                  const int* qend, const float* prm, float* out, int n,
                  void* stream) {
-  sweep_b1_kernel<<<run_blocks(n), kRunThreads, 0, (cudaStream_t)stream>>>(
-      qm, feats, qstart, qend, prm, out, n);
-  return (int)cudaGetLastError();
+  return launch_sliced<LaunchB1>(n, stream, qm, feats, qstart, qend, prm, out,
+                                 n);
 }
 
 int sph_sweep_a2(const float* qm, const float* feats, const int* blk_lo,

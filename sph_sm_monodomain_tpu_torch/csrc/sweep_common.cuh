@@ -2,18 +2,20 @@
 // sweep A / sweep B in their v4, v3 and v5 forms and the Laplacian sweep;
 // fused_adjoint.cu: the backward sweeps of v4's A and B; legacy_sweeps.cu:
 // the v1 / v2 raw-sum sweeps): the slots of the physics-constant vector, the
-// pair sums of sweep A and sweep B, the two warp walks with their exact
+// pair sums of sweep A and sweep B, the three warp walks with their exact
 // masks, the slices' ordered sum, and the warp-slice picker and launcher.
 //
-// Every sweep but v1's runs blocks of `Slices` warps per 32 consecutive
-// sorted query rows (lane = row). Each warp walks its slice of the rows'
-// candidates, stages only those that some live row of the warp can accept
-// into its own shared-memory slots (a ballot per 32-candidate pass, no
-// barrier but __syncwarp), and every live row applies the exact mask to
-// each staged slot and calls the kernel's pair function; then the slices'
-// partial sums are added in slice order through shared memory.
+// Every sweep runs blocks of `Slices` warps per 32 consecutive sorted
+// query rows (lane = row). Each warp walks its slice of the rows'
+// candidates, stages those that some row of the warp may accept into its
+// own shared-memory slots (no barrier but __syncwarp), and every live row
+// applies the exact mask to each staged slot and calls the kernel's pair
+// function; then the slices' partial sums are added in slice order through
+// shared memory. Three walks:
 //   for_each_warp_candidate, over a sub-block's windows of the (16, N)
-//     feature matrix laid end to end, in one of two geometries:
+//     feature matrix laid end to end, in one of two geometries, staging
+//     the candidates inside the warp's key ranges (a ballot per
+//     32-candidate pass):
 //     CellWindows (v4: sweeps A and B, the Laplacian sweep, the backward
 //       sweeps): three slow-plane windows, mask |qcyz + (r-1)*G_mid -
 //       ccyz| <= 1 and |qcx - ccx| <= 1;
@@ -21,6 +23,9 @@
 //       mask |qh + d_r - ch| <= 1 on the linear cell hash, d_r = Gx*(dy +
 //       Gy*dz), each window first trimmed to the run inside the warp's hash
 //       range.
+//   for_each_warp_run_candidate (v1, sweeps A and B): the union of the
+//     rows' own nine exact runs, cut at its widest gap, every candidate
+//     staged with its row index, mask qstart[i, r] <= j < qend[i, r].
 //   for_each_warp_slab_candidate (v5, sweeps A and B): the first `count`
 //     slots of the rows' own packed (16, kb) slabs, mask |dcf|, |dcm|,
 //     |dcs| <= 1 on the per-axis cell coordinates.
@@ -47,8 +52,8 @@ enum Slot {
 constexpr float kPairEps = 1e-12f;  // INF guard, SPH_SM_monodomain.h:24
 
 // The feature rows a warp walk stages for each candidate, in slot order,
-// before the cell key(s) the walk appends itself; a row of -1 stages a
-// zero pad.
+// before the cell key(s) or row index the walk appends itself; a row of -1
+// stages a zero pad.
 template <int... R>
 struct Rows {
   static constexpr int count = sizeof...(R);
@@ -157,9 +162,9 @@ struct HashWindows {
   }
 };
 
-// Staged words of the hash walk's sweeps (v3 K6, v2 K9; before the hash):
-// sweep A pos3 | cvel3 | vol_prev | mass | 0 0 0, sweep B pos3 | ivel3 | vol
-// | pres | vm | 0 0
+// Staged words of the hash and run walks' sweeps (v3 K6, v2 K9, v1 K8;
+// before the hash or the row index): sweep A pos3 | cvel3 | vol_prev | mass
+// | 0 0 0, sweep B pos3 | ivel3 | vol | pres | vm | 0 0
 using WordsHashA = Rows<0, 1, 2, 3, 4, 5, 6, 7, -1, -1, -1>;
 using WordsHashB = Rows<0, 1, 2, 3, 4, 5, 6, 7, 8, -1, -1>;
 
@@ -299,6 +304,109 @@ __device__ __forceinline__ void for_each_warp_candidate(
         if (!qlive) continue;
         if (!(fabsf(qd - c[W - 1]) <= 1.0f)) continue;
         if (Geom::kAxis && !(fabsf(qcx - c[W - 2]) <= 1.0f)) continue;
+        pair(c);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The run walk of the v1 sweeps (K8). The calling block holds `slices`
+// warps that serve the same 32 consecutive sorted query rows (lane = row;
+// a row at or past n takes no part); row i brings its nine exact runs
+// [qstart[i, r], qend[i, r]) of sorted candidate rows (sweep_bookkeeping,
+// bound stride 16). Window r of the warp is the union [min qstart, max
+// qend) of its rows' nonempty runs r (an empty run, of a dead row or of a
+// (dy, dz) row outside the grid, sits at row 0, not at the row's place),
+// cut in two at the widest gap between a nonempty run's end and the next
+// nonempty run's start (in lane order) where no run crosses the cut: the
+// warp whose rows span two x-rows then walks neither the x-row between.
+// Lane k (< 18) holds piece k = 2r + {0, 1}; the pieces are laid end to
+// end and warp `slice` walks the slice-th of `slices` equal parts. Each
+// pass stages the words of up to 32 consecutive candidates and their row
+// index (an int in a float's bits, last) into the warp's own `stage` with
+// no barrier but __syncwarp, and every row applies its own exact mask
+// qstart[i, r] <= j < qend[i, r] to each staged slot and calls pair(slot)
+// in window order. A warp with no nonempty run returns at once.
+template <class Words, class Pair>
+__device__ __forceinline__ void for_each_warp_run_candidate(
+    Words words, float4* stage, const float* feats, const int* qstart,
+    const int* qend, int n, size_t row, int slice, int slices,
+    Pair&& pair) {
+  constexpr int W = Words::count + 1;
+  static_assert(W % 4 == 0, "a slot is a whole number of float4");
+  constexpr int V = W / 4;
+  const int lane = threadIdx.x & 31;
+  const bool in = row < (size_t)n;
+  const int* qs = qstart + (in ? row : 0) * 16;
+  const int* qe = qend + (in ? row : 0) * 16;
+  const unsigned above = lane == 31 ? 0u : kFullMask << (lane + 1);
+  int plo = 0, phi = 0;
+  for (int r = 0; r < 9; ++r) {
+    const int s = in ? qs[r] : 0, e = in ? qe[r] : 0;
+    const bool ne = e > s;
+    const unsigned live = __ballot_sync(kFullMask, ne);
+    if (!live) continue;
+    const int lo = __reduce_min_sync(kFullMask, ne ? s : 0x7fffffff);
+    const int hi = __reduce_max_sync(kFullMask, ne ? e : 0);
+    const int next = __ffs(live & above) - 1;
+    const int s_next = __shfl_sync(kFullMask, s, next < 0 ? lane : next);
+    const int gap = ne && next >= 0 ? s_next - e : 0;
+    const int g = __reduce_max_sync(kFullMask, gap);
+    int a = hi, b = hi;
+    if (g > 0) {
+      const int at = __ffs(__ballot_sync(kFullMask, gap == g)) - 1;
+      a = __shfl_sync(kFullMask, e, at);
+      b = a + g;
+      if (__any_sync(kFullMask, ne && s < b && e > a)) a = b = hi;
+    }
+    if (lane == 2 * r) {
+      plo = lo;
+      phi = a;
+    } else if (lane == 2 * r + 1) {
+      plo = b;
+      phi = hi;
+    }
+  }
+  const int total = __reduce_add_sync(kFullMask, phi - plo);
+  if (total == 0) return;  // no nonempty run in this warp
+  const int s0 = (int)((long long)total * slice / slices);
+  const int s1 = (int)((long long)total * (slice + 1) / slices);
+  int off = 0;
+  for (int k = 0; k < 18 && off < s1; ++k) {
+    const int lo = __shfl_sync(kFullMask, plo, k);
+    const int len = __shfl_sync(kFullMask, phi, k) - lo;
+    const int a = lo + max(s0 - off, 0);
+    const int e = lo + min(s1 - off, len);
+    off += len;
+    if (a >= e) continue;
+    const int ms = in ? qs[k >> 1] : 0, me = in ? qe[k >> 1] : 0;
+    for (int base = a; base < e; base += 32) {
+      const int j = base + lane;
+      if (j < e) {
+        float v[W];
+        load_slot(words, v, feats, n, j);
+        v[W - 1] = __int_as_float(j);
+        float4* st = stage + lane * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          st[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                              v[4 * i + 3]);
+      }
+      __syncwarp();
+      const int cnt = min(e - base, 32);
+      for (int t = 0; t < cnt; ++t) {
+        const int jj = __float_as_int(stage[t * V + V - 1].w);
+        if (jj < ms || jj >= me) continue;
+        float c[W];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float4 x = stage[t * V + i];
+          c[4 * i] = x.x;
+          c[4 * i + 1] = x.y;
+          c[4 * i + 2] = x.z;
+          c[4 * i + 3] = x.w;
+        }
         pair(c);
       }
       __syncwarp();

@@ -608,10 +608,34 @@ def test_hash9_kernels_match_plain(device, case):
             [6, 6, 2, 2]
 
 
+def _v1_runs(st, cfg, sub_q):
+    """{label: (launch, plain(query rows))} of the v1 run sweeps K8 A / B on
+    a state's v1 bookkeeping; sweep B's inputs come from the sweep-A kernel,
+    and each plain call takes only its rows' candidates
+    (legacy_sweeps.plain_on_run_rows)."""
+    order, _, qs, qe, bs, bl = tls.sweep_bookkeeping(st.pos, st.active, cfg,
+                                                     sub_q)
+    a_in = _raw_inputs(st, order, torch.zeros_like(st.mass), cfg)[:4]
+    qa, feats_a = tls._inputs_a(*a_in)
+    dens, xsph = tls.sweep_a(*a_in, qs, qe, bs, bl, cfg)
+    b_in = _raw_b_inputs((*a_in, None), dens, xsph, st.vm[order], cfg)[:5]
+    qb, feats_b = tls._inputs_b(*b_in)
+    cat = lambda *t: torch.cat([x.reshape(x.shape[0], -1)  # noqa: E731
+                                for x in t], dim=1)
+
+    def plain(fn, qm, feats):
+        return lambda r: tls.plain_on_run_rows(lambda *a: fn(*a, cfg), qm,
+                                               feats, qs, qe, r)
+    return {"K8 A": (lambda: cat(*tls.sweep_a(*a_in, qs, qe, bs, bl, cfg)),
+                     plain(tls._plain_a1, qa, feats_a)),
+            "K8 B": (lambda: cat(*tls.sweep_b(*b_in, qs, qe, bs, bl, cfg)),
+                     plain(tls._plain_b1, qb, feats_b))}
+
+
 @pytest.mark.parametrize("replicate", [2, 4, 8, 16])
 def test_redesigned_kernels_every_slice_count(device, replicate):
-    """K1-K5, K6 A / B (with and without EP and with dynp) and K9 A / B on
-    biceps_full tiled 2, 4, 8 and 16 times (37k to 296k particles), where
+    """K1-K5, K6 A / B (with and without EP and with dynp), K8 A / B and K9
+    A / B on biceps_full tiled 2, 4, 8 and 16 times (37k to 296k particles), where
     the launch takes 8, 4, 2 and 2 warp slices a row warp on the H100's 132
     SMs (biceps_full itself takes 16): held to their plain versions on 64
     sampled warps of rows (K4 and K5 on seeded random cotangents), and two
@@ -678,6 +702,12 @@ def test_redesigned_kernels_every_slice_count(device, replicate):
         _check(got[rows], torch.cat([plain(qm[r]) for r in rows.split(32)]),
                f"x{replicate} {name}")
         assert torch.equal(got, again), name
+    for name, (launch, plain) in _v1_runs(st, cfg, sq).items():
+        got, again = launch(), launch()
+        torch.cuda.synchronize()
+        _check(got[rows], torch.cat([plain(r) for r in rows.split(32)]),
+               f"x{replicate} {name}")
+        assert torch.equal(got, again), name
 
 
 def test_lap_vm_grad_on_card_matches_cpu(device):
@@ -713,13 +743,17 @@ def test_lap_vm_grad_on_card_matches_cpu(device):
 
 
 @pytest.mark.parametrize("case", ["v1", "v1_sub_q32", "v2", "v2_sub_q128"])
-def test_v1_v2_kernels_match_plain(device, case):
-    """The v1 (per-query runs) and v2 (hash9 windows) raw-sum sweep kernels
-    against their plain versions on a blob with padding rows, sweep B on
-    inputs derived from the plain sweep A, each launched once."""
+@pytest.mark.parametrize("state", ["blob", "sparse", "isolated",
+                                   "biceps_full"])
+def test_v1_v2_kernels_match_plain(device, state, case):
+    """The v1 (per-query runs: K8) and v2 (hash9 windows: K9) raw-sum sweep
+    kernels against their plain versions on the states of _redesign_state
+    (a blob with padding rows, two far clusters, scattered particles,
+    biceps_full), sweep B on inputs derived from the plain sweep A; two
+    launches of each bitwise equal, each launch counted."""
     impl = case[:2]
     sub_q = {"v1": 128, "v1_sub_q32": 32, "v2": 32, "v2_sub_q128": 128}[case]
-    cfg, st = _blob(device)
+    cfg, st, _ = _redesign_state(device, state)
     if impl == "v1":
         order, _, qs, qe, bs, bl = tls.sweep_bookkeeping(st.pos, st.active,
                                                          cfg, sub_q)
@@ -739,8 +773,10 @@ def test_v1_v2_kernels_match_plain(device, case):
     a_in = (pos, cvel, vol, mass, *extra)
     want_a = plains[0](*a_in, *pbounds, cfg)
     got_a = kernels[0](*a_in, *kbounds, cfg, sub_q=sub_q)
+    again_a = kernels[0](*a_in, *kbounds, cfg, sub_q=sub_q)
     cat = lambda d, x: torch.cat([d[:, None], x], dim=1)  # noqa: E731
-    _check(cat(*got_a), cat(*want_a), f"{case} A")
+    _check(cat(*got_a), cat(*want_a), f"{state} {case} A")
+    assert torch.equal(cat(*got_a), cat(*again_a)), (state, case)
     d_now, xsph = want_a
     g = fst._safe_div(mass, d_now, d_now > 0.0)
     pres = cfg.k_stiffness * (d_now - cfg.stand_density)
@@ -748,10 +784,12 @@ def test_v1_v2_kernels_match_plain(device, case):
             st.vm[order], *extra)
     want_b = plains[1](*b_in, *pbounds, cfg)
     got_b = kernels[1](*b_in, *kbounds, cfg, sub_q=sub_q)
+    again_b = kernels[1](*b_in, *kbounds, cfg, sub_q=sub_q)
     torch.cuda.synchronize()
     cat_b = lambda x, lap: torch.cat([x, lap[:, None]], dim=1)  # noqa: E731
-    _check(cat_b(*got_b), cat_b(*want_b), f"{case} B")
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1]
+    _check(cat_b(*got_b), cat_b(*want_b), f"{state} {case} B")
+    assert torch.equal(cat_b(*got_b), cat_b(*again_b)), (state, case)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2]
 
 
 @pytest.mark.parametrize("impl", ["v1", "v2"])

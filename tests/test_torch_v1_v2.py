@@ -291,3 +291,36 @@ def test_v2_equals_v4_on_cpu():
     got, want = T.state_to_numpy(st["v2"]), T.state_to_numpy(st["v4"])
     for name in ("pos", "vel", "vm", "dens", "pres", "iion", "w"):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["slice", "sparse"])
+def test_plain_on_run_rows_matches_the_plain_sums(case):
+    """legacy_sweeps.plain_on_run_rows, which the card checks use where the
+    dense plain sums over every row would take minutes, gives the plain v1
+    sums (_plain_a1 / _plain_b1 over all rows) of the rows it is given, in
+    groups of 32 with dead and padding rows among them, up to the order of
+    summation: within F64_TOL * max(1, max |column|)."""
+    jcfg, js = named_state(case)
+    cfg, st = torch_cfg(jcfg), to_torch_state(js)
+    order, _, qs, qe, _, _ = tls.sweep_bookkeeping(st.pos, st.active, cfg,
+                                                   128)
+    pos, cvel, mass, dens, vm = (t[order] for t in (
+        st.pos, st.corrected_vel, st.mass, st.dens, st.vm))
+    ok = dens > 0.0
+    vol = torch.where(ok, mass / torch.where(ok, dens, 1.0), 0.0)
+    qa, fa = tls._inputs_a(pos, cvel, vol, mass)
+    sums_a = tls._plain_a1(qa, fa, qs, qe, cfg)
+    qb, fb = tls._inputs_b(pos, cvel, vol, cfg.k_stiffness
+                           * (sums_a[:, 0] - cfg.stand_density), vm)
+    n = qa.shape[0]
+    rows = torch.cat([torch.arange(32), torch.arange(n - 64, n)])
+    assert not bool(st.active[order][rows].all())
+    for plain, qm, feats in ((tls._plain_a1, qa, fa),
+                             (tls._plain_b1, qb, fb)):
+        want = plain(qm, feats, qs, qe, cfg)[rows]
+        got = torch.cat([tls.plain_on_run_rows(
+            lambda *a, p=plain: p(*a, cfg), qm, feats, qs, qe, r)
+            for r in rows.split(32)])
+        scale = torch.clamp(want.abs().amax(dim=0), min=1.0)
+        assert bool(((got - want).abs().amax(dim=0)
+                     <= F64_TOL * scale).all()), plain.__name__

@@ -26,6 +26,14 @@ in numpy on the CPU.
   by one slice, in the window whose offset admits it; fewer candidates are
   staged than the windows hold; and the trim is exact because the hash is
   nondecreasing inside every window and the windows hold live rows only.
+- for_each_warp_run_candidate (the v1 sweeps K8): window r of a row warp
+  is the union of its rows' nonempty runs r, cut at the widest gap
+  between them where no run crosses. Every (row, j) pair of the plain v1
+  mask (legacy_sweeps._run_sums) is staged exactly once, by one slice, in
+  the window of the run that holds it, and a warp stages no more slots
+  than the union of its rows' nonempty runs holds. Planted faults each
+  fail it: an empty run (at row 0) counted into the union, a window's
+  last row dropped, a slice end one row too far.
 - for_each_warp_slab_candidate (the v5 slab sweeps): every (row, slot)
   pair of the plain slab mask is staged exactly once, at sub_q 16 (a
   warp's rows span two slabs), 32 and 64, and by the same slice whether
@@ -42,6 +50,7 @@ import pytest
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.ablation import legacy_sweeps as tls
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
 from sph_sm_monodomain_tpu_torch.ops.sweeps import (RUN_OFFSETS,
@@ -352,6 +361,131 @@ def test_hash_windows_hold_sorted_live_hashes(case, sub_q):
     assert held > 0
 
 
+def run_warp_walk(qstart, qend, slices):
+    """The v1 run walk (for_each_warp_run_candidate), step for step over
+    sweep_bookkeeping's run bounds qstart / qend (N, 16): for each row warp
+    with a nonempty run, (its rows, and for each staged candidate in
+    staging order its row, run r and slice). Window r is the union of the
+    rows' nonempty runs r (an empty run sits at row 0, not at the row's
+    place), cut in two at the widest gap between a nonempty run's end and
+    the next nonempty run's start (in lane order), where no run crosses
+    the cut; the 18 pieces are laid end to end and sliced."""
+    n = qstart.shape[0]
+    for w0 in range(0, n, 32):
+        rows = np.arange(w0, min(w0 + 32, n))
+        pieces = []
+        for r in range(9):
+            s, e = qstart[rows, r], qend[rows, r]
+            ne = e > s
+            if not ne.any():
+                pieces += [(0, 0), (0, 0)]
+                continue
+            lo, hi = s[ne].min(), e[ne].max()
+            idx = np.nonzero(ne)[0]
+            gap = s[idx[1:]] - e[idx[:-1]]
+            cut = None
+            if gap.size and gap.max() > 0:
+                i = int(np.argmax(gap))         # the lowest lane at the max
+                a, b = e[idx[i]], s[idx[i + 1]]
+                if not (ne & (s < b) & (e > a)).any():
+                    cut = (a, b)
+            pieces += ([(lo, cut[0]), (cut[1], hi)] if cut
+                       else [(lo, hi), (hi, hi)])
+        total = sum(b - a for a, b in pieces)
+        if total == 0:
+            continue                 # a warp with no nonempty run returns
+        j, win, sl = [], [], []
+        for s in range(slices):      # warp s of the block
+            s0, s1 = total * s // slices, total * (s + 1) // slices
+            off = 0
+            for k, (lo, hi) in enumerate(pieces):
+                if off >= s1:
+                    break
+                a, e = lo + max(s0 - off, 0), lo + min(s1 - off, hi - lo)
+                off += hi - lo
+                j.append(np.arange(a, e))
+                win.append(np.full(max(e - a, 0), k // 2))
+                sl.append(np.full(max(e - a, 0), s))
+        yield rows, np.concatenate(j), np.concatenate(win), np.concatenate(sl)
+
+
+def staged_run_pairs(qstart, qend, slices):
+    """(int64 keys q * N + j of every (query row, candidate row) pair that a
+    row of the run walk pairs under its own exact mask qstart[q, r] <= j <
+    qend[q, r], in staging order; the run and the slice each pair was
+    staged in; the staged slots of each row warp; the union [min qstart,
+    max qend) of each warp's nonempty runs, summed over r)."""
+    n = qstart.shape[0]
+    keys, wins, sls, slots, unions = [], [], [], [], []
+    for rows, j, win, sl in run_warp_walk(qstart, qend, slices):
+        slots.append(j.size)
+        s, e = qstart[rows, :9], qend[rows, :9]
+        ne = e > s
+        unions.append(sum(int(e[ne[:, r], r].max() - s[ne[:, r], r].min())
+                          for r in range(9) if ne[:, r].any()))
+        m = (s[:, win] <= j[None, :]) & (j[None, :] < e[:, win])
+        qi, ci = np.nonzero(m.T)
+        keys.append(rows[ci] * n + j[qi])
+        wins.append(win[qi])
+        sls.append(sl[qi])
+    return (np.concatenate(keys), np.concatenate(wins), np.concatenate(sls),
+            np.asarray(slots), np.asarray(unions))
+
+
+def _run_case(case):
+    """sweep_bookkeeping's (qstart, qend) of a case, as numpy."""
+    cfg, st = _state(case)
+    _, _, qs, qe, _, _ = tls.sweep_bookkeeping(st.pos, st.active, cfg, 128)
+    return qs.numpy(), qe.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _run_mask_pairs(case):
+    """Sorted keys q * N + j of every pair that the plain v1 sweeps' mask
+    admits (the (rows, N) mask that legacy_sweeps._run_sums hands its pair
+    terms), and the run r that holds each."""
+    qs, qe = (torch.from_numpy(a) for a in _run_case(case))
+    n = qs.shape[0]
+    seen = []
+
+    def terms(q, c, m):
+        seen.append(torch.nonzero(m).numpy())
+        return torch.zeros((q.shape[0], 4))
+
+    tls._run_sums(torch.zeros((n, 16)), torch.zeros((16, n)), qs, qe, terms)
+    # _run_sums walks the query rows in chunks of equal size
+    chunk = fst._rows_per_chunk(9 * n, torch.device("cpu"))
+    qi = np.concatenate([s[:, 0] + k * chunk for k, s in enumerate(seen)])
+    ji = np.concatenate([s[:, 1] for s in seen])
+    key = qi.astype(np.int64) * n + ji
+    hit = ((qs[qi, :9].numpy() <= ji[:, None])
+           & (ji[:, None] < qe[qi, :9].numpy()))
+    assert (hit.sum(1) == 1).all()   # the runs of a row are disjoint
+    o = np.argsort(key)
+    return key[o], hit.argmax(1)[o]
+
+
+@pytest.mark.parametrize("slices", [2, 4, 16])
+@pytest.mark.parametrize("case", ["biceps_full", "slice", "sparse",
+                                  "scattered"])
+def test_run_walk_stages_every_run_pair_once(case, slices):
+    """Every (row, j) pair of the plain v1 mask is staged exactly once, by
+    one slice, in window r, the run that holds it; no other pair is; and
+    a warp stages no more slots than the union of its rows' nonempty runs
+    holds."""
+    qs, qe = _run_case(case)
+    keys, wins, sls, slots, unions = staged_run_pairs(qs, qe, slices)
+    want, want_r = _run_mask_pairs(case)
+    assert want.size > 0
+    got, first, counts = np.unique(keys, return_index=True,
+                                   return_counts=True)
+    assert np.array_equal(got, want)
+    assert (counts == 1).all()
+    assert np.array_equal(wins[first], want_r)
+    assert ((sls >= 0) & (sls < slices)).all()
+    assert (slots <= unions).all()
+
+
 def staged_slab_pairs(qc, slab_c, count, sub_q, slices):
     """{(query row, slab, slot, slice): times staged} and the number of
     staged (warp, slot) entries of the v5 slab walk: qc (N, 3) sorted query
@@ -425,9 +559,10 @@ def test_slab_walk_stages_every_admitted_slot_once(case, sub_q, slices,
 
 if __name__ == "__main__":
     # Staged candidates per row warp of the hash walk (v3 / v2 sweeps) at
-    # sub_q 128, on biceps_full and on biceps_full x56, where a warp whose
-    # live rows span a hash range of a whole x-row (Gx cells) or more
-    # stages every candidate of that range:
+    # sub_q 128 and of the run walk (v1 sweeps), on biceps_full and on
+    # biceps_full x56, where a hash warp whose live rows span a hash range
+    # of a whole x-row (Gx cells) or more stages every candidate of that
+    # range, and a run warp's union of runs would too but for its cut:
     #   PYTHONPATH=.:tests python tests/test_torch_warp_walk.py
     for rep in (1, 56):
         sc = T.build_scene("biceps_full", replicate=rep, device="cpu")
@@ -443,9 +578,28 @@ if __name__ == "__main__":
         staged, span = np.asarray(staged), np.asarray(span)
         wide = span >= gx
         rows = int((hi - lo).clamp(min=0).sum()) / (lo.numel() // 16)
-        print(f"biceps_full x{rep} (Gx {gx}): {staged.size} row warps, "
-              f"staged a warp mean {staged.mean():.1f}, median "
+        print(f"biceps_full x{rep} (Gx {gx}): hash walk: {staged.size} row "
+              f"warps, staged a warp mean {staged.mean():.1f}, median "
               f"{np.median(staged):.0f}, max {staged.max()}; window rows a "
               f"sub-block {rows:.1f}; {int(wide.sum())} warps span >= Gx "
               f"cells, staging {staged[wide].sum() / staged.sum():.4f} of "
               "all")
+        _, _, qs, qe, _, _ = tls.sweep_bookkeeping(
+            sc.state.pos, sc.state.active, sc.cfg, 128)
+        qs, qe = qs.numpy(), qe.numpy()
+        staged, union = [], []
+        for rws, j, *_ in run_warp_walk(qs, qe, 2):
+            staged.append(j.size)
+            s, e = qs[rws, :9], qe[rws, :9]
+            ne = e > s
+            union.append(sum(int(e[ne[:, r], r].max() - s[ne[:, r], r].min())
+                             for r in range(9) if ne[:, r].any()))
+        staged, union = np.asarray(staged), np.asarray(union)
+        pairs = int(np.clip(qe[:, :9] - qs[:, :9], 0, None).sum())
+        live = int(sc.state.active.sum())
+        print(f"biceps_full x{rep}: run walk: {staged.size} row warps, "
+              f"staged a warp mean {staged.mean():.1f}, median "
+              f"{np.median(staged):.0f}, max {staged.max()} (the union of "
+              f"the runs uncut: mean {union.mean():.1f}, max {union.max()});"
+              f" {pairs / live:.1f} pairs a live row, "
+              f"{pairs / staged.sum() / 32:.4f} of the staged slots a row")
