@@ -9,9 +9,11 @@ of its v3, v5, v2 and v1 generations through theirs; the
 flagship (K, mu) material fit through the differentiable step, whose
 backward pass runs the two hand-written backward sweep kernels; the
 frozen-cloud monodomain mode on the hand-written Laplacian kernel, forward
-and backward; the SPH-only, SM-only and unfused modes; and the roofline
-tool, whose FMA-chain probe measures the card's fp32 peak. Phases, each
-printing its lines; any failure raises and exits non-zero:
+and backward; the SPH-only, SM-only and unfused modes; the roofline
+tool, whose FMA-chain probe measures the card's fp32 peak; the coupled and
+SM-only steps on the multi-muscle scenes biceps_full x7 and x56 (one
+shape-matching cluster a muscle); and the contraction and fit demos.
+Phases, each printing its lines; any failure raises and exits non-zero:
 
   1. device   needs torch.cuda; prints the card's name and power limit
   2. build    nvcc builds csrc/*.cu, one process per source (timed, with
@@ -93,6 +95,30 @@ printing its lines; any failure raises and exits non-zero:
               biceps_full, whose FMA-chain probe (K10) measures the fp32
               peak; K10 against its plain version; v1 / v2 / v4 ms/step in
               this call; the bounds
+ 24. multi    the coupled v4 step on build_scene("biceps_full",
+              replicate=7) (129,325 particles, the blocked shape-matching
+              form) and replicate=56 (1,034,600, the contig form): cluster
+              ids on the card equal row // tile rows, the form taken,
+              run_protocol (3 and 100 steps) with exact K1 / K2 launch
+              counts, the goals' distance from float64 with every tile
+              deformed alike (tools/sm_precision.py, against the fp32 sums
+              about the world origin of the JAX package), K1 / K2 on the
+              inputs the run ends on against their plain versions (sampled
+              rows, two launches bitwise equal) and their times (CUDA
+              events); the independent-run oracle: after 3 steps tile 0 of
+              x7 and x56 within 2e-4 of an x1 run, and every tile (minus
+              its x offset) within 2e-4 of tile 0
+ 25. small    susane x2: 6 coupled and 6 SM-only steps, card against CPU
+ 26. sm-only  SM-only on x56, 100 steps, finite fields
+ 27. timing   ms/step of coupled x7, coupled x56 and SM-only x56 (best of
+              3 calls ending in a host fetch), peak memory, and the CUDA
+              launches per step of the coupled step: equal on x7 and x56
+              in one form, no more on x56 than on x7; project_positions
+              per call on x7 and x56 in each of the blocked, contig and
+              one-hot forms (wall and device ms)
+ 28. demos    contraction_demo (biceps_18475, 40 steps, 20 frames),
+              fit_stimulus_demo 4 3 (< 1% off) and fit_material_demo 6 100
+              (< 20% off)
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -104,6 +130,7 @@ import json
 import sys
 import time
 import warnings
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -112,13 +139,17 @@ import torch
 import sph_sm_monodomain_tpu_torch as T
 from sph_sm_monodomain_tpu_torch.ablation import legacy_steps
 from sph_sm_monodomain_tpu_torch.ablation import legacy_sweeps as tls
+from sph_sm_monodomain_tpu_torch.examples import contraction_demo
 from sph_sm_monodomain_tpu_torch.examples import fit_fhn_fused_demo as fhn
+from sph_sm_monodomain_tpu_torch.examples import fit_material_demo
 from sph_sm_monodomain_tpu_torch.examples import fit_material_flagship as fit
+from sph_sm_monodomain_tpu_torch.examples import fit_stimulus_demo
 from sph_sm_monodomain_tpu_torch.models import monodomain
 from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import cuda_lib
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
 from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
+from sph_sm_monodomain_tpu_torch.ops import shape_matching as tsm
 from sph_sm_monodomain_tpu_torch.ops.grid import (auto_cell_capacity,
                                                   auto_window_capacity)
 from sph_sm_monodomain_tpu_torch.ops.shape_matching import (
@@ -127,7 +158,7 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping2,
                                                     sweep_bookkeeping3,
                                                     sweep_bookkeeping5)
-from sph_sm_monodomain_tpu_torch.tools import roofline
+from sph_sm_monodomain_tpu_torch.tools import roofline, sm_precision
 from sph_sm_monodomain_tpu_torch.tools.roofline import (PEAK_BYTES,
                                                         PEAK_FLOPS)
 from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
@@ -209,6 +240,26 @@ IMPL_TIMING_STEPS = 100
 FMA_CMP_ITERS = 4096
 # steps the roofline tool times on biceps_full
 ROOFLINE_STEPS = 50
+# the multi-muscle scale-up (sm_clusters > 1): replicate count, the
+# clustered shape-matching form it takes, run_protocol steps
+MULTI = ((7, "blocked", 3), (REPLICATE, "contig", 100))
+# the independent-run oracle (tests/test_sm_clusters.py:1-8): steps and
+# the position bound (tests/test_sm_clusters.py:66-70) of tile 0 against
+# the x1 run and of every tile against tile 0
+ORACLE_STEPS, ORACLE_TOL = 3, 2e-4
+# the clustered goals' largest distance from a float64 evaluation, every
+# tile deformed alike (tools/sm_precision.py; 6.2e-6 on the CPU at x56,
+# where fp32 sums about the world origin reach 1.5e-3)
+SM_PRECISION_TOL = 1e-4
+# card vs CPU on a small replicate; SM-only steps on x56; steps of the
+# timed calls; the contraction demo's steps
+SMALL_REPLICATE, SMALL_STEPS, SM_BIG_STEPS = 2, 6, 100
+MULTI_TIMING_STEPS, CONTRACTION_STEPS = 20, 40
+# project_positions calls a timing of one clustered form averages over
+FORM_CALLS = 20
+# torch.profiler's names of the host calls that launch a kernel
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 
 
 def phase(msg: str) -> None:
@@ -440,18 +491,18 @@ def check_big_kernels(big, btab, dev) -> dict:
     return check_big_sweeps(sweeps, rows)
 
 
-def check_big_sweeps(sweeps, rows) -> dict:
-    """Each of {name: (launch, plain, qm)} on the replicated scene: launch()
-    held to plain(query rows of qm) on `rows`, two launches bitwise equal,
-    and timed. Returns {name: ms}."""
+def check_big_sweeps(sweeps, rows, label=f"x{REPLICATE}") -> dict:
+    """Each of {name: (launch, plain, qm)} on the replicated scene `label`:
+    launch() held to plain(query rows of qm) on `rows`, two launches
+    bitwise equal, and timed. Returns {name: ms}."""
     scratch, times = {}, {}
     for name, (launch, plain, qm) in sweeps.items():
-        check_kernel(scratch, f"{name} (x{REPLICATE}, {rows.numel()} "
+        check_kernel(scratch, f"{name} ({label}, {rows.numel()} "
                      "sampled rows)", launch()[rows],
                      plain_on_rows(plain, qm, rows))
-        check_repeatable(f"{name} (x{REPLICATE})", launch)
+        check_repeatable(f"{name} ({label})", launch)
         times[name] = cuda_ms(launch, 20)
-        print(f"{name} on x{REPLICATE}: kernel {times[name]:.4f} ms",
+        print(f"{name} on {label}: kernel {times[name]:.4f} ms",
               flush=True)
     return times
 
@@ -805,6 +856,302 @@ def phase_raw_timing(dev, raw, scene, counts, times, bounds, launches,
     print(f"candidates walked per query row (step 0): {walked}", flush=True)
     return {"raw_impl_ms_per_step": impl_ms, "roofline": roof,
             "raw_walked_per_row": walked, "raw_device_ms": raw_device}
+
+
+# --- phases 24-28: the multi-muscle scale-up (sm_clusters > 1) and the demos
+
+def check_fields_finite(state, cfg, what: str) -> None:
+    """Every float field finite on the live rows, positions in the world."""
+    check_in_world(state, cfg, what)
+    act = state.active
+    for name, x in T.state_to_numpy(state).items():
+        if x.dtype.kind == "f" and not np.isfinite(x[act.cpu().numpy()]).all():
+            raise AssertionError(f"{what}: non-finite {name}")
+
+
+def check_cluster_ids(sc, label: str) -> None:
+    """On the card, cluster_ids puts live row i in tile i // sm_tile_rows
+    (tile k's first rows sit exactly on x = k * tile_w); a Python-scalar
+    divisor, which CUDA turns into a multiply by its reciprocal, is
+    printed beside it for the rows it would misplace."""
+    st, cfg = sc.state, sc.cfg
+    k, r = cfg.sm_clusters, cfg.sm_tile_rows
+    live = st.active
+    want = torch.arange(st.capacity, device=live.device) // r
+    cid = tsm.cluster_ids(st.orig_pos, cfg)
+    recip = torch.clamp(torch.floor(st.orig_pos[:, 0]
+                                    / (cfg.world_size[0] / k)), 0, k - 1)
+    bad = int((cid[live] != want[live]).sum())
+    moved = int((recip.long()[live] != want[live]).sum())
+    print(f"{label}: cluster_ids == row // {r} on the {int(live.sum())} live "
+          f"rows: {bad == 0} ({bad} differ); a Python-scalar divisor would "
+          f"misplace {moved}", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: cluster_ids misplace {bad} rows")
+
+
+def tile_offsets(k: int, dev) -> torch.Tensor:
+    """(k, 1, 3) x offsets of the tiles, as scene_positions adds them."""
+    x = torch.arange(k, device=dev, dtype=torch.float32) \
+        * torch.tensor(np.float32(1.5), device=dev)
+    return torch.stack([x, torch.zeros_like(x), torch.zeros_like(x)],
+                       dim=1)[:, None, :]
+
+
+def phase_multi_muscle(dev, scene, scenes) -> dict:
+    """Phase 24: the coupled v4 step on the replicated scenes {k: scene}
+    of MULTI (biceps_full x7, blocked form, and x56, contig form): cluster
+    ids, the form, run_protocol with exact K1 / K2 launch counts, K1 / K2
+    on the inputs the run ends on against their plain versions (sampled
+    rows) with their times, and the independent-run oracle against the x1
+    run `scene`."""
+    out = {}
+    for k, form, steps in MULTI:
+        sc, label = scenes[k], f"x{k}"
+        check_cluster_ids(sc, label)
+        inv = sm_invariants(sc.state, sc.cfg)
+        got = tsm._segment_form(inv, sc.cfg, sc.state.capacity)
+        print(f"{label}: clustered shape matching takes the {got} form "
+              f"(want {form})", flush=True)
+        if got != form:
+            raise AssertionError(f"{label}: form {got}, want {form}")
+        st, aux, _, launches, calls, wall = counted_protocol(
+            sc, ("sweep_a3", "sweep_b3"), num_steps=steps, chunk=CHUNK)
+        run = sum(n for _, n in calls)
+        print(f"{label}: run_protocol({steps} steps) in {wall:.3f} s wall, "
+              f"{run} run (simulate calls {calls}), launches {launches}",
+              flush=True)
+        if launches != {"sweep_a3": run, "sweep_b3": run} or run != steps:
+            raise AssertionError(f"{label}: launches {launches} for {run} "
+                                 f"steps run, want {steps}")
+        check_fields_finite(st, sc.cfg, f"{label} run_protocol")
+        prec = sm_precision.goal_errors(sc)
+        print(f"{label}: goals of every tile deformed alike, largest "
+              f"distance from float64: the port's {max(prec['port']):.4g} "
+              f"(bound {SM_PRECISION_TOL:g}), fp32 sums about the world "
+              f"origin {max(prec['origin']):.4g}; per tile "
+              f"{[float(f'{v:.3g}') for v in prec['port']]} against "
+              f"{[float(f'{v:.3g}') for v in prec['origin']]}", flush=True)
+        if not max(prec["port"]) <= SM_PRECISION_TOL:
+            raise AssertionError(f"{label}: clustered goals off float64")
+        if int(aux.overflow) != 0:
+            raise AssertionError(f"{label}: overflow {int(aux.overflow)}")
+        fs, fa, lo, hi = step0_inputs(sc._replace(state=st), dev)
+        sq = sc.sub_block
+        out_a = fst.sweep_a3(fs, fa, lo, hi, sc.cfg, sub_q=sq)
+        fb = fst.feats_b(out_a)
+        sweeps = {"sweep_a3": (lambda: fst.sweep_a3(fs, fa, lo, hi, sc.cfg,
+                                                    sub_q=sq),
+                               lambda q: fst.sweep_a3_plain(q, fa, sc.cfg),
+                               fs),
+                  "sweep_b3": (lambda: fst.sweep_b3(out_a, fb, lo, hi,
+                                                    sc.cfg, sub_q=sq),
+                               lambda q: fst.sweep_b3_plain(q, fb, sc.cfg),
+                               out_a)}
+        # CUDA events over 20 launches: torch.profiler drops events of
+        # these kernels (it read K2 on x7 at 0 ms)
+        ev = check_big_sweeps(sweeps, sampled_rows(sc.state.capacity, dev),
+                              label=f"{label} coupled, step {steps}")
+        out[label] = {"particles": sc.num_particles, "form": got,
+                      "steps": steps, "wall_s": wall, "launches": launches,
+                      "events_ms": ev,
+                      "goal_err_port": max(prec["port"]),
+                      "goal_err_origin_sums": max(prec["origin"])}
+
+    ref = T.simulate(scene.state, scene.cfg, num_steps=ORACLE_STEPS)[0]
+    r = scene.num_particles
+    ref_pos = ref.pos[:r]
+    oracle = {}
+    for k, sc in scenes.items():
+        st = T.simulate(sc.state, sc.cfg, num_steps=ORACLE_STEPS)[0]
+        tiles = st.pos[:k * r].reshape(k, r, 3) - tile_offsets(k, dev)
+        d_ref = (tiles - ref_pos).abs().amax(dim=(1, 2)).tolist()
+        d_t0 = (tiles - tiles[0]).abs().amax(dim=(1, 2)).tolist()
+        print(f"x{k}: after {ORACLE_STEPS} steps tile 0 lies {d_ref[0]:.4g} "
+              f"from the x1 run, every tile at most {max(d_t0):.4g} from "
+              f"tile 0 (bound {ORACLE_TOL:g} each); per tile, from tile 0 "
+              f"{[round(v, 7) for v in d_t0]}, from the x1 run "
+              f"{[round(v, 7) for v in d_ref]}", flush=True)
+        if not (d_ref[0] <= ORACLE_TOL and max(d_t0) <= ORACLE_TOL):
+            raise AssertionError(f"x{k}: tiles diverge from the x1 run")
+        oracle[f"x{k}"] = {"tile0_vs_x1": d_ref[0], "tiles_vs_x1": d_ref,
+                           "tiles_vs_tile0": d_t0}
+    return {"runs": out, "oracle": oracle}
+
+
+def phase_small_replicate(dev) -> None:
+    """Phase 25: susane x2 (two clusters, blocked form), 6 coupled and 6
+    SM-only steps on the card against the port on the CPU."""
+    small = T.build_scene("susane", replicate=SMALL_REPLICATE, device=dev)
+    slice_card_vs_cpu(small, f"susane x{SMALL_REPLICATE} coupled")
+    got = variants.simulate_sm_only(small.state, small.cfg, SMALL_STEPS)[0]
+    want = variants.simulate_sm_only(small.state.to("cpu"), small.cfg,
+                                     SMALL_STEPS)[0]
+    a = want.active
+    for name in ("pos", "vel"):
+        err = float((getattr(got, name).cpu()[a]
+                     - getattr(want, name)[a]).abs().max())
+        print(f"susane x{SMALL_REPLICATE} SM-only {name}: max abs diff "
+              f"{err:.3g} (tolerance {SLICE_TOLS[name]:g})", flush=True)
+        if not err <= SLICE_TOLS[name]:
+            raise AssertionError(f"SM-only {name}: card vs CPU diverged")
+
+
+def phase_sm_only_big(big) -> dict:
+    """Phase 26: SM-only on x56, finite fields."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, aux = variants.simulate_sm_only(big.state, big.cfg, SM_BIG_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_fields_finite(st, big.cfg, f"SM-only x{REPLICATE}")
+    d = st.displacement()[st.active]
+    print(f"SM-only x{REPLICATE}: {SM_BIG_STEPS} steps in {wall:.3f} s wall, "
+          f"mean displacement {float(d.mean()):.6g} (max "
+          f"{float(d.max()):.6g})", flush=True)
+    return {"steps": SM_BIG_STEPS, "wall_s": wall}
+
+
+def best_ms_per_step(run, steps: int, reps: int = 3) -> float:
+    """Best wall ms per step of `reps` calls run(steps), each ending in a
+    host fetch of its result, after a one-step warm-up."""
+    run(1)
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run(steps)[0]
+        float(st.pos[0, 0])
+        best = min(best, time.perf_counter() - t0)
+    return best / steps * 1e3
+
+
+def launches_per_step(run) -> dict:
+    """Per step of run(steps): the device operations torch.profiler records
+    (kernels, and the memsets a library runs) and the kernel launch calls
+    the host makes (the difference of a 4- and a 2-step call, so the
+    per-call set-up drops out)."""
+    kinds = {}
+    for steps in (2, 4):
+        run(steps)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run(steps)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        kinds[steps] = (
+            sum(e.count for e in ev
+                if e.device_type == torch.autograd.DeviceType.CUDA),
+            sum(e.count for e in ev if e.key in LAUNCH_CALLS))
+    return {"kernels": (kinds[4][0] - kinds[2][0]) / 2,
+            "launch_calls": (kinds[4][1] - kinds[2][1]) / 2}
+
+
+def form_times(sc, label: str) -> dict:
+    """project_positions per call on the replicated scene `sc` in each of
+    the three clustered forms, forced (blocked: _BLOCKED_MAX_LANES raised
+    past f*K; contig: lowered to 0; one-hot: also sm_tile_rows = 0): wall
+    ms (best of 3 x FORM_CALLS calls ending in a sync) and device ms
+    (torch.profiler)."""
+    out = {}
+    for form, lanes, tile_r in (("blocked", 1 << 30, sc.cfg.sm_tile_rows),
+                                ("contig", 0, sc.cfg.sm_tile_rows),
+                                ("onehot", 0, 0)):
+        cfg = sc.cfg.replace(sm_tile_rows=tile_r)
+        with mock.patch.object(tsm, "_BLOCKED_MAX_LANES", lanes):
+            inv = sm_invariants(sc.state, cfg)
+            got = tsm._segment_form(inv, cfg, sc.state.capacity)
+            if got != form:
+                raise AssertionError(f"{label}: forced {form}, took {got}")
+
+            def call():
+                return tsm.project_positions(sc.state, cfg, inv)
+            call()
+            wall = float("inf")
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(FORM_CALLS):
+                    call()
+                torch.cuda.synchronize()
+                wall = min(wall, time.perf_counter() - t0)
+            dev_ms = device_ms(call, FORM_CALLS)
+        out[form] = {"wall_ms": wall / FORM_CALLS * 1e3, "device_ms": dev_ms}
+        del inv
+    print(f"{label}: project_positions per call, by clustered form: "
+          + ", ".join(f"{f} {v['wall_ms']:.4f} ms wall / {v['device_ms']:.4f}"
+                      f" ms device" for f, v in out.items()), flush=True)
+    return out
+
+
+def phase_multi_timing(dev, big, x7) -> dict:
+    """Phase 27: ms/step of coupled x7, coupled x56 and SM-only x56 (best
+    of 3 calls ending in a host fetch), their peak memory, and the CUDA
+    launches per step of the coupled step: equal on x7 and x56 in the
+    contig form (x7 forced into it), and no more on x56 than on x7 in its
+    own blocked form."""
+    runs = {
+        "coupled_x7": lambda k: T.simulate(x7.state, x7.cfg, k),
+        f"coupled_x{REPLICATE}": lambda k: T.simulate(big.state, big.cfg, k),
+        f"sm_only_x{REPLICATE}": lambda k: variants.simulate_sm_only(
+            big.state, big.cfg, k)}
+    out = {}
+    for name, run in runs.items():
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = best_ms_per_step(run, MULTI_TIMING_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        out[name] = {"ms_per_step": ms, "peak_gib": peak / 2**30,
+                     "above_held_gib": (peak - base) / 2**30}
+        print(f"{name}: {ms:.4f} ms/step (best of 3 x {MULTI_TIMING_STEPS} "
+              f"steps), max_memory_allocated {peak / 2**30:.4f} GiB "
+              f"({(peak - base) / 2**30:.4f} GiB above the "
+              f"{base / 2**30:.4f} GiB held before)", flush=True)
+    counts = {"x7": launches_per_step(runs["coupled_x7"]),
+              f"x{REPLICATE}": launches_per_step(
+                  runs[f"coupled_x{REPLICATE}"])}
+    with mock.patch.object(tsm, "_BLOCKED_MAX_LANES", 0):
+        counts["x7 contig"] = launches_per_step(runs["coupled_x7"])
+    print(f"coupled step, CUDA kernels run and kernel launch calls per "
+          f"step: {counts}", flush=True)
+    calls = {name: c["launch_calls"] for name, c in counts.items()}
+    if not (calls["x7 contig"] == calls[f"x{REPLICATE}"] <= calls["x7"]):
+        raise AssertionError("the launches per step grow with the cluster "
+                             "count")
+    out["launches_per_step"] = counts
+    out["forms"] = {"x7": form_times(x7, "x7"),
+                    f"x{REPLICATE}": form_times(big, f"x{REPLICATE}")}
+    return out
+
+
+def phase_demos() -> dict:
+    """Phase 28: the three ported demos on the card."""
+    t0 = time.perf_counter()
+    res = contraction_demo.main(["biceps_18475", str(CONTRACTION_STEPS)])
+    frames = [f for f in res["frames"] if Path(f).is_file()]
+    print(f"contraction_demo: {len(frames)} frames written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if len(frames) != 20:
+        raise AssertionError(f"contraction_demo wrote {len(frames)} frames")
+    check_fields_finite(res["state"], T.SimConfig(), "contraction_demo")
+    t0 = time.perf_counter()
+    stim = fit_stimulus_demo.main(["4", "3"])
+    t1 = time.perf_counter()
+    mat = fit_material_demo.main(["6", "100"])
+    t2 = time.perf_counter()
+    print(f"fit_stimulus_demo 4 3: {stim['err'] * 100:.3f}% off in "
+          f"{t1 - t0:.3f} s; fit_material_demo 6 100: K "
+          f"{mat['err_k'] * 100:.2f}% off, mu {mat['err_mu'] * 100:.2f}% off "
+          f"in {t2 - t1:.3f} s", flush=True)
+    if not stim["err"] < 0.01:
+        raise AssertionError("fit_stimulus_demo missed 1%")
+    if not max(mat["err_k"], mat["err_mu"]) < 0.2:
+        raise AssertionError("fit_material_demo missed 20%")
+    return {"stimulus_err": stim["err"], "material_err_k": mat["err_k"],
+            "material_err_mu": mat["err_mu"], "frames": len(frames)}
 
 
 def main() -> int:
@@ -1532,6 +1879,24 @@ def main() -> int:
           "ms/step, bounds")
     raw_timing = phase_raw_timing(dev, raw, scene, counts, times, bounds,
                                   launches, report)
+    phase(f"24 multi-muscle coupled step: biceps_full x7 and x{REPLICATE}, "
+          "cluster ids, forms, run_protocol, the independent-run oracle")
+    t0 = time.perf_counter()
+    x7 = T.build_scene("biceps_full", replicate=7, device=dev)
+    torch.cuda.synchronize()
+    print(f"biceps_full x7: {x7.num_particles} particles, built in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    multi = phase_multi_muscle(dev, scene, {7: x7, REPLICATE: big})
+    phase(f"25 susane x{SMALL_REPLICATE}: {SMALL_STEPS} coupled and "
+          f"{SMALL_STEPS} SM-only steps, card against CPU")
+    phase_small_replicate(dev)
+    phase(f"26 SM-only on biceps_full x{REPLICATE}, {SM_BIG_STEPS} steps")
+    sm_big = phase_sm_only_big(big)
+    phase("27 timing: coupled x7, coupled and SM-only "
+          f"x{REPLICATE}; peak memory; launches per step")
+    multi_timing = phase_multi_timing(dev, big, x7)
+    phase("28 demos: contraction_demo, fit_stimulus_demo, fit_material_demo")
+    demos = phase_demos()
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
@@ -1562,7 +1927,10 @@ def main() -> int:
                           "sweep_b2", "sweep_a", "sweep_b")},
                       "sweep_bwd_a_ms": big_bwd_ms["sweep_bwd_a"],
                       "sweep_bwd_b_ms": big_bwd_ms["sweep_bwd_b"],
-                      "peak_gib": big_peak / 2**30}}), flush=True)
+                      "peak_gib": big_peak / 2**30},
+        "multi_muscle": {**multi, "sm_only": sm_big,
+                         "timing": multi_timing},
+        "demos": demos}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,10 @@ mode on a hand-written Laplacian kernel, forward and backward), the v3 /
 v5 generations of the fused step and the v1 / v2 ablation baselines
 (`ablation/`), each on its own hand-written sweep kernels, and the roofline
 tool (`tools/roofline.py`, whose FMA-chain probe measures the card's fp32
-peak). Entry points build on the card unless given device="cpu". The JAX package is the reference this port is tested
+peak). Shape matching runs over one global cluster or one cluster a muscle
+(`build_scene(..., replicate=k)`); `examples/` holds the contraction demo
+(frames through the numpy renderer, `utils/render.py`) and the stimulus,
+material, flagship and fhn fits. Entry points build on the card unless given device="cpu". The JAX package is the reference this port is tested
 against; this package imports neither jax nor sph_sm_monodomain_tpu.
 """
 

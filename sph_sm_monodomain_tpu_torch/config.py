@@ -45,8 +45,7 @@ class SimConfig:
     volume_conservation: bool = True            # cpp:68
     allow_flip: bool = False                    # cpp:69
     fixed_mass_scale: float = 100.0             # fixed particles weigh x100 in cm (cpp:247)
-    # independent shape-matching clusters (multi-muscle scenes); the port
-    # runs the single global cluster only (shape_matching raises on > 1)
+    # independent shape-matching clusters (multi-muscle scenes)
     sm_clusters: int = 1
     # rows per cluster for tile-contiguous layouts (0 = unknown)
     sm_tile_rows: int = 0

@@ -35,6 +35,7 @@ from ..ops.fused_step import (apply_out_fused, build_dynp, build_qm_feats,
                               vol_now)
 from ..ops.grid import build_neighbor_table
 from ..ops.integrate import update_properties
+from ..ops.numerics import ensure_fp32
 from ..ops.shape_matching import corrected_velocity, sm_invariants
 from ..ops.sph import (density_pressure, force_and_diffusion,
                        xsph_intermediate_velocity)
@@ -47,18 +48,6 @@ class StepAux(NamedTuple):
     # entries dropped: neighbor-table slots (unfused) or packed-slab slots
     # (v5); 0 on v3 / v4, whose windows cannot overflow
     overflow: torch.Tensor
-
-
-def ensure_fp32() -> None:
-    """Full-fp32 matrix products: the shape-matching moments run at
-    Precision.HIGHEST in the JAX package (ops/shape_matching.py:29), so TF32
-    stays off for matmuls and convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    if torch.backends.cuda.matmul.allow_tf32 \
-            or torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError("could not disable TF32 matrix products")
 
 
 def _no_overflow(state: ParticleState) -> torch.Tensor:

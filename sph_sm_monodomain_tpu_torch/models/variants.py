@@ -121,7 +121,8 @@ def simulate_sph_only(state: ParticleState, cfg: SimConfig,
 def step_sm_only(state: ParticleState, cfg: SimConfig, sm_inv=None
                  ) -> tuple[ParticleState, StepAux]:
     """Shape matching + gravity only: a viscoelastic solid with no fluid
-    forces, no electrophysiology and no neighbor table (SM is global)."""
+    forces, no electrophysiology and no neighbor table (SM acts on each
+    whole cluster)."""
     state = corrected_velocity(state, cfg, sm_inv=sm_inv)
     state = state.replace(inter_vel=state.corrected_vel,
                           acc=torch.zeros_like(state.acc),

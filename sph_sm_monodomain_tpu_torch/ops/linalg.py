@@ -11,6 +11,9 @@ Fixed-iteration semantics are kept, and `torch.linalg.eigh` is not used:
   - `pseudo_inverse` zeroes the reciprocal of exactly-zero eigenvalues;
   - `invert3` leaves a singular matrix unchanged.
 
+`det3`, `invert3`, `jacobi_eigh3_cyclic` and `polar_decomposition` take a
+(..., 3, 3) batch (one matrix per shape-matching cluster) with the same op
+sequence per matrix, so a batch costs the launches of one matrix.
 All matrix products run in full fp32 (the port never enables TF32).
 """
 
@@ -22,31 +25,37 @@ from .numerics import sqrt_rn
 
 
 def det3(A: torch.Tensor) -> torch.Tensor:
-    """3x3 determinant (m3Matrix.h:288-291)."""
-    return (A[0, 0] * (A[1, 1] * A[2, 2] - A[2, 1] * A[1, 2])
-            - A[0, 1] * (A[1, 0] * A[2, 2] - A[2, 0] * A[1, 2])
-            + A[0, 2] * (A[1, 0] * A[2, 1] - A[1, 1] * A[2, 0]))
+    """3x3 determinant (m3Matrix.h:288-291) of each matrix of a (..., 3, 3)
+    batch."""
+    def a(i, j):
+        return A[..., i, j]
+    return (a(0, 0) * (a(1, 1) * a(2, 2) - a(2, 1) * a(1, 2))
+            - a(0, 1) * (a(1, 0) * a(2, 2) - a(2, 0) * a(1, 2))
+            + a(0, 2) * (a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0)))
 
 
 def invert3(A: torch.Tensor) -> torch.Tensor:
-    """Analytic 3x3 inverse; returns A unchanged when det == 0
-    (m3Matrix.h:293-318; the caller at cpp:308 ignores the failure)."""
+    """Analytic 3x3 inverse of each matrix of a (..., 3, 3) batch; a
+    singular matrix comes back unchanged (m3Matrix.h:293-318; the caller at
+    cpp:308 ignores the failure)."""
+    def a(i, j):
+        return A[..., i, j]
     d = det3(A)
     ok = d != 0.0
     inv_d = torch.where(ok, 1.0 / torch.where(ok, d, torch.ones_like(d)),
                         torch.zeros_like(d))
     adj = torch.stack([
-        torch.stack([A[1, 1] * A[2, 2] - A[1, 2] * A[2, 1],
-                     -(A[0, 1] * A[2, 2] - A[0, 2] * A[2, 1]),
-                     A[0, 1] * A[1, 2] - A[0, 2] * A[1, 1]]),
-        torch.stack([-(A[1, 0] * A[2, 2] - A[1, 2] * A[2, 0]),
-                     A[0, 0] * A[2, 2] - A[0, 2] * A[2, 0],
-                     -(A[0, 0] * A[1, 2] - A[0, 2] * A[1, 0])]),
-        torch.stack([A[1, 0] * A[2, 1] - A[1, 1] * A[2, 0],
-                     -(A[0, 0] * A[2, 1] - A[0, 1] * A[2, 0]),
-                     A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]]),
-    ])
-    return torch.where(ok, adj * inv_d, A)
+        torch.stack([a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1),
+                     -(a(0, 1) * a(2, 2) - a(0, 2) * a(2, 1)),
+                     a(0, 1) * a(1, 2) - a(0, 2) * a(1, 1)], dim=-1),
+        torch.stack([-(a(1, 0) * a(2, 2) - a(1, 2) * a(2, 0)),
+                     a(0, 0) * a(2, 2) - a(0, 2) * a(2, 0),
+                     -(a(0, 0) * a(1, 2) - a(0, 2) * a(1, 0))], dim=-1),
+        torch.stack([a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0),
+                     -(a(0, 0) * a(2, 1) - a(0, 1) * a(2, 0)),
+                     a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)], dim=-1),
+    ], dim=-2)
+    return torch.where(ok[..., None, None], adj * inv_d[..., None, None], A)
 
 
 def _rotation(apq, diff):
@@ -96,11 +105,13 @@ def jacobi_eigh(A: torch.Tensor, iterations: int = 20):
 
 
 def jacobi_eigh3_cyclic(A: torch.Tensor, sweeps: int = 7):
-    """Cyclic-pivot Jacobi eigendecomposition of a symmetric 3x3: the static
-    pivot cycle (0,1), (0,2), (1,2) repeated `sweeps` times, on scalars."""
-    a = {(0, 0): A[0, 0], (1, 1): A[1, 1], (2, 2): A[2, 2],
-         (0, 1): A[0, 1], (0, 2): A[0, 2], (1, 2): A[1, 2]}
-    one, zero = torch.ones_like(A[0, 0]), torch.zeros_like(A[0, 0])
+    """Cyclic-pivot Jacobi eigendecomposition of each symmetric 3x3 of a
+    (..., 3, 3) batch: the static pivot cycle (0,1), (0,2), (1,2) repeated
+    `sweeps` times, on (...)-shaped entries, so the op count does not
+    depend on the batch. Returns (eigenvalues (..., 3), R (..., 3, 3))."""
+    a = {(i, j): A[..., i, j] for i, j in ((0, 0), (1, 1), (2, 2), (0, 1),
+                                            (0, 2), (1, 2))}
+    one, zero = torch.ones_like(a[(0, 0)]), torch.zeros_like(a[(0, 0)])
     r = {(i, j): one if i == j else zero for i in range(3) for j in range(3)}
 
     def key(i, j):
@@ -125,30 +136,36 @@ def jacobi_eigh3_cyclic(A: torch.Tensor, sweeps: int = 7):
                 r[(kk, p)] = c * rkp + s * rkq
                 r[(kk, q)] = -s * rkp + c * rkq
 
-    lam = torch.stack([a[(0, 0)], a[(1, 1)], a[(2, 2)]])
-    R = torch.stack([torch.stack([r[(i, j)] for j in range(3)])
-                     for i in range(3)])
+    lam = torch.stack([a[(0, 0)], a[(1, 1)], a[(2, 2)]], dim=-1)
+    R = torch.stack([torch.stack([r[(i, j)] for j in range(3)], dim=-1)
+                     for i in range(3)], dim=-2)
     return lam, R
 
 
 def polar_decomposition(A: torch.Tensor, iterations: int = 20):
-    """A = R S with R 'orthonormal' and S symmetric (m3Matrix.cpp:73-113).
-    Returns (R, S); lambda <= 0 directions contribute zero (cpp:90-92)."""
-    ATA = A.T @ A
-    lam, U = jacobi_eigh3_cyclic(ATA, sweeps=max(iterations // 3, 5))
+    """A = R S with R 'orthonormal' and S symmetric (m3Matrix.cpp:73-113),
+    for each matrix of a (..., 3, 3) batch. Returns (R, S); lambda <= 0
+    directions contribute zero (cpp:90-92)."""
+    At = A.transpose(-1, -2)
+    lam, U = jacobi_eigh3_cyclic(At @ A, sweeps=max(iterations // 3, 5))
     nonpos = lam <= 0.0
     inv_sqrt = torch.where(
         nonpos, torch.zeros_like(lam),
         1.0 / sqrt_rn(torch.where(nonpos, torch.ones_like(lam), lam)))
-    S1 = (U * inv_sqrt[None, :]) @ U.T
+    S1 = (U * inv_sqrt[..., None, :]) @ U.transpose(-1, -2)
     R = A @ S1
-    S = R.T @ A
+    S = R.transpose(-1, -2) @ A
     return R, S
 
 
 def pseudo_inverse(A: torch.Tensor, iterations: int = 20) -> torch.Tensor:
     """Symmetric pseudo-inverse via Jacobi eigendecomposition
-    (m9Matrix::invert, m9Matrix.cpp:80-102)."""
+    (m9Matrix::invert, m9Matrix.cpp:80-102) of an (n, n) matrix, or of each
+    matrix of a (K, n, n) batch in turn: the max-pivot Jacobi picks a
+    different pivot per matrix, and this runs once per run (the rest-shape
+    invariants), so the batch is a loop."""
+    if A.dim() == 3:
+        return torch.stack([pseudo_inverse(a, iterations) for a in A])
     lam, R = jacobi_eigh(A, iterations)
     nz = lam != 0.0
     d = torch.where(nz, 1.0 / torch.where(nz, lam, torch.ones_like(lam)),

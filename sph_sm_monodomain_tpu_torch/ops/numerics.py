@@ -1,4 +1,5 @@
-"""A correctly rounded square root for the port's CPU paths.
+"""A correctly rounded square root for the port's CPU paths, and the fp32
+guard of the matrix products.
 
 This build's CPU float32 `torch.sqrt` is not correctly rounded: about 0.7%
 of inputs come out 1 ulp off, and in a few fresh processes it returned
@@ -12,6 +13,11 @@ float32: the value CUDA's IEEE `sqrtf` gives. On a CUDA tensor it is
 `torch.rsqrt` (the plain sweeps' 1/r) stays as it is: the same probe finds
 it within 1 ulp of the correctly rounded 1/sqrt in every process, inside
 the 2 ulp that CUDA's `rsqrtf` is allowed.
+
+`ensure_fp32` turns TF32 off for matrix products. Shape matching's entry
+points (`sm_invariants`, `project_positions`, `sm_rebind_rows`) call it,
+so every step, run loop and mode that reaches its moments runs them in
+full fp32 whatever the caller set.
 """
 
 from __future__ import annotations
@@ -54,3 +60,15 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cpu" or x.dtype != torch.float32:
         return torch.sqrt(x)
     return _SqrtRN.apply(x)
+
+
+def ensure_fp32() -> None:
+    """Full-fp32 matrix products: the shape-matching moments run at
+    Precision.HIGHEST in the JAX package (ops/shape_matching.py:29), so TF32
+    stays off for matmuls and convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("could not disable TF32 matrix products")

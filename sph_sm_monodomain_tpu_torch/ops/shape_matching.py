@@ -1,6 +1,7 @@
-"""Shape matching (Mueller et al.) with velocity correction, single global
-cluster (mirror of `sph_sm_monodomain_tpu.ops.shape_matching`, `:47-401`;
-reference SPH_SM_monodomain.cpp:215-446, 653-667).
+"""Shape matching (Mueller et al.) with velocity correction, over one global
+cluster or over `cfg.sm_clusters` independent ones (mirror of
+`sph_sm_monodomain_tpu.ops.shape_matching`, `:47-401`; reference
+SPH_SM_monodomain.cpp:215-446, 653-667).
 
 Reference quirks kept:
   - fixed particles weigh x100 in the center of mass only (cpp:247), plain
@@ -13,9 +14,14 @@ Reference quirks kept:
   - volume conservation clamps 1/sqrt(|det|) at 2.0 (cpp:311-320, 416-427);
   - corrected_vel has no fixed-particle skip (cpp:663-666).
 
-The multi-cluster forms (`sm_clusters > 1`) are not ported yet and raise.
-All reductions are fp32 matrix products; TF32 stays off on the run path
-(models/monodomain.ensure_fp32).
+With K = sm_clusters > 1 (multi-muscle scenes: one cluster per x-tile)
+every moment carries a leading (K,) axis and the 3x3 algebra runs once on
+the (K, 3, 3) batch, so a step's op count does not depend on K. The
+per-cluster sums take one of the JAX package's three forms: blocked
+(f*K <= _BLOCKED_MAX_LANES columns, f = 3 linear / 9 quadratic), contig
+(tile-contiguous rows, `cfg.sm_tile_rows`) or one-hot. All reductions are
+fp32 matrix products or sums, none atomic, so the card gives the same bits
+on every run; each entry point here turns TF32 off (numerics.ensure_fp32).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from ..config import SimConfig
 from ..state import ParticleState
 from .constants import const_tensor
 from .linalg import det3, invert3, polar_decomposition, pseudo_inverse
-from .numerics import sqrt_rn
+from .numerics import ensure_fp32, sqrt_rn
 
 # anti-flip sign pattern: negate (0,1), (1,1), (2,2) (cpp:296-298)
 _FLIP_SIGNS = ((1.0, -1.0, 1.0),
@@ -36,12 +42,9 @@ _FLIP_SIGNS = ((1.0, -1.0, 1.0),
                (1.0, 1.0, -1.0))
 _FLIP_SIGNS9 = tuple(row + (1.0,) * 6 for row in _FLIP_SIGNS)
 
-
-def _single_cluster(cfg: SimConfig) -> None:
-    if cfg.sm_clusters != 1:
-        raise NotImplementedError(
-            f"sm_clusters={cfg.sm_clusters}: the port runs the single "
-            "global shape-matching cluster only")
+# widest blocked-q column count (f*K) that takes the blocked form; tests
+# monkeypatch it to 0 to exercise the contig / one-hot forms at small K
+_BLOCKED_MAX_LANES = 128
 
 
 def apply_external_forces(state: ParticleState, cfg: SimConfig,
@@ -63,7 +66,9 @@ class SMInvariants(NamedTuple):
     """Step-invariant rest-shape moments: orig_pos, mass, fixed and active
     never change during a run, so the rest-shape side of the reference's
     per-step reductions (cpp:244-291) is computed once. `None` fields belong
-    to the unused match path (linear vs quadratic)."""
+    to the unused match path (linear vs quadratic). With K clusters every
+    moment has a leading (K,) axis; q / q9 stay per row, centered on the
+    owning cluster's rest center."""
     mass_cm_sum: torch.Tensor       # sum of cm-weighted masses (cpp:244-253)
     ocm: torch.Tensor               # (3,) rest-shape center of mass
     q: torch.Tensor                 # (N,3) orig_pos - ocm (cpp:263)
@@ -72,6 +77,33 @@ class SMInvariants(NamedTuple):
     q9: torch.Tensor | None         # (N,9) quadratic basis (cpp:348-350)
     mq9: torch.Tensor | None        # (9,) sum of m*q9
     a9qq_pinv: torch.Tensor | None  # (9,9) pseudo-inverse (cpp:383-388)
+    # the blocked form's per-row hoists (K > 1 and f*K <= _BLOCKED_MAX_LANES;
+    # row-aligned, so sm_rebind_rows refreshes them after a permutation)
+    cid: torch.Tensor | None = None   # (N,) owning cluster
+    w_cm: torch.Tensor | None = None  # (N,K) cm-weighted one-hot
+    qb: torch.Tensor | None = None    # (N,K*f) block-sparse rest basis
+
+
+def cluster_ids(orig_pos: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """(N,) int64 shape-matching cluster of each row: its rest-shape x-tile
+    index (multi-muscle scenes tile the muscles along x at equal width,
+    utils/io.scene_positions), clipped to [0, K-1] (dead rows' sentinel
+    lands in cluster 0). A true fp32 division by a 0-dim tensor, as the JAX
+    package divides: on the card a Python-scalar divisor becomes a multiply
+    by its reciprocal, which would put a tile's first rows, at exactly
+    k * tile_w, into tile k - 1."""
+    k = cfg.sm_clusters
+    tile_w = const_tensor(cfg.world_size[0] / k, orig_pos.device,
+                          orig_pos.dtype)
+    cid = torch.floor(orig_pos[:, 0] / tile_w)
+    return torch.clamp(cid, 0, k - 1).long()
+
+
+def _cluster_onehot(cid: torch.Tensor, k: int, dtype) -> torch.Tensor:
+    """(N, K) one-hot cluster matrix: per-cluster sums become (K,N)@(N,F)
+    products, the scatter-free form of a segment sum."""
+    ar = torch.arange(k, device=cid.device)
+    return (cid[:, None] == ar[None, :]).to(dtype)
 
 
 def _masses(state: ParticleState, cfg: SimConfig):
@@ -89,8 +121,11 @@ def _quad_basis(q: torch.Tensor) -> torch.Tensor:
 
 def sm_invariants(state: ParticleState, cfg: SimConfig) -> SMInvariants:
     """Precompute the rest-shape moments of `project_positions`."""
-    _single_cluster(cfg)
+    ensure_fp32()
     m, m_cm = _masses(state, cfg)
+    k = cfg.sm_clusters
+    if k > 1:
+        return _clustered_invariants(state, cfg, m, m_cm)
     mass_cm_sum = m_cm.sum()
     ocm = (m_cm @ state.orig_pos) / mass_cm_sum
     q = state.orig_pos - ocm
@@ -106,20 +141,114 @@ def sm_invariants(state: ParticleState, cfg: SimConfig) -> SMInvariants:
                         pseudo_inverse(a9qq, cfg.jacobi_iterations))
 
 
+def _clustered_invariants(state: ParticleState, cfg: SimConfig, m,
+                          m_cm) -> SMInvariants:
+    """The moments of K clusters, each with a leading (K,) axis.
+
+    Computed in float64 and rounded once to the state's dtype (the JAX
+    package sums in fp32): they run once per run, and on a muscle far
+    along x (x ~ 84 on biceps_full x56) fp32 sums of m * orig_pos over
+    its 18,475 rows move the rest center, and the moments built on it,
+    off by far more than fp32 rounding of the result; the fit carries that
+    into every goal (tools/sm_precision.py). The sums take the rows as the
+    step's form does: through the (K, R, .) reshape where that form is
+    contig, so no (N, K) one-hot is built, else through the one-hot."""
+    k, dtype, f64 = cfg.sm_clusters, state.pos.dtype, torch.float64
+    n, tile_r = state.pos.shape[0], cfg.sm_tile_rows
+    f = 9 if cfg.quadratic_match else 3
+    cid = cluster_ids(state.orig_pos, cfg)
+    m, m_cm, orig = m.to(f64), m_cm.to(f64), state.orig_pos.to(f64)
+    if f * k > _BLOCKED_MAX_LANES and tile_r > 0 and k * tile_r <= n:
+        def r3(v):
+            return v[:k * tile_r].reshape(k, tile_r, -1)
+
+        def seg_sum(v):                                    # (K, F)
+            return r3(v).sum(1)
+
+        def seg_outer(a, b):                               # (K, Fa, Fb)
+            return r3(a).transpose(1, 2) @ r3(b)
+    else:
+        oh = _cluster_onehot(cid, k, f64)
+
+        def seg_sum(v):
+            return oh.T @ v
+
+        def seg_outer(a, b):
+            outer = a[:, :, None] * b[:, None, :]
+            return (oh.T @ outer.reshape(n, -1)).reshape(
+                k, a.shape[1], b.shape[1])
+    # an all-inactive cluster divides by 1e-30 instead of 0 (no NaN)
+    mass_cm_sum = torch.clamp(seg_sum(m_cm[:, None])[:, 0], min=1e-30)
+    ocm = seg_sum(m_cm[:, None] * orig) / mass_cm_sum[:, None]
+    q = orig - ocm[cid]
+    mq = seg_sum(m[:, None] * q)
+    if not cfg.quadratic_match:
+        fields = (mass_cm_sum, ocm, q, mq,
+                  invert3(seg_outer(q * m[:, None], q)), None, None, None)
+    else:
+        q9 = _quad_basis(q)
+        fields = (mass_cm_sum, ocm, q, mq, None, q9, seg_sum(m[:, None] * q9),
+                  pseudo_inverse(seg_outer(q9 * m[:, None], q9),
+                                 cfg.jacobi_iterations))
+    inv = SMInvariants(*(None if x is None else x.to(dtype)
+                         for x in fields))
+    return _hoist_blocked(inv, cid, m_cm.to(dtype), k)
+
+
+def _hoist_blocked(sm_inv: SMInvariants, cid, m_cm,
+                   k: int) -> SMInvariants:
+    """Attach the blocked form's per-row hoists (cid, w_cm, qb) when f*K
+    columns fit _BLOCKED_MAX_LANES; they are step-invariant, so no step
+    rebuilds the (N,K) / (N,K*f) arrays."""
+    qf = sm_inv.q if sm_inv.q9 is None else sm_inv.q9
+    f = qf.shape[1]
+    if f * k > _BLOCKED_MAX_LANES:
+        return sm_inv
+    oh = _cluster_onehot(cid, k, m_cm.dtype)
+    qb = (oh[:, :, None] * qf[:, None, :]).reshape(qf.shape[0], k * f)
+    return sm_inv._replace(cid=cid, w_cm=m_cm[:, None] * oh, qb=qb)
+
+
+def sm_rebind_rows(sm_inv: SMInvariants, state: ParticleState,
+                   cfg: SimConfig | None = None) -> SMInvariants:
+    """Recompute the per-row members of hoisted invariants after a
+    permutation or migration of the particle rows: the moments are
+    permutation-invariant, q / q9 and the blocked hoists follow the rows.
+    `cfg` is required for clustered invariants."""
+    ensure_fp32()
+    if sm_inv.ocm.dim() == 2:
+        cid = cluster_ids(state.orig_pos, cfg)
+        q = state.orig_pos - sm_inv.ocm[cid]
+    else:
+        q = state.orig_pos - sm_inv.ocm
+    if sm_inv.q9 is None:
+        sm_inv = sm_inv._replace(q=q)
+    else:
+        sm_inv = sm_inv._replace(q=q, q9=_quad_basis(q))
+    if sm_inv.qb is not None:
+        _, m_cm = _masses(state, cfg)
+        sm_inv = _hoist_blocked(
+            sm_inv._replace(cid=None, w_cm=None, qb=None), cid, m_cm,
+            sm_inv.ocm.shape[0])
+    return sm_inv
+
+
 def _volume_scale(det: torch.Tensor) -> torch.Tensor:
-    """1/sqrt(|det|) clamped at 2, or 1 when det == 0 (cpp:311-320)."""
+    """1/sqrt(|det|) clamped at 2, or 1 when det == 0 (cpp:311-320), shaped
+    to scale each matrix of a (..., r, c) batch."""
     nz = det != 0.0
     s = 1.0 / sqrt_rn(torch.where(nz, det, torch.ones_like(det)).abs())
     s = torch.clamp(s, max=2.0)
-    return torch.where(nz, s, torch.ones_like(s))
+    return torch.where(nz, s, torch.ones_like(s))[..., None, None]
 
 
 def _anti_flip(A: torch.Tensor, det: torch.Tensor, signs) -> torch.Tensor:
-    return torch.where(det < 0.0, A * signs, A)
+    return torch.where(det[..., None, None] < 0.0, A * signs, A)
 
 
 def _linear_transform(Apq, aqq_inv, cfg: SimConfig):
-    """Apq -> blended goal transform T (cpp:294-322)."""
+    """Apq -> blended goal transform T (cpp:294-322), for one (3, 3) moment
+    or a (K, 3, 3) batch."""
     if not cfg.allow_flip:
         Apq = _anti_flip(Apq, det3(Apq), const_tensor(_FLIP_SIGNS,
                                                       Apq.device))
@@ -131,16 +260,16 @@ def _linear_transform(Apq, aqq_inv, cfg: SimConfig):
 
 
 def _quadratic_transform(Apq, A9pq, a9qq_pinv, cfg: SimConfig):
-    """(Apq, A9pq) -> quadratic goal transform A9 (3,9) (cpp:294-302,
-    331-427)."""
+    """(Apq, A9pq) -> quadratic goal transform A9 (3, 9) (cpp:294-302,
+    331-427), or a (K, 3, 9) batch."""
     if not cfg.allow_flip:
         Apq = _anti_flip(Apq, det3(Apq), const_tensor(_FLIP_SIGNS,
                                                       Apq.device))
     R, _ = polar_decomposition(Apq, cfg.jacobi_iterations)
     A9 = (A9pq @ a9qq_pinv) * cfg.sm_beta
-    A9 = torch.cat([A9[:, :3] + (1.0 - cfg.sm_beta) * R, A9[:, 3:]],
-                   dim=1)                                  # cpp:390-403
-    det = det3(A9[:, :3])                                  # cpp:405-408
+    A9 = torch.cat([A9[..., :3] + (1.0 - cfg.sm_beta) * R, A9[..., 3:]],
+                   dim=-1)                                 # cpp:390-403
+    det = det3(A9[..., :3])                                # cpp:405-408
     if not cfg.allow_flip:                                 # cpp:410-414
         A9 = _anti_flip(A9, det, const_tensor(_FLIP_SIGNS9, A9.device))
     if cfg.volume_conservation:                            # cpp:416-427
@@ -148,18 +277,95 @@ def _quadratic_transform(Apq, A9pq, a9qq_pinv, cfg: SimConfig):
     return A9
 
 
+def _segment_form(sm_inv: SMInvariants, cfg: SimConfig, n: int) -> str:
+    """The clustered form `project_positions` takes, by the JAX package's
+    rule: "blocked" when the hoists exist (f*K <= _BLOCKED_MAX_LANES),
+    "contig" when the rows are tile-contiguous (sm_tile_rows) and K tiles
+    fit the rows, else "onehot"."""
+    if sm_inv.qb is not None:
+        return "blocked"
+    k, tile_r = sm_inv.ocm.shape[0], cfg.sm_tile_rows
+    return "contig" if tile_r > 0 and k * tile_r <= n else "onehot"
+
+
+def _clustered_goal(state: ParticleState, cfg: SimConfig,
+                    sm_inv: SMInvariants, m, m_cm) -> torch.Tensor:
+    """Goal positions of K independent clusters (cfg.sm_clusters > 1):
+    the per-cluster moments in the form `_segment_form` picks, one batched
+    transform, and the goals.
+
+    The moments are taken about each cluster's rest center, from
+    pos - ocm = (pos - orig_pos) + q, where the JAX package sums m * pos
+    about the world origin. The two are equal in exact arithmetic; in fp32
+    a muscle far along x (x ~ 84 on biceps_full x56) makes every summand
+    O(84) and the cm (x) sum(m q) split cancel to O(1): on the card those
+    goals lie 4.7e-4 from float64 at x56, these 6.6e-6
+    (tools/sm_precision.py; x alpha / dt ~ 97 in the corrected
+    velocity). About the rest center every summand is O(1)."""
+    k, n = sm_inv.ocm.shape[0], state.pos.shape[0]
+    quad = sm_inv.q9 is not None
+    f = 9 if quad else 3
+    qf = sm_inv.q9 if quad else sm_inv.q
+    mqf = sm_inv.mq9 if quad else sm_inv.mq
+    rel = (state.pos - state.orig_pos) + sm_inv.q           # pos - ocm[cid]
+    relm = rel * m[:, None]
+    form = _segment_form(sm_inv, cfg, n)
+    if form == "blocked":
+        # the cluster axis folded into the columns of a block-sparse q
+        cm = (sm_inv.w_cm.T @ rel) / sm_inv.mass_cm_sum[:, None]
+        Afpq = (relm.T @ sm_inv.qb).reshape(3, k, f).permute(1, 0, 2) \
+            - cm[:, :, None] * mqf[:, None, :]             # (K, 3, f)
+    elif form == "contig":
+        nk = k * cfg.sm_tile_rows
+
+        def r3(v):
+            return v[:nk].reshape(k, cfg.sm_tile_rows, -1)
+        cm = (m_cm[:nk].reshape(k, 1, -1) @ r3(rel))[:, 0] \
+            / sm_inv.mass_cm_sum[:, None]                  # (K, 3)
+        qf_r = r3(qf)
+        Afpq = r3(relm).transpose(1, 2) @ qf_r \
+            - cm[:, :, None] * mqf[:, None, :]
+    else:
+        cid = cluster_ids(state.orig_pos, cfg)
+        oh = _cluster_onehot(cid, k, rel.dtype)
+        cm = (oh.T @ (m_cm[:, None] * rel)) / sm_inv.mass_cm_sum[:, None]
+        outer = relm[:, :, None] * qf[:, None, :]          # (N, 3, f)
+        Afpq = (oh.T @ outer.reshape(n, 3 * f)).reshape(k, 3, f) \
+            - cm[:, :, None] * mqf[:, None, :]
+    cm = cm + sm_inv.ocm                                   # world frame
+
+    if quad:
+        # Apq (for the polar R) is the first 3 columns of the 9-D moment
+        # (q9[:, :3] == q, cpp:348-350)
+        T = _quadratic_transform(Afpq[..., :3], Afpq, sm_inv.a9qq_pinv, cfg)
+    else:
+        T = _linear_transform(Afpq, sm_inv.aqq_inv, cfg)   # (K, 3, f)
+
+    if form == "blocked":
+        return sm_inv.qb @ T.transpose(1, 2).reshape(k * f, 3) \
+            + cm[sm_inv.cid]
+    if form == "contig":
+        goal_nk = qf_r @ T.transpose(1, 2) + cm[:, None, :]
+        # rows past the K tiles (padding) keep their goal
+        return torch.cat([goal_nk.reshape(nk, 3), state.goal_pos[nk:]])
+    return (qf[:, None, :] * T[cid]).sum(-1) + cm[cid]
+
+
 def project_positions(state: ParticleState, cfg: SimConfig,
                       sm_inv: SMInvariants | None = None) -> torch.Tensor:
-    """Goal positions from the global best-fit transform (cpp:234-446);
-    fixed particles keep their previous goal. The deforming-side moment
-    splits as Apq = sum(m pos q^T) - cm (x) sum(m q), so the per-step work
-    is one (3,N)@(N,3) product plus the cm reduction."""
-    _single_cluster(cfg)
+    """Goal positions from the best-fit transform of each cluster
+    (cpp:234-446); fixed particles keep their previous goal. The deforming
+    side of the moment splits as Apq = sum(m pos q^T) - cm (x) sum(m q), so
+    the per-step work is one (3,N)@(N,f) product plus the cm reduction."""
+    ensure_fp32()
     if sm_inv is None:
         sm_inv = sm_invariants(state, cfg)
     m, m_cm = _masses(state, cfg)
-    q = sm_inv.q
+    if sm_inv.ocm.dim() == 2:
+        goal = _clustered_goal(state, cfg, sm_inv, m, m_cm)
+        return torch.where(state.fixed[:, None], state.goal_pos, goal)
     posm = state.pos * m[:, None]
+    q = sm_inv.q
     cm = (m_cm @ state.pos) / sm_inv.mass_cm_sum           # cpp:244-253
     Apq = posm.T @ q - cm[:, None] * sm_inv.mq[None, :]    # cpp:269-279
 

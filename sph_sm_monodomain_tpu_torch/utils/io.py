@@ -1,5 +1,5 @@
 """Point-cloud loading and scene construction (mirror of
-`sph_sm_monodomain_tpu.utils.io`, `:27-240`; reference main.cpp:145-179,
+`sph_sm_monodomain_tpu.utils.io`, `:27-265`; reference main.cpp:145-179,
 464-496). The data assets are the repo's `assets/` point clouds.
 """
 
@@ -150,9 +150,7 @@ def build_scene(name: str, cfg: SimConfig | None = None, replicate: int = 1,
     `replicate` > 1 is the multi-muscle scale-up: tiles of the cloud along
     x at the original density in a world expanded along x, each tile its
     own shape-matching cluster (`sm_clusters`, `sm_tile_rows`) and its own
-    tendon anchors. Shape matching with several clusters is not ported
-    yet, so such a scene runs the monodomain-only and SPH-only modes
-    (models/variants.py); the coupled and SM-only steps raise on it.
+    tendon anchors.
 
     `fused_impl`: the fused step's generation, "v4" (default), "v3", "v5",
     "v5s", or the ablation baselines "v1" / "v2". v1-v4 take 128-row
@@ -195,3 +193,27 @@ def build_scene(name: str, cfg: SimConfig | None = None, replicate: int = 1,
                  neighbor_capacity=k_nbr, num_particles=int(pts.shape[0]),
                  name=name, q_block=max(128, sub_q), block_window=w_chunk,
                  sub_block=sub_q, fused_impl=impl, pack_cap=pack_cap)
+
+
+def load_surface_mesh(which: str = "biceps"):
+    """Load the triangle surface mesh shipped with the reference (the D1
+    assets, which init_mesh loads at main.cpp:483-485 for the commented-out
+    triangle renderer, main.cpp:232-266).
+
+    Returns (faces (F,3) int32 0-based particle indices, normals (M,3),
+    normal_idx (F,3) int32 0-based). Faces index the FIRST `max_index`
+    particles of the matching cloud (the reference indexes Particles[]
+    directly with the 1-based face indices)."""
+    if which == "biceps":
+        faces = read_cloud_csv(ASSETS_DIR / "faces.csv")
+        normals = read_cloud_csv(ASSETS_DIR / "normals.txt")
+        nidx = read_cloud_csv(ASSETS_DIR / "normals_index.csv")
+    elif which == "rectus_femoris":
+        base = ASSETS_DIR / "RectusFemoris"
+        faces = read_cloud_csv(base / "rectusFemorisFaces.csv")
+        normals = read_cloud_csv(base / "rectusFemorisNormals.csv")
+        nidx = read_cloud_csv(base / "rectusFemorisNormalIndex.csv")
+    else:
+        raise ValueError(f"no surface mesh for {which!r}")
+    return (faces.astype(np.int32) - 1, normals.astype(np.float32),
+            nidx.astype(np.int32) - 1)

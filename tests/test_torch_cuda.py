@@ -1,9 +1,10 @@
 """The port's CUDA sweep kernels (forward in the v4, v3 and v5 forms,
 backward, the Laplacian-only sweep, and the v1 / v2 raw-sum sweeps), the
-roofline tool's FMA-chain probe, its fused steps, its differentiable step
-and the monodomain mode's gradient on the card, against their plain
-PyTorch versions and the CPU path (marker `cuda`; skipped where torch sees
-no GPU).
+roofline tool's FMA-chain probe, its fused steps, its differentiable step,
+the monodomain mode's gradient, the clustered shape matching of the
+multi-muscle scenes and the demos on the card, against their plain PyTorch
+versions and the CPU path (marker `cuda`; skipped where torch sees no
+GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -18,6 +19,8 @@ Gradients, card against CPU: rtol 1e-3 (the JAX suite's 3-step bound);
 through the Laplacian kernel, value rtol 1e-5 and gradient atol
 1e-4 * max(1, max|g|) (tests/test_differentiable.py:91-96).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -832,3 +835,64 @@ def test_measure_vpu_peak_on_card(device):
     """The probe's FLOP/s is positive and below twice the data sheet."""
     peak = roofline.measure_vpu_peak(device, reps=1)
     assert 0.0 < peak < 2 * roofline.PEAK_FLOPS
+
+
+@pytest.mark.parametrize("replicate,form", [(2, "blocked"), (7, "blocked"),
+                                            (56, "contig")])
+def test_cluster_ids_and_form_on_card(device, replicate, form):
+    """On biceps_full x2 / x7 / x56 the card puts live row i in cluster
+    i // sm_tile_rows (tile k's first rows sit exactly on x = k * 1.5: a
+    true division), and the clustered shape matching takes the JAX
+    package's form."""
+    from sph_sm_monodomain_tpu_torch.ops import shape_matching as tsm
+    sc = T.build_scene("biceps_full", replicate=replicate, device=device)
+    st, cfg = sc.state, sc.cfg
+    cid = tsm.cluster_ids(st.orig_pos, cfg)
+    want = torch.arange(st.capacity, device=device) // cfg.sm_tile_rows
+    assert torch.equal(cid[st.active], want[st.active])
+    inv = sm_invariants(st, cfg)
+    assert tsm._segment_form(inv, cfg, st.capacity) == form
+
+
+@pytest.mark.parametrize("mode", ["coupled", "sm_only"])
+def test_clustered_steps_on_card_match_cpu(device, mode):
+    """susane x2 (two clusters), 6 coupled v4 steps or 6 SM-only steps:
+    the card against the CPU, at the fused-step tolerances."""
+    sc = T.build_scene("susane", replicate=2, device=device)
+    runs = []
+    for st in (sc.state, sc.state.to("cpu")):
+        if mode == "coupled":
+            runs.append(T.simulate(st, sc.cfg, 6)[0])
+        else:
+            runs.append(variants.simulate_sm_only(st, sc.cfg, 6)[0])
+    g, w = T.state_to_numpy(runs[0]), T.state_to_numpy(runs[1])
+    act = w["active"]
+    for name, atol in (("pos", 5e-5), ("vel", 5e-3), ("vm", 5e-3),
+                       ("iion", 1e-5), ("w", 1e-6)):
+        np.testing.assert_allclose(g[name][act], w[name][act], atol=atol,
+                                   err_msg=name)
+
+
+def test_fit_stimulus_demo_recovers_on_card(device):
+    """The ported stimulus fit at the JAX suite's settings (4 steps, 3
+    Newton iterations; tests/test_examples.py:80-90): within 1%."""
+    from sph_sm_monodomain_tpu_torch.examples import fit_stimulus_demo
+    assert fit_stimulus_demo.main(["4", "3"])["err"] < 0.01
+
+
+def test_fit_material_demo_recovers_on_card(device):
+    """The ported material fit at the JAX suite's settings (6 steps, 100
+    Adam iterations; tests/test_examples.py:54-64): K and mu within 20%
+    (~2 min on the H100)."""
+    from sph_sm_monodomain_tpu_torch.examples import fit_material_demo
+    res = fit_material_demo.main(["6", "100"])
+    assert max(res["err_k"], res["err_mu"]) < 0.2
+
+
+def test_contraction_demo_on_card(device, tmp_path):
+    """The ported contraction demo, 40 steps of biceps_18475: 20 frames."""
+    from sph_sm_monodomain_tpu_torch.examples import contraction_demo
+    res = contraction_demo.main(["biceps_18475", "40", "--out",
+                                 str(tmp_path)])
+    assert len(res["frames"]) == 20
+    assert all(os.path.isfile(f) for f in res["frames"])

@@ -7,7 +7,7 @@ summation order; the corrected velocity carries the goal error times
 alpha/dt (~97), so its absolute tolerance is the goal's times that factor.
 The gradient of corrected_velocity against JAX autodiff: rtol 1e-4 with an
 absolute floor of 1e-5 * max|grad| (the same fixed-iteration Jacobi in
-fp32, summed in another order).
+fp32, summed in another order), for one cluster and for two.
 
 The polar factor R is held to scipy.linalg.polar in float64: the port's
 error at most twice JAX's plus 1e-6, and port against JAX within the sum
@@ -143,23 +143,66 @@ def test_corrected_velocity_matches(quadratic, flip):
                                   np.asarray(js.goal_pos)[:12])
 
 
-def test_sm_clusters_raise():
+def _two_cluster_states():
+    """Two copies of the deformed blob, the second 1.5 along x in a (3.0,
+    1.5, 1.5) world, as two shape-matching clusters (sm_clusters = 2)."""
     jcfg, js = _sm_states(False)
-    with pytest.raises(NotImplementedError):
-        tsm.sm_invariants(to_torch_state(js),
-                          torch_cfg(jcfg).replace(sm_clusters=2))
+    n = 150
+    jcfg2 = jcfg.replace(world_size=(3.0, 1.5, 1.5), sm_clusters=2)
+    shift = np.array([1.5, 0.0, 0.0], np.float32)
+    orig = np.asarray(js.orig_pos)[:n]
+    js2 = J.init_fluid(np.concatenate([orig, orig + shift]), jcfg2)
+    pos = np.asarray(js2.pos).copy()
+    pos[:2 * n] = np.concatenate([np.asarray(js.pos)[:n],
+                                  np.asarray(js.pos)[:n] + shift])
+    fixed = np.zeros(js2.capacity, bool)
+    fixed[:12] = True
+    vel = (np.random.default_rng(9).normal(size=(js2.capacity, 3))
+           * 0.1).astype(np.float32)
+    return jcfg2, js2.replace(pos=pos, vel=vel, fixed=fixed,
+                              goal_pos=np.asarray(js2.pos) + 0.001)
 
 
-@pytest.mark.parametrize("case", ["linear", "planar"])
+@pytest.mark.parametrize("quadratic", [False, True], ids=["linear",
+                                                          "quadratic"])
+def test_clustered_corrected_velocity_matches(quadratic):
+    """corrected_velocity over two clusters (the blocked form) against the
+    JAX package, at the single-cluster test's tolerances."""
+    jcfg, js = _two_cluster_states()
+    jcfg = jcfg.replace(quadratic_match=quadratic)
+    tcfg, ts = torch_cfg(jcfg), to_torch_state(js)
+    jinv = jsm.sm_invariants(js, jcfg)
+    tinv = tsm.sm_invariants(ts, tcfg)
+    _close(tinv.ocm, jinv.ocm, what="ocm")
+    jout = jsm.corrected_velocity(js, jcfg, sm_inv=jinv)
+    tout = tsm.corrected_velocity(ts, tcfg, sm_inv=tinv)
+    act = np.asarray(js.active)
+    goal = np.asarray(jout.goal_pos)[act]
+    _close(tout.goal_pos.numpy()[act], goal, what="goal_pos")
+    cv_atol = (ATOL + RTOL * np.abs(goal).max()) * jcfg.sm_alpha \
+        / jcfg.time_delta
+    _close(tout.corrected_vel.numpy()[act],
+           np.asarray(jout.corrected_vel)[act], atol=cv_atol,
+           what="corrected_vel")
+    np.testing.assert_array_equal(tout.goal_pos[:12].numpy(),
+                                  np.asarray(js.goal_pos)[:12])
+
+
+@pytest.mark.parametrize("case", ["linear", "planar", "two_clusters"])
 def test_corrected_velocity_grad_matches_jax(case):
     """Autograd through the port's shape matching (max-pivot / cyclic
     Jacobi, polar decomposition, in-place rotation updates) against JAX
     autodiff through its own, w.r.t. positions and (sm_alpha, sm_beta).
     The planar cloud gives A^T A a zero eigenvalue: the masked branches
     must keep the gradient finite (its value there is ill-posed, as
-    test_linalg_3x3_matches notes for R)."""
-    jcfg = J.SimConfig()
-    js = random_state(jcfg, n=150, seed=5)
+    test_linalg_3x3_matches notes for R). "two_clusters": two shape-matching
+    clusters (the blocked form), so autograd runs through the batched
+    polar decomposition."""
+    if case == "two_clusters":
+        jcfg, js = _two_cluster_states()
+    else:
+        jcfg = J.SimConfig()
+        js = random_state(jcfg, n=150, seed=5)
     rng = np.random.default_rng(6)
     pos = np.asarray(js.pos).copy()
     if case == "planar":

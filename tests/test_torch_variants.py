@@ -36,7 +36,8 @@ from sph_sm_monodomain_tpu_torch.examples import fit_fhn_fused_demo
 from sph_sm_monodomain_tpu_torch.models import variants as tv
 from sph_sm_monodomain_tpu_torch.ops import fused_step as tfst
 
-from torch_parity import torch_cfg
+from torch_parity import (SPREAD_FACTOR, bump_pos, to_torch_state,
+                          torch_cfg)
 
 # CELL_CAP: the JAX table's per-cell bucket width (the port's sorted table
 # has no buckets, so only the JAX side takes it)
@@ -189,6 +190,99 @@ def test_lap_vm_fn_gradients_match_jax():
                                atol=1e-4 * max(1.0, np.abs(jg).max()))
     np.testing.assert_allclose(float(g_sig), float(jg_sig),
                                atol=1e-4 * max(1.0, abs(float(jg_sig))))
+
+
+@pytest.fixture(scope="module")
+def ep_constant_grads():
+    """d loss / d (fh_c1, sigma_i) of the JAX suite's 3-step monodomain
+    rollout (tests/test_params.py:140-179: 96 particles, vm ~ N(0, 5^2), a
+    weighted vm sum), as (value, gradient) of JAX's unfused and fused paths
+    and of the port's unfused and fused paths; and ("spread", fused): JAX's
+    own relative change of (value, gradient) when every live row's pos
+    moves one float32 ulp (tests/torch_parity.bump_pos)."""
+    rng = np.random.default_rng(0)
+    pts = np.clip(rng.normal(size=(96, 3)).astype(np.float32) * 0.05 + 0.6,
+                  0.1, 1.3)
+    jcfg = J.SimConfig()
+    js = J.stim.set_stim(J.init_fluid(pts, jcfg), (0.6, 0.6, 0.6), 0.5,
+                         jcfg.stim_strength, jcfg)
+    vm = rng.normal(size=js.vm.shape).astype(np.float32) * 5.0
+    wgt = np.random.default_rng(7).normal(size=js.vm.shape).astype(
+        np.float32)
+    js = js.replace(vm=jnp.asarray(vm))
+    tcfg = torch_cfg(jcfg)
+    ts = to_torch_state(js)
+    ttab = tv.monodomain_prepare(ts, tcfg, 9 * 32)
+    tftab = tv.monodomain_prepare_fused(ts, tcfg, sub_q=64)
+
+    def jloss(js, fused):
+        jtab = jv.monodomain_prepare(js, jcfg, 32, 9 * 32)
+        jftab = jv.monodomain_prepare_fused(js, jcfg, q_block=64,
+                                            w_chunk=128, sub_q=64)
+
+        def f(theta):
+            p = {"fh_c1": theta[0], "sigma_i": theta[1]}
+            if fused:
+                out = jv.simulate_monodomain_only_fused(
+                    js, jftab, jcfg, num_steps=3, q_block=64, w_chunk=128,
+                    sub_q=64, params=p)
+            else:
+                out = jv.simulate_monodomain_only(js, jtab, jcfg,
+                                                  num_steps=3, params=p)
+            return jnp.sum(jnp.where(out.active, out.vm * wgt, 0.0))
+        return f
+
+    def tgrad(fused):
+        theta = torch.tensor([tcfg.fh_c1, tcfg.sigma_i], requires_grad=True)
+        p = {"fh_c1": theta[0], "sigma_i": theta[1]}
+        if fused:
+            out = tv.simulate_monodomain_only_fused(ts, tftab, tcfg, 3,
+                                                    sub_q=64, params=p)
+        else:
+            out = tv.simulate_monodomain_only(ts, ttab, tcfg, 3, params=p)
+        val = torch.where(out.active, out.vm * torch.from_numpy(wgt),
+                          torch.zeros_like(out.vm)).sum()
+        (g,) = torch.autograd.grad(val, theta)
+        return float(val.detach()), g.numpy()
+
+    theta = jnp.asarray([jcfg.fh_c1, jcfg.sigma_i], jnp.float32)
+    out = {}
+    for fused in (False, True):
+        v, g = jax.value_and_grad(jloss(js, fused))(theta)
+        vb, gb = jax.value_and_grad(jloss(bump_pos(js), fused))(theta)
+        g, gb = np.asarray(g), np.asarray(gb)
+        out[("jax", fused)] = (float(v), g)
+        out[("spread", fused)] = (abs(float(vb) - float(v)) / abs(float(v)),
+                                  float((np.abs(gb - g) / np.abs(g)).max()))
+        out[("port", fused)] = tgrad(fused)
+    return out
+
+
+@pytest.mark.parametrize("pair", [
+    ("port fused", "port unfused"), ("port fused", "jax unfused"),
+    ("port unfused", "jax unfused"), ("port fused", "jax fused")])
+def test_ep_constant_grad_matches(ep_constant_grads, pair):
+    """d loss / d (fh_c1, sigma_i) through the port's fused monodomain
+    path (K3's plain version forward and backward, here on the CPU)
+    against its unfused path, both against JAX's unfused autodiff, and
+    the fused against JAX's fused gradient: the JAX suite's value rtol
+    1e-5 and gradient rtol 2e-4 (tests/test_params.py:176-179), each the
+    larger of that and SPREAD_FACTOR x JAX's own 1-ulp spread of the two
+    forms compared (tests/torch_parity.py). d/d sigma_i is ~4e-6 of a
+    loss of ~26: one ulp of the input positions moves JAX's unfused value
+    of it by 1.2e-4 (relative) on an AVX2 host."""
+    def get(name):
+        pkg, form = name.split()
+        return ep_constant_grads[(pkg, form == "fused")]
+
+    spreads = [ep_constant_grads[("spread", name.endswith(" fused"))]
+               for name in pair]
+    v_rtol = max(1e-5, SPREAD_FACTOR * max(sp[0] for sp in spreads))
+    g_rtol = max(2e-4, SPREAD_FACTOR * max(sp[1] for sp in spreads))
+    (va, ga), (vb, gb) = get(pair[0]), get(pair[1])
+    assert np.abs(gb).min() > 0, f"a gradient vanished: {gb}"
+    np.testing.assert_allclose(va, vb, rtol=v_rtol)
+    np.testing.assert_allclose(ga, gb, rtol=g_rtol)
 
 
 def test_lap_vm_fn_composes_with_checkpoint():
