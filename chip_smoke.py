@@ -119,6 +119,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  28. demos    contraction_demo (biceps_18475, 40 steps, 20 frames),
               fit_stimulus_demo 4 3 (< 1% off) and fit_material_demo 6 100
               (< 20% off)
+ 29. cli      the command line on biceps_full: cli.main, coupled, 500
+              steps, chunk 100, with --report, --profile-phases, --traj
+              (the native writer) and --save-checkpoint: rc 0, overflow 0,
+              a 23-column report row whose phase columns reconcile with
+              its step column, 5 trajectory frames read back finite and
+              inside the world, K1 / K2 launched 500 times by the run
+              besides the profiler's own launches; a run stopped at step
+              300 by its control file and resumed from its checkpoint,
+              held to the uninterrupted run; --mode monodomain (K3's
+              launches), sph and sm, 50 steps each; the tools
+              profile_phases, hbm_footprint (biceps_full and x7),
+              ablate_fused (full book), bench_rows (one scene) and sweep
+              --quick
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -126,8 +139,13 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -137,6 +155,7 @@ import numpy as np
 import torch
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch import cli, runtime
 from sph_sm_monodomain_tpu_torch.ablation import legacy_steps
 from sph_sm_monodomain_tpu_torch.ablation import legacy_sweeps as tls
 from sph_sm_monodomain_tpu_torch.examples import contraction_demo
@@ -158,7 +177,10 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping2,
                                                     sweep_bookkeeping3,
                                                     sweep_bookkeeping5)
-from sph_sm_monodomain_tpu_torch.tools import roofline, sm_precision
+from sph_sm_monodomain_tpu_torch.tools import (ablate_fused, bench_rows,
+                                               hbm_footprint, profile_phases,
+                                               roofline, sm_precision, sweep)
+from sph_sm_monodomain_tpu_torch.utils import report as report_mod
 from sph_sm_monodomain_tpu_torch.tools.roofline import (PEAK_BYTES,
                                                         PEAK_FLOPS)
 from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
@@ -248,8 +270,7 @@ MULTI = ((7, "blocked", 3), (REPLICATE, "contig", 100))
 # the x1 run and of every tile against tile 0
 ORACLE_STEPS, ORACLE_TOL = 3, 2e-4
 # the clustered goals' largest distance from a float64 evaluation, every
-# tile deformed alike (tools/sm_precision.py; 6.2e-6 on the CPU at x56,
-# where fp32 sums about the world origin reach 1.5e-3)
+# tile deformed alike (tools/sm_precision.py; 6.2e-6 on the CPU at x56)
 SM_PRECISION_TOL = 1e-4
 # card vs CPU on a small replicate; SM-only steps on x56; steps of the
 # timed calls; the contraction demo's steps
@@ -257,6 +278,15 @@ SMALL_REPLICATE, SMALL_STEPS, SM_BIG_STEPS = 2, 6, 100
 MULTI_TIMING_STEPS, CONTRACTION_STEPS = 20, 40
 # project_positions calls a timing of one clustered form averages over
 FORM_CALLS = 20
+# the command line (phase 29): steps and chunk of the coupled run, the
+# step its resumed twin stops at, the steps of each other mode and of the
+# sweep tool's runs; the resumed run is held to the uninterrupted one at
+# the multi-step parity tests' one-step tolerances (tests/torch_parity.py
+# STEP_TOLS, dens relative 1e-5)
+CLI_STEPS, CLI_CHUNK, CLI_STOP_AT = 500, 100, 300
+CLI_MODE_STEPS, CLI_SWEEP_STEPS = 50, 20
+RESUME_TOLS = {"pos": 5e-5, "vel": 5e-3, "vm": 5e-3, "iion": 1e-5, "w": 1e-6}
+RESUME_DENS_RTOL = 1e-5
 # torch.profiler's names of the host calls that launch a kernel
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -1154,6 +1184,218 @@ def phase_demos() -> dict:
             "material_err_mu": mat["err_mu"], "frames": len(frames)}
 
 
+def run_cli(argv, names=(), buf=None):
+    """cli.main(argv) with the launch counts of the kernels `names` set to
+    0 just before it and read just after; its standard output goes to
+    `buf` (a fresh StringIO if None), then is echoed and returned. Returns
+    (rc, launches, output, wall seconds)."""
+    for nm in names:
+        getattr(KERNEL_MODULE[nm], nm).launches = 0
+    buf = buf if buf is not None else io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return (rc, {nm: getattr(KERNEL_MODULE[nm], nm).launches
+                 for nm in names}, out, wall)
+
+
+def counting_profiler(names, seen):
+    """profile_phases_fused, recording into `seen` the launches of the
+    kernels `names` that its own chains make."""
+    real = report_mod.profile_phases_fused
+
+    def wrapped(*args, **kw):
+        before = {nm: getattr(KERNEL_MODULE[nm], nm).launches
+                  for nm in names}
+        out = real(*args, **kw)
+        for nm in names:
+            seen[nm] = getattr(KERNEL_MODULE[nm], nm).launches - before[nm]
+        return out
+    return wrapped
+
+
+def stop_when_paused(ctl: Path, buf: io.StringIO, step: int):
+    """A thread that appends 'stop' to the control file `ctl` once the
+    CLI's output `buf` says the run paused at `step` (its --pause-at),
+    where it waits on the file."""
+    def watch():
+        while f"paused at step {step} " not in buf.getvalue():
+            time.sleep(0.05)
+        with open(ctl, "a") as f:
+            f.write("stop\n")
+    t = threading.Thread(target=watch, daemon=True)
+    t.start()
+    return t
+
+
+def check_resumed(end, full, cfg) -> bool:
+    """The resumed run's final state against the uninterrupted run's, at
+    RESUME_TOLS / RESUME_DENS_RTOL; returns whether every field's bits
+    are equal."""
+    a = full.active
+    for name, atol in RESUME_TOLS.items():
+        err = float((getattr(end, name)[a] - getattr(full, name)[a]).abs()
+                    .max())
+        print(f"resumed vs uninterrupted {name}: max abs diff {err:.3g} "
+              f"(tolerance {atol:g})", flush=True)
+        if not err <= atol:
+            raise AssertionError(f"resumed run: {name} off the "
+                                 "uninterrupted run")
+    rel = float(((end.dens[a] - full.dens[a]) / full.dens[a]).abs().max())
+    if not rel <= RESUME_DENS_RTOL:
+        raise AssertionError("resumed run: dens off the uninterrupted run")
+    check_in_world(end, cfg, "resumed run")
+    return all(torch.equal(getattr(end, f.name), getattr(full, f.name))
+               for f in dataclasses.fields(end))
+
+
+def phase_cli(dev) -> dict:
+    """Phase 29: the command line and the measuring tools on biceps_full."""
+    if not runtime.native_available():
+        raise AssertionError("the native trajectory writer did not build")
+    out = {}
+    base = ["--scene", "biceps_full", "--chunk", str(CLI_CHUNK)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rep, traj, ckpt = tmp / "report.csv", tmp / "t.bin", tmp / "end.npz"
+        seen = {}
+        with mock.patch.object(report_mod, "profile_phases_fused",
+                               counting_profiler(("sweep_a3", "sweep_b3"),
+                                                 seen)):
+            rc, launches, text, wall = run_cli(
+                base + ["--steps", str(CLI_STEPS), "--report", str(rep),
+                        "--profile-phases", "--traj", str(traj),
+                        "--save-checkpoint", str(ckpt)],
+                ("sweep_a3", "sweep_b3"))
+        run_launches = {nm: launches[nm] - seen.get(nm, 0) for nm in launches}
+        print(f"cli coupled: rc {rc} in {wall:.3f} s; K1 / K2 launches "
+              f"{launches}, of them the profiler's {seen}, the run's "
+              f"{run_launches}", flush=True)
+        if rc != 0 or "overflow=0" not in text:
+            raise AssertionError("cli coupled run failed or overflowed")
+        if run_launches != {"sweep_a3": CLI_STEPS, "sweep_b3": CLI_STEPS}:
+            raise AssertionError(f"cli run launched {run_launches}")
+        header, row = rep.read_text().splitlines()
+        cols = row.split(";")
+        if header != report_mod.REPORT_HEADER or len(cols) != 23:
+            raise AssertionError("cli report row off the schema")
+        step_s = float(cols[1])
+        phase_sum = sum(float(c) for c in cols[3:10])
+        print(f"cli report row: {row}\nstep {step_s * 1e3:.4f} ms, phase "
+              f"columns sum {phase_sum * 1e3:.4f} ms", flush=True)
+        if not (step_s > 0 and 0.5 * step_s <= phase_sum <= 1.5 * step_s):
+            raise AssertionError("cli report row: phases do not reconcile")
+        steps, payload = runtime.read_trajectory(traj)
+        world = np.asarray(T.SimConfig().world_size, np.float32)
+        pos = payload[..., :3]
+        print(f"cli trajectory: steps {steps.tolist()}, payload "
+              f"{payload.shape}", flush=True)
+        if steps.tolist() != list(range(CLI_CHUNK, CLI_STEPS + 1,
+                                         CLI_CHUNK)) \
+                or not np.isfinite(payload).all() \
+                or (pos < 0).any() or (pos > world).any():
+            raise AssertionError("cli trajectory frames off")
+        full, step, _ = T.load_checkpoint(str(ckpt), with_config=True,
+                                          device=dev)
+        if step != CLI_STEPS:
+            raise AssertionError(f"cli checkpoint at step {step}")
+        raw = [ln for ln in text.splitlines()
+               if ln.startswith("profile raw pipelines")]
+        out["coupled"] = {"wall_s": wall, "launches": launches,
+                          "profiler_launches": seen, "row": row,
+                          "raw_line": raw[0] if raw else None}
+
+        # the same run stopped at step CLI_STOP_AT by its control file,
+        # then resumed from the checkpoint it saved
+        ctl, half = tmp / "ctl", tmp / "half.npz"
+        ctl.write_text("")
+        buf = io.StringIO()
+        watcher = stop_when_paused(ctl, buf, CLI_STOP_AT)
+        rc1, _, _, wall1 = run_cli(
+            base + ["--steps", str(CLI_STEPS), "--stim-off-step",
+                    str(CLI_STEPS // 2), "--control", str(ctl),
+                    "--pause-at", str(CLI_STOP_AT), "--save-checkpoint",
+                    str(half)], buf=buf)
+        watcher.join()
+        if rc1 != 0 or T.load_checkpoint(str(half), device=dev)[1] \
+                != CLI_STOP_AT:
+            raise AssertionError("the stopped run did not save step "
+                                 f"{CLI_STOP_AT}")
+        rc2, _, _, wall2 = run_cli(
+            base + ["--steps", str(CLI_STEPS), "--stim-off-step",
+                    str(CLI_STEPS // 2), "--load-checkpoint", str(half),
+                    "--save-checkpoint", str(tmp / "resumed.npz")])
+        end, step, _ = T.load_checkpoint(str(tmp / "resumed.npz"),
+                                         with_config=True, device=dev)
+        if rc2 != 0 or step != CLI_STEPS:
+            raise AssertionError("the resumed run did not reach the end")
+        bits = check_resumed(end, full, T.SimConfig())
+        print(f"resume: stopped at {CLI_STOP_AT} in {wall1:.3f} s, resumed "
+              f"to {CLI_STEPS} in {wall2:.3f} s; bit-equal to the "
+              f"uninterrupted run: {bits}", flush=True)
+        out["resume"] = {"bit_equal": bits, "wall_s": [wall1, wall2]}
+
+        modes = {"monodomain": ("sweep_lap3", "sweep_a3"),
+                 "sph": ("sweep_a3", "sweep_b3"), "sm": ("sweep_a3",)}
+        want = {"monodomain": {"sweep_lap3": CLI_MODE_STEPS + 1,
+                               "sweep_a3": 1},
+                "sph": {"sweep_a3": CLI_MODE_STEPS,
+                        "sweep_b3": CLI_MODE_STEPS},
+                "sm": {"sweep_a3": 0}}
+        out["modes"] = {}
+        for mode, names in modes.items():
+            rc, launches, text, wall = run_cli(
+                base + ["--mode", mode, "--steps", str(CLI_MODE_STEPS),
+                        "--save-checkpoint", str(tmp / f"{mode}.npz")],
+                names)
+            st = T.load_checkpoint(str(tmp / f"{mode}.npz"), device=dev)[0]
+            check_fields_finite(st, T.SimConfig(), f"cli --mode {mode}")
+            print(f"cli --mode {mode}: rc {rc} in {wall:.3f} s, launches "
+                  f"{launches}", flush=True)
+            if rc != 0 or launches != want[mode]:
+                raise AssertionError(f"cli --mode {mode}: rc {rc}, "
+                                     f"launches {launches}")
+            out["modes"][mode] = {"wall_s": wall, "launches": launches}
+
+        tools = {}
+        t0 = time.perf_counter()
+        ph = profile_phases.main(["--scene", "biceps_full"])
+        tools["profile_phases"] = {
+            "s": time.perf_counter() - t0,
+            "raw_pipeline_ms": [t * 1e3 for t in ph["raw_pipeline_s"]],
+            "total_ms": ph["total_step"] * 1e3}
+        t0 = time.perf_counter()
+        rows = hbm_footprint.main(["--scenes", "biceps_full,biceps_full:7"])
+        if len(rows) != 2:
+            raise AssertionError("hbm_footprint measured no scene")
+        tools["hbm_footprint"] = {"s": time.perf_counter() - t0,
+                                  "rows": rows}
+        t0 = time.perf_counter()
+        tools["ablate_fused"] = {"ms": ablate_fused.main(
+            ["biceps_full", "full", "book"]), "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        lines = bench_rows.main(["--scenes", "biceps_full::100", "--out",
+                                 str(tmp / "rows.csv")])
+        tools["bench_rows"] = {"rows": lines, "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        if sweep.main(["--quick", "--scene", "biceps_full", "--steps",
+                       str(CLI_SWEEP_STEPS), "--out",
+                       str(tmp / "sweep.csv")]) != 0:
+            raise AssertionError("sweep --quick failed")
+        rows = [ln for ln in (tmp / "sweep.csv").read_text().splitlines()
+                if ln and not ln.startswith(("#", "Avg F"))]
+        if len(rows) != 8:
+            raise AssertionError(f"sweep --quick wrote {len(rows)} rows")
+        tools["sweep"] = {"rows": len(rows), "s": time.perf_counter() - t0}
+        out["tools"] = tools
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1897,6 +2139,12 @@ def main() -> int:
     multi_timing = phase_multi_timing(dev, big, x7)
     phase("28 demos: contraction_demo, fit_stimulus_demo, fit_material_demo")
     demos = phase_demos()
+    phase("29 the command line on biceps_full: coupled with report, "
+          "profile, trajectory and checkpoint; resume; the modes; the tools")
+    t0 = time.perf_counter()
+    cli_out = phase_cli(dev)
+    cli_out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 29 took {cli_out['phase_s']:.3f} s", flush=True)
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
@@ -1930,7 +2178,7 @@ def main() -> int:
                       "peak_gib": big_peak / 2**30},
         "multi_muscle": {**multi, "sm_only": sm_big,
                          "timing": multi_timing},
-        "demos": demos}), flush=True)
+        "demos": demos, "cli": cli_out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,7 +13,11 @@ Fixed-iteration semantics are kept, and `torch.linalg.eigh` is not used:
 
 `det3`, `invert3`, `jacobi_eigh3_cyclic` and `polar_decomposition` take a
 (..., 3, 3) batch (one matrix per shape-matching cluster) with the same op
-sequence per matrix, so a batch costs the launches of one matrix.
+sequence per matrix, so a batch costs the launches of one matrix. Their
+3x3 products go through `small_matmul`, one fixed chain of fused
+multiply-adds: a batched `@` may round in another way than a single one
+(MKL's batched GEMM does on AVX-512 hosts), and then a batch would not
+give the bits of its matrices one at a time.
 All matrix products run in full fp32 (the port never enables TF32).
 """
 
@@ -22,6 +26,25 @@ from __future__ import annotations
 import torch
 
 from .numerics import sqrt_rn
+
+
+def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for a short inner dimension k ((..., m, k) @ (..., k, n)) in
+    float32, as a chain of fused multiply-adds in the order 0..k-1:
+    round(a0 b0), then fma(a_i, b_i, acc). That is how XLA's CPU dot and
+    MKL's single-matrix product round a 3x3 product; a batched `@` may sum
+    otherwise (MKL's batched GEMM on AVX-512 rounds each product and sum
+    apart), so a batch would not give the bits of its matrices one at a
+    time. Each fma is taken in float64, where a float32 product is exact,
+    then rounded once to float32 (a double rounding can differ from a true
+    fma only when the float64 sum lands exactly on a float32 midpoint)."""
+    if a.dtype != torch.float32:
+        return a @ b
+    prods = a[..., :, :, None] * b.double()[..., None, :, :]
+    acc = prods[..., 0, :].float()
+    for i in range(1, a.shape[-1]):
+        acc = (prods[..., i, :] + acc).float()
+    return acc
 
 
 def det3(A: torch.Tensor) -> torch.Tensor:
@@ -147,14 +170,15 @@ def polar_decomposition(A: torch.Tensor, iterations: int = 20):
     for each matrix of a (..., 3, 3) batch. Returns (R, S); lambda <= 0
     directions contribute zero (cpp:90-92)."""
     At = A.transpose(-1, -2)
-    lam, U = jacobi_eigh3_cyclic(At @ A, sweeps=max(iterations // 3, 5))
+    lam, U = jacobi_eigh3_cyclic(small_matmul(At, A),
+                                 sweeps=max(iterations // 3, 5))
     nonpos = lam <= 0.0
     inv_sqrt = torch.where(
         nonpos, torch.zeros_like(lam),
         1.0 / sqrt_rn(torch.where(nonpos, torch.ones_like(lam), lam)))
-    S1 = (U * inv_sqrt[..., None, :]) @ U.transpose(-1, -2)
-    R = A @ S1
-    S = R.transpose(-1, -2) @ A
+    S1 = small_matmul(U * inv_sqrt[..., None, :], U.transpose(-1, -2))
+    R = small_matmul(A, S1)
+    S = small_matmul(R.transpose(-1, -2), A)
     return R, S
 
 

@@ -33,7 +33,8 @@ import torch
 from ..config import SimConfig
 from ..state import ParticleState
 from .constants import const_tensor
-from .linalg import det3, invert3, polar_decomposition, pseudo_inverse
+from .linalg import (det3, invert3, polar_decomposition, pseudo_inverse,
+                     small_matmul)
 from .numerics import ensure_fp32, sqrt_rn
 
 # anti-flip sign pattern: negate (0,1), (1,1), (2,2) (cpp:296-298)
@@ -253,7 +254,7 @@ def _linear_transform(Apq, aqq_inv, cfg: SimConfig):
         Apq = _anti_flip(Apq, det3(Apq), const_tensor(_FLIP_SIGNS,
                                                       Apq.device))
     R, _ = polar_decomposition(Apq, cfg.jacobi_iterations)
-    A = Apq @ aqq_inv                                      # cpp:307-309
+    A = small_matmul(Apq, aqq_inv)                         # cpp:307-309
     if cfg.volume_conservation:
         A = A * _volume_scale(det3(A))                     # cpp:311-320
     return R * (1.0 - cfg.sm_beta) + A * cfg.sm_beta       # cpp:322
@@ -266,7 +267,7 @@ def _quadratic_transform(Apq, A9pq, a9qq_pinv, cfg: SimConfig):
         Apq = _anti_flip(Apq, det3(Apq), const_tensor(_FLIP_SIGNS,
                                                       Apq.device))
     R, _ = polar_decomposition(Apq, cfg.jacobi_iterations)
-    A9 = (A9pq @ a9qq_pinv) * cfg.sm_beta
+    A9 = small_matmul(A9pq, a9qq_pinv) * cfg.sm_beta
     A9 = torch.cat([A9[..., :3] + (1.0 - cfg.sm_beta) * R, A9[..., 3:]],
                    dim=-1)                                 # cpp:390-403
     det = det3(A9[..., :3])                                # cpp:405-408

@@ -11,7 +11,7 @@ moments about each cluster's rest center (ops/shape_matching.py).
 This tool deforms every tile alike (a seeded displacement of up to ~0.03)
 and prints, per tile, the largest distance of the goal positions from a
 float64 evaluation: the port's, and those of the world-origin fp32 sums
-(the JAX package's formula, on the one-hot form). Each tile's goals should
+(the JAX package's formula, each sum taken in one pass in row order). Each tile's goals should
 be as far from float64 as tile 0's; a goal error e enters the corrected
 velocity as e * sm_alpha / time_delta (~97 e).
 
@@ -30,23 +30,49 @@ from ..ops import shape_matching as sm
 from ..utils.io import build_scene
 
 
+def row_order_sums(terms: torch.Tensor, cid: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """(K, F) fp32 sums of the rows of `terms` (N, F) per cluster, in one
+    pass in row order, as the reference's loops sum (cpp:244-279). Done on
+    the host in numpy: elementwise fp32 adds, so no BLAS's blocking decides
+    the rounding."""
+    t = terms.detach().cpu().numpy().astype(np.float32)
+    c = cid.cpu().numpy()
+    counts = np.bincount(c, minlength=k)
+    rows = np.zeros((k, int(counts.max()), t.shape[1]), np.float32)
+    order = np.argsort(c, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for kk in range(k):
+        rows[kk, :counts[kk]] = t[order[starts[kk]:starts[kk] + counts[kk]]]
+    acc = np.zeros((k, t.shape[1]), np.float32)
+    for j in range(rows.shape[1]):
+        acc += rows[:, j]
+    return torch.from_numpy(acc).to(terms.device)
+
+
 def origin_goals(state, cfg) -> torch.Tensor:
     """Goals of the linear clustered match with every sum in fp32 about the
-    world origin (the JAX package's formula, one-hot form)."""
+    world origin (the JAX package's formula), each sum taken in row order
+    (`row_order_sums`). A blocked BLAS sum can hide the formula's loss on
+    one host and not on another: MKL's GEMM on the CPU reads 3.5e-5 at a
+    tile at x = 82.5, cuBLAS 4.69e-4 on biceps_full x56."""
     k = cfg.sm_clusters
     m, m_cm = sm._masses(state, cfg)
     cid = sm.cluster_ids(state.orig_pos, cfg)
-    oh = sm._cluster_onehot(cid, k, m.dtype)
-    mass_cm_sum = torch.clamp(m_cm @ oh, min=1e-30)
-    ocm = (oh.T @ (m_cm[:, None] * state.orig_pos)) / mass_cm_sum[:, None]
+    s = row_order_sums(torch.cat([m_cm[:, None],
+                                  m_cm[:, None] * state.orig_pos], 1), cid, k)
+    mass_cm_sum = torch.clamp(s[:, 0], min=1e-30)
+    ocm = s[:, 1:] / mass_cm_sum[:, None]
     q = state.orig_pos - ocm[cid]
-    mq = oh.T @ (m[:, None] * q)
-    aqq = (oh.T @ ((q * m[:, None])[:, :, None] * q[:, None, :])
-           .reshape(-1, 9)).reshape(k, 3, 3)
-    cm = (oh.T @ (m_cm[:, None] * state.pos)) / mass_cm_sum[:, None]
     posm = state.pos * m[:, None]
-    apq = (oh.T @ (posm[:, :, None] * q[:, None, :]).reshape(-1, 9)) \
-        .reshape(k, 3, 3) - cm[:, :, None] * mq[:, None, :]
+    s = row_order_sums(torch.cat([
+        m[:, None] * q,
+        ((q * m[:, None])[:, :, None] * q[:, None, :]).reshape(-1, 9),
+        m_cm[:, None] * state.pos,
+        (posm[:, :, None] * q[:, None, :]).reshape(-1, 9)], 1), cid, k)
+    mq, aqq = s[:, :3], s[:, 3:12].reshape(k, 3, 3)
+    cm = s[:, 12:15] / mass_cm_sum[:, None]
+    apq = s[:, 15:].reshape(k, 3, 3) - cm[:, :, None] * mq[:, None, :]
     t = sm._linear_transform(apq, sm.invert3(aqq), cfg)
     goal = (q[:, None, :] * t[cid]).sum(-1) + cm[cid]
     return torch.where(state.fixed[:, None], state.goal_pos, goal)

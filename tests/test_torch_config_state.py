@@ -119,9 +119,20 @@ def test_set_stim_and_hits_match():
         np.testing.assert_array_equal(hb.numpy(), np.asarray(ha))
 
 
+# every module of the port that imports lazily or stands apart from the
+# top package (the command line, its report and runtime, the tools)
+PORT_MODULES = (
+    "cli", "runtime", "utils.report", "utils.profiling", "utils.debug",
+    "ops.bounds", "tools.profile_phases", "tools.hbm_footprint",
+    "tools.bench_rows", "tools.sweep", "tools.ablate_fused",
+    "tools.roofline", "tools.sm_precision")
+
+
 def test_port_imports_no_jax():
+    mods = "; ".join(f"import sph_sm_monodomain_tpu_torch.{m}"
+                     for m in PORT_MODULES)
     code = ("import sys; before = set(sys.modules); "
-            "import sph_sm_monodomain_tpu_torch; "
+            "import sph_sm_monodomain_tpu_torch; " + mods + "; "
             "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
             "bad = new & {'jax', 'jaxlib', 'sph_sm_monodomain_tpu'}; "
             "assert not bad, bad; assert 'jax' not in sys.modules")

@@ -141,12 +141,12 @@ def jax_steps(jcfg, impl, steps, sub_q, pack_cap=0, w_chunk=128):
     return run
 
 
-def bump_pos(js):
+def bump_pos(js, toward=np.inf):
     """The JAX state with every live row's pos moved one float32 ulp
-    toward +inf."""
+    toward `toward` (+inf by default)."""
     pos = np.array(js.pos)
     act = np.asarray(js.active)
-    pos[act] = np.nextafter(pos[act], np.float32(np.inf))
+    pos[act] = np.nextafter(pos[act], np.float32(toward))
     return js.replace(pos=pos)
 
 
