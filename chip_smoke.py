@@ -12,7 +12,8 @@ frozen-cloud monodomain mode on the hand-written Laplacian kernel, forward
 and backward; the SPH-only, SM-only and unfused modes; the roofline
 tool, whose FMA-chain probe measures the card's fp32 peak; the coupled and
 SM-only steps on the multi-muscle scenes biceps_full x7 and x56 (one
-shape-matching cluster a muscle); and the contraction and fit demos.
+shape-matching cluster a muscle); the contraction and fit demos; and the
+multi-device runs, two ranks sharing the card.
 Phases, each printing its lines; any failure raises and exits non-zero:
 
   1. device   needs torch.cuda; prints the card's name and power limit
@@ -133,8 +134,29 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               ablate_fused (full book), bench_rows (one scene) and sweep
               --quick
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+ 30. multi    K1 / K2 on each half of biceps_full's sorted rows (padded to
+              whole sub-blocks at 2 ranks; q_slice, the slab launches)
+              against their plain versions, two launches bitwise equal,
+              their times and bounds; 2 ranks sharing the card (gloo
+              through host copies; which gloo collectives take CUDA
+              tensors is probed and printed): the fused slab path (3
+              steps against one device at tests/test_sharded_fused.py's
+              tolerances, then 500 protocol steps, stim off at 250, finite
+              and inside the world, K1 / K2 slab launches exactly 500 per
+              rank), the gather path (3 steps), the halo path on
+              biceps_full x7 (3 steps against one device by orig_pos at
+              tests/test_halo.py's tolerances, then 50 steps: every
+              particle kept, migration counted, overflow 0), K1 / K2 on
+              each rank's recorded halo inputs (S queries against S + 2H
+              candidates) against their plain versions; NCCL at world
+              size 1; the command line with --devices 2 --parallel
+              gather / fused / halo (20 steps), the halo checkpoint
+              resumed on one device; ms/step of each path (two ranks on
+              one card) and of one device
+
+The line before the last is a JSON object with one entry per kernel (K1 /
+K2's slab launches as rows of their own); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -143,6 +165,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import subprocess
 import sys
 import tempfile
 import threading
@@ -1396,6 +1419,613 @@ def phase_cli(dev) -> dict:
     return out
 
 
+# --- phase 30: multi-device runs (two ranks sharing the card) ---------------
+
+# the slab launches of K1 / K2 (ops/fused_step.sweep_a3 / sweep_b3 with
+# q_slice or n_q != n_c, counted in their `slab_launches`): name, source,
+# TPU kernel replaced
+SLAB_KERNELS = (
+    ("sweep_a3_slab", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:446", "sweep_a3"),
+    ("sweep_b3_slab", "sph_sm_monodomain_tpu_torch/csrc/fused_sweeps.cu",
+     "sph_sm_monodomain_tpu/ops/fused_step.py:522", "sweep_b3"),
+)
+# ranks sharing the card; steps of the short parity runs against one device,
+# of the fused protocol (stim off at half) and its chunks, of each timing, of
+# the gather path, and of the halo run on biceps_full x7 that counts
+# migration; each collective's wait bound
+PAR_RANKS, PAR_PARITY_STEPS = 2, 3
+PAR_STEPS, PAR_CHUNK, PAR_TIMING_STEPS = 500, 100, 20
+PAR_GATHER_STEPS, PAR_HALO_REPLICATE, PAR_HALO_STEPS = 3, 7, 50
+PAR_TIMEOUT_S = 300
+# Two ranks against one device, by particle identity: each field within
+# the JAX suite's tolerance for its path (tests/test_sharded_fused.py,
+# tests/test_sharded.py, tests/test_halo.py; (atol, rtol), one of them
+# used) or within twice one device's own change when the same run starts
+# from the state with its rows shuffled (seeded), whichever is larger: the
+# ranks add the shape-matching moments in rank order, and on biceps_full
+# that moves one step's corrected velocities 1.0e-4 (the port on the CPU;
+# a shuffle of the rows 0.8-1.3e-4; JAX's own psum over 2 devices
+# 5.7e-4), which the step amplifies ~100x in vel (tests/torch_parity.py's
+# rule, with a shuffle in place of its 1-ulp bump, which shape matching
+# absorbs)
+PAR_FUSED_TOLS = {"pos": (5e-5, 0), "vel": (5e-4, 0), "vm": (1e-3, 0),
+                  "dens": (0, 1e-5), "inter_vm": (5e-3, 0)}
+PAR_GATHER_TOLS = {"pos": (5e-5, 0), "vel": (5e-4, 0), "vm": (1e-3, 0),
+                   "dens": (0, 1e-5)}
+PAR_HALO_TOLS = {"pos": (2e-5, 0), "vel": (5e-3, 0), "vm": (1e-3, 0),
+                 "dens": (1.0, 0), "iion": (1e-6, 0), "w": (1e-7, 0)}
+PAR_SHUFFLE_SEED = 13
+PAR_FIELDS = ("pos", "vel", "vm", "dens", "iion", "w", "inter_vm", "stim",
+              "active", "orig_pos")
+# the command line's short runs (steps, chunk), and the resumed steps
+PAR_CLI_STEPS, PAR_CLI_CHUNK, PAR_CLI_RESUME = 20, 10, 10
+
+
+def par_pad(scene_cap: int, sub_q: int) -> int:
+    """The capacity the fused slab path pads to at PAR_RANKS ranks (as the
+    command line pads it: whole sub-blocks a rank)."""
+    m = PAR_RANKS * sub_q
+    return -(-scene_cap // m) * m
+
+
+def rank_ms(step, st, steps: int, comm):
+    """(host ms per step of st = step(st) over `steps` steps, ended by a
+    synchronize and a barrier on every rank; the state)."""
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        st = step(st)
+    torch.cuda.synchronize()
+    comm.barrier()
+    return (time.perf_counter() - t0) * 1e3 / steps, st
+
+
+# one gloo collective on CUDA tensors between two processes (argv: rank,
+# port, collective); prints "RESULT ok" where it ran and gave the right
+# values. A collective gloo takes without copying through the host may
+# crash its process, so each runs in processes of its own.
+GLOO_PROBE = r"""
+import datetime, sys, torch, torch.distributed as dist
+rank, port, op = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=30))
+torch.cuda.set_device(0)
+x = torch.full((4,), float(rank + 1), device="cuda")
+both = torch.tensor([1.0] * 4 + [2.0] * 4, device="cuda")
+if op == "all_reduce":
+    y = x.clone(); dist.all_reduce(y); ok = bool((y == 3.0).all())
+elif op == "broadcast":
+    y = x.clone(); dist.broadcast(y, 0); ok = bool((y == 1.0).all())
+elif op == "all_gather":
+    ys = [torch.empty_like(x) for _ in range(2)]; dist.all_gather(ys, x)
+    ok = bool((torch.cat(ys) == both).all())
+elif op == "all_gather_into_tensor":
+    y = x.new_empty(8); dist.all_gather_into_tensor(y, x)
+    ok = bool((y == both).all())
+else:
+    y = torch.empty_like(x)
+    for r in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                     dist.P2POp(dist.irecv, y, 1 - rank)]):
+        r.wait()
+    torch.cuda.synchronize(); ok = bool((y == 2.0 - rank).all())
+print("RESULT", "ok" if ok else "wrong values", flush=True)
+dist.destroy_process_group()
+"""
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+            "isend_irecv")
+
+
+def probe_gloo_cuda() -> dict:
+    """Which gloo collectives take CUDA tensors as they are, two processes
+    on the card for each, all at once (the port's gloo-host transport
+    copies every collective's tensors through host memory instead):
+    {collective: "accepted" or what happened}."""
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    procs = {op: [subprocess.Popen(
+        [sys.executable, "-c", GLOO_PROBE, str(r), str(port), op],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+        for op, port in ((op, C.free_port()) for op in GLOO_OPS)}
+    found = {}
+    for op, ps in procs.items():
+        outs = []
+        for p in ps:
+            try:
+                outs.append((p.communicate(timeout=90)[0], p.returncode))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append((p.communicate()[0], "killed after 90 s"))
+        if all(rc == 0 and "RESULT ok" in o for o, rc in outs):
+            found[op] = "accepted"
+            continue
+        o, rc = next((o, rc) for o, rc in outs
+                     if not (rc == 0 and "RESULT ok" in o))
+        lines = [ln for ln in o.splitlines()
+                 if "Error" in ln or "what()" in ln or "RESULT" in ln]
+        found[op] = f"refused (exit {rc}): {(lines or ['-'])[-1][:160]}"
+    return found
+
+
+def _save_fields(st, path):
+    torch.save({k: getattr(st, k).cpu() for k in PAR_FIELDS}, path)
+
+
+def par_rank_main(comm, out_dir):
+    """One rank of phase 30 (PAR_RANKS ranks on the card): on biceps_full
+    padded to whole sub-blocks, the fused slab path's
+    parity steps, timing and PAR_STEPS-step protocol with its K1 / K2
+    launch counts, the gather path's steps and timing; on biceps_full x7
+    the halo path (its first step's sweep inputs recorded), its parity
+    steps, timing and the longer run. Rank 0 writes the gathered states;
+    every rank writes rank<r>.json."""
+    from sph_sm_monodomain_tpu_torch.parallel import halo_step as PH
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as PS
+    monodomain.ensure_fp32()
+    out, dev, lead = Path(out_dir), comm.device, comm.rank == 0
+    res = {"transport": comm.transport, "describe": comm.describe()}
+    sc = T.build_scene("biceps_full", device=dev)
+    sc = T.build_scene("biceps_full", device=dev,
+                       pad_to=par_pad(sc.state.capacity, sc.sub_block))
+    cfg, sub_q = sc.cfg, sc.sub_block
+
+    # the fused slab path: parity steps, timing, the protocol with counts
+    step = PS.make_sharded_step_fused(comm, cfg, sub_q=sub_q)
+    st = PS.shard_state(sc.state, comm)
+    for i in range(PAR_PARITY_STEPS):
+        st, _ = step(st)
+        full = PS.gather_state(st, comm)
+        if lead and i in (0, PAR_PARITY_STEPS - 1):
+            _save_fields(full, out / f"fused{i + 1}.pt")
+    res["fused_ms"], _ = rank_ms(lambda s: step(s)[0], st, PAR_TIMING_STEPS,
+                                 comm)
+    stim_off = PAR_STEPS // 2
+    st = PS.shard_state(sc.state, comm)
+    fst.sweep_a3.slab_launches = fst.sweep_b3.slab_launches = 0
+    fst.sweep_a3.launches = fst.sweep_b3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = 0
+    while done < PAR_STEPS:
+        n = min(PAR_CHUNK, PAR_STEPS - done)
+        off = stim_off - done if done <= stim_off < done + n else -1
+        st, _ = PS.make_sharded_simulate_fused(comm, cfg, n, off,
+                                               sub_q=sub_q)(st)
+        done += n
+    torch.cuda.synchronize()
+    res["protocol"] = {
+        "wall_s": time.perf_counter() - t0,
+        "slab_launches": [fst.sweep_a3.slab_launches,
+                          fst.sweep_b3.slab_launches],
+        "full_launches": [fst.sweep_a3.launches, fst.sweep_b3.launches]}
+    full = PS.gather_state(st, comm)
+    if lead:
+        _save_fields(full, out / "protocol.pt")
+
+    # the unfused all-gather path
+    gstep = PS.make_sharded_step(comm, cfg, sc.neighbor_capacity)
+    st = PS.shard_state(sc.state, comm)
+    ovf = []
+    for _ in range(PAR_GATHER_STEPS):
+        st, o = gstep(st)
+        ovf.append(int(o))
+    res["gather_overflow"] = ovf
+    full = PS.gather_state(st, comm)
+    if lead:
+        _save_fields(full, out / "gather.pt")
+    res["gather_ms"], _ = rank_ms(lambda s: gstep(s)[0], st,
+                                  PAR_GATHER_STEPS, comm)
+
+    # the halo path on biceps_full x7 (a world stretched along x)
+    x7 = T.build_scene("biceps_full", replicate=PAR_HALO_REPLICATE,
+                       device=dev)
+    cfg7, sq7 = x7.cfg, x7.sub_block
+    st, s_cap, mig, halo = PH.shard_state_halo(x7.state, comm, cfg7,
+                                               q_block=sq7)
+    res["halo_caps"] = [s_cap, mig, halo]
+    hstep = PH.make_halo_step(comm, cfg7, mig, halo, sub_q=sq7)
+    rec = {}
+
+    def recording(name, real):
+        def call(*args, **kw):
+            rec.setdefault(name, [a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args[:4]])
+            return real(*args, **kw)
+        return call
+    with mock.patch.object(PH, "sweep_a3", recording("a", PH.sweep_a3)), \
+            mock.patch.object(PH, "sweep_b3", recording("b", PH.sweep_b3)):
+        st, o = hstep(st)
+    torch.save(rec, out / f"halo_inputs{comm.rank}.pt")
+    ovf = [int(o)]
+    for _ in range(PAR_PARITY_STEPS - 1):
+        st, o = hstep(st)
+        ovf.append(int(o))
+    full = PS.gather_state(st, comm)
+    if lead:
+        _save_fields(full, out / "halo.pt")
+    res["halo_ms"], _ = rank_ms(lambda s: hstep(s)[0], st, PAR_TIMING_STEPS,
+                                comm)
+    sim = PH.make_halo_simulate(comm, cfg7, mig, halo, PAR_HALO_STEPS,
+                                sub_q=sq7)
+    st, o = sim(PH.shard_state_halo(x7.state, comm, cfg7, q_block=sq7)[0])
+    res["halo_overflow"] = ovf + [int(o)]
+    full = PS.gather_state(st, comm)
+    if lead:
+        _save_fields(full, out / "halo_end.pt")
+    (out / f"rank{comm.rank}.json").write_text(json.dumps(res))
+
+
+def _by_identity(fields: dict):
+    """The active rows of saved fields ordered by orig_pos (numpy)."""
+    act = fields["active"].numpy()
+    op = fields["orig_pos"].numpy()[act]
+    key = np.lexsort((op[:, 2], op[:, 1], op[:, 0]))
+    return {k: v.numpy()[act][key] for k, v in fields.items()}, int(act.sum())
+
+
+def _fields_of(st):
+    return {k: getattr(st, k).detach().cpu() for k in PAR_FIELDS}
+
+
+def one_device_runs(step, st, counts):
+    """{k: fields by identity after k steps of st = step(st)} for k in
+    counts, from st and from st with its rows shuffled (PAR_SHUFFLE_SEED):
+    (runs, shuffled runs)."""
+    perm = torch.from_numpy(np.random.default_rng(PAR_SHUFFLE_SEED)
+                            .permutation(st.capacity)).to(st.device)
+    shuffled = T.ParticleState(**{
+        f.name: (getattr(st, f.name) if getattr(st, f.name).dim() == 0
+                 else getattr(st, f.name)[perm])
+        for f in dataclasses.fields(st)})
+    outs = []
+    for s0 in (st, shuffled):
+        out = {}
+        for k in range(1, max(counts) + 1):
+            s0 = step(s0)
+            if k in counts:
+                out[k] = _by_identity(_fields_of(s0))[0]
+        outs.append(out)
+    return outs
+
+
+def hold_close(what, got, want, shuffled, tols) -> dict:
+    """Fields `got` (by identity) against one device's `want`, each within
+    max(its tolerance, 2 x one device's shuffle spread |want - shuffled|)
+    (PAR_FUSED_TOLS' rule). Returns {field: (error, limit, spread)}."""
+    out = {}
+    for name, (atol, rtol) in tols.items():
+        a, b, c = got[name], want[name], shuffled[name]
+        scale = np.maximum(np.abs(b), 1e-30) if rtol else 1.0
+        err = float((np.abs(a - b) / scale).max())
+        spread = float((np.abs(c - b) / scale).max())
+        lim = max(rtol or atol, 2.0 * spread)
+        out[name] = (err, lim, spread)
+        if not err <= lim:
+            raise AssertionError(f"{what}: {name} off one device by "
+                                 f"{err:.3g}, limit {lim:.3g} (one "
+                                 f"device's shuffle spread {spread:.3g})")
+    print(f"{what}: " + ", ".join(
+        f"{k} {e:.3g} (limit {lim:.3g}, spread {sp:.3g})"
+        for k, (e, lim, sp) in out.items()), flush=True)
+    return out
+
+
+def check_slab_kernels(dev, scp):
+    """K1 / K2 on each half of the padded biceps_full's sorted step-0 rows
+    (q_slice, as two ranks launch them), against their plain versions per
+    column, two launches bitwise equal; their times, plain times and
+    bounds at that shape. Returns ({name: max err}, {name: (ms, plain
+    ms)}, {name: bound tuple}, the inputs)."""
+    cfg, sub_q = scp.cfg, scp.sub_block
+    fs, fa, lo, hi = step0_inputs(scp, dev)
+    n = fs.shape[0]
+    half = n // PAR_RANKS
+    plain_a = fst.sweep_a3_plain(fs, fa, cfg)
+    fb = fst.feats_b(plain_a)
+    errs, times, bounds = {}, {}, {}
+    for name, _, _, base in SLAB_KERNELS:
+        kern = getattr(fst, base)
+        plain = getattr(fst, f"{base}_plain")
+        qm, feats = (fs, fa) if base == "sweep_a3" else (plain_a, fb)
+        scratch = {}
+        for off in range(0, n, half):
+            launch = lambda o=off: kern(qm, feats, lo, hi, cfg,  # noqa: E731
+                                        sub_q=sub_q, q_slice=(o, half))
+            check_kernel(scratch, f"{name} rows [{off}, {off + half}) of "
+                         f"{n}", launch(), plain(qm[off:off + half], feats,
+                                                 cfg))
+            check_repeatable(f"{name} rows [{off}, {off + half})", launch)
+        errs[name] = max(v["max_abs_err"] for v in scratch.values())
+        times[name] = (
+            cuda_ms(lambda: kern(qm, feats, lo, hi, cfg, sub_q=sub_q,
+                                 q_slice=(0, half)), 200),
+            cuda_ms(lambda: plain(qm[:half], feats, cfg), 5))
+        b0, b1 = 0, half // sub_q * 4
+        counts = roofline.pair_counts(qm[:half], lo[b0:b1], hi[b0:b1], cfg,
+                                      sub_q, cand=fs)
+        nbytes = 4 * (2 * 16 * half + 16 * n + 2 * (half // sub_q) * 4 + 32)
+        bounds[name] = bound(base, counts, half, nbytes)
+        b_ms = bounds[name][0]
+        print(f"{name} (rows [0, {half}) of {n}): kernel "
+              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"bound {b_ms * 1e3:.4f} us ({bounds[name][1]}; kernel at "
+              f"{b_ms / times[name][0] * 100:.3f}% of it); pairs {counts}",
+              flush=True)
+    return errs, times, bounds
+
+
+def check_halo_kernels(dev, out, cfg7, sub_q) -> dict:
+    """K1 / K2 on each rank's recorded first-step halo inputs (its S query
+    rows against its S + 2H merged candidates, n_q != n_c) against their
+    plain versions on sampled rows, two launches bitwise equal, and rank
+    0's launch time. Returns {name: max err, name + "_ms": ms}."""
+    res = {}
+    for r in range(PAR_RANKS):
+        rec = torch.load(out / f"halo_inputs{r}.pt")
+        for name, key, base in (("sweep_a3_slab", "a", "sweep_a3"),
+                                ("sweep_b3_slab", "b", "sweep_b3")):
+            qm, feats, lo, hi = (t.to(dev) if torch.is_tensor(t) else t
+                                 for t in rec[key])
+            kern = getattr(fst, base)
+            plain = getattr(fst, f"{base}_plain")
+            rows = sampled_rows(qm.shape[0], dev)
+            launch = lambda: kern(qm, feats, lo, hi, cfg7,  # noqa: E731
+                                  sub_q=sub_q)
+            scratch = {}
+            check_kernel(scratch, f"{name} halo rank {r} ({qm.shape[0]} "
+                         f"queries, {feats.shape[1]} candidates, "
+                         f"{rows.numel()} sampled rows)", launch()[rows],
+                         plain_on_rows(lambda q, f=feats: plain(q, f, cfg7),
+                                       qm, rows))
+            check_repeatable(f"{name} halo rank {r}", launch)
+            res[name] = max(res.get(name, 0.0),
+                            scratch.popitem()[1]["max_abs_err"])
+            if r == 0:
+                res[f"{name}_ms"] = cuda_ms(launch, 50)
+                print(f"{name} on rank 0's halo inputs: kernel "
+                      f"{res[f'{name}_ms']:.4f} ms", flush=True)
+    return res
+
+
+def cli_par_runs(tmp: Path) -> dict:
+    """The command line with --devices PAR_RANKS on biceps_full, one run a
+    --parallel strategy, all at once (each its own ranks on the card);
+    the halo run saves a checkpoint, which one device then resumes.
+    Returns {strategy: (wall s, output)}."""
+    base = [sys.executable, "-m", "sph_sm_monodomain_tpu_torch",
+            "--scene", "biceps_full", "--steps", str(PAR_CLI_STEPS),
+            "--chunk", str(PAR_CLI_CHUNK), "--devices", str(PAR_RANKS)]
+    ckpt = tmp / "halo.npz"
+    procs = {}
+    for par in ("gather", "fused", "halo"):
+        extra = ["--save-checkpoint", str(ckpt)] if par == "halo" else []
+        procs[par] = (time.perf_counter(), subprocess.Popen(
+            base + ["--parallel", par] + extra, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = {}
+    for par, (t0, p) in procs.items():
+        text = p.communicate(timeout=PAR_TIMEOUT_S)[0]
+        outs[par] = (time.perf_counter() - t0, text)
+        print(f"--- cli --devices {PAR_RANKS} --parallel {par} (rc "
+              f"{p.returncode}, {outs[par][0]:.1f} s wall):\n{text}",
+              end="", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"cli --parallel {par}: rc {p.returncode}")
+        want = f"parallel impl: {par} over {PAR_RANKS} devices, transport"
+        if want not in text or "overflow=0" not in text:
+            raise AssertionError(f"cli --parallel {par}: missing {want!r} "
+                                 "or overflow=0")
+    t0 = time.perf_counter()
+    end = tmp / "resumed.npz"
+    p = subprocess.run(base[:-2] + [
+        "--steps", str(PAR_CLI_STEPS + PAR_CLI_RESUME), "--load-checkpoint",
+        str(ckpt), "--save-checkpoint", str(end)], capture_output=True,
+        text=True, timeout=PAR_TIMEOUT_S)
+    print(f"--- cli resume of the halo checkpoint on one device (rc "
+          f"{p.returncode}):\n{p.stdout}{p.stderr[-2000:]}", end="",
+          flush=True)
+    if p.returncode != 0:
+        raise AssertionError("cli: the halo checkpoint did not resume")
+    st, step = T.load_checkpoint(str(end), device="cpu")
+    if step != PAR_CLI_STEPS + PAR_CLI_RESUME or \
+            not torch.isfinite(st.pos[st.active]).all():
+        raise AssertionError(f"cli resume: step {step} or non-finite")
+    outs["resume"] = (time.perf_counter() - t0, p.stdout)
+    return outs
+
+
+def nccl_world_one(dev, scp) -> dict:
+    """The fused slab path over NCCL at world size 1 in this process,
+    against the single-device step on the same state."""
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as PS
+    comm = C.init(0, 1, "cuda", f"tcp://localhost:{C.free_port()}",
+                  timeout_s=PAR_TIMEOUT_S)
+    try:
+        if comm.transport != "nccl":
+            raise AssertionError(f"world 1 transport {comm.transport}")
+        step = PS.make_sharded_step_fused(comm, scp.cfg,
+                                          sub_q=scp.sub_block)
+        st, ref = PS.shard_state(scp.state, comm), scp.state
+        for _ in range(PAR_PARITY_STEPS):
+            st, _ = step(st)
+            ref, _ = T.step_fused(ref, scp.cfg, scp.sub_block)
+        got = PS.gather_state(st, comm)
+        torch.cuda.synchronize()
+    finally:
+        C.shutdown()
+    err = float((got.pos - ref.pos).abs().max())
+    same = all(torch.equal(getattr(got, k), getattr(ref, k))
+               for k in ("pos", "vel", "vm", "dens"))
+    print(f"NCCL world 1 ({comm.describe()}): {PAR_PARITY_STEPS} fused "
+          f"steps, max |pos - one device| {err:.3g}, bitwise equal {same}",
+          flush=True)
+    if not err <= PAR_FUSED_TOLS["pos"][0]:
+        raise AssertionError("NCCL world 1 disagrees with one device")
+    return {"transport": comm.transport, "max_pos_err": err,
+            "bitwise_equal": same}
+
+
+def phase_parallel(dev, report, times, bounds, launches) -> dict:
+    """Phase 30: K1 / K2 slab launches against their plain versions, the
+    three multi-device paths with PAR_RANKS ranks sharing the card, NCCL at
+    world size 1, and the command line. Fills the slab kernels' entries
+    of report / times / bounds / launches; returns the phase's numbers."""
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    from sph_sm_monodomain_tpu_torch.parallel import halo_step as PH
+    t_phase = time.perf_counter()
+    sc = T.build_scene("biceps_full", device=dev)
+    scp = T.build_scene("biceps_full", device=dev,
+                        pad_to=par_pad(sc.state.capacity, sc.sub_block))
+    print(f"biceps_full padded to {scp.state.capacity} rows "
+          f"({PAR_RANKS} ranks x whole {scp.sub_block}-row sub-blocks)",
+          flush=True)
+    errs, slab_times, slab_bounds = check_slab_kernels(dev, scp)
+    gloo_cuda = probe_gloo_cuda()
+    print(f"gloo collectives on CUDA tensors: {gloo_cuda}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmpd:
+        out = Path(tmpd)
+        t0 = time.perf_counter()
+        C.spawn(par_rank_main, PAR_RANKS, (str(out),), device_type="cuda",
+                timeout_s=PAR_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        rk = [json.loads((out / f"rank{r}.json").read_text())
+              for r in range(PAR_RANKS)]
+        print(f"{PAR_RANKS} ranks on one card: {rk[0]['describe']}, ranks "
+              f"ran {ranks_s:.1f} s", flush=True)
+
+        # the fused slab path: parity, protocol, counts
+        n = scp.num_particles
+        want, shuf = one_device_runs(
+            lambda st: T.step_fused(st, scp.cfg, scp.sub_block)[0],
+            scp.state, (1, PAR_PARITY_STEPS))
+        worst = {k: hold_close(
+            f"fused slab path, {k} step(s), {PAR_RANKS} ranks vs one device",
+            _by_identity(torch.load(out / f"fused{k}.pt"))[0], want[k],
+            shuf[k], PAR_FUSED_TOLS) for k in (1, PAR_PARITY_STEPS)}
+        prot = torch.load(out / "protocol.pt")
+        st_end = T.ParticleState(**{
+            **{f.name: getattr(scp.state, f.name)
+               for f in dataclasses.fields(scp.state)},
+            **{k: v.to(dev) for k, v in prot.items()}})
+        check_in_world(st_end, scp.cfg, "fused slab protocol")
+        act = st_end.active
+        if not bool((st_end.stim[act] == -10000.0).all()):
+            raise AssertionError("fused slab protocol: stim not turned off")
+        per_rank = [r["protocol"]["slab_launches"] for r in rk]
+        full_form = [r["protocol"]["full_launches"] for r in rk]
+        print(f"fused slab protocol: {PAR_STEPS} steps (stim off at "
+              f"{PAR_STEPS // 2}) in {rk[0]['protocol']['wall_s']:.3f} s "
+              f"wall; K1 / K2 slab launches per rank {per_rank}, "
+              f"full-form launches {full_form}", flush=True)
+        for r, (na, nb) in enumerate(per_rank):
+            if (na, nb) != (PAR_STEPS, PAR_STEPS) or full_form[r] != [0, 0]:
+                raise AssertionError(f"rank {r}: K1 / K2 slab launches "
+                                     f"{(na, nb)}, want {PAR_STEPS} each")
+        launches["sweep_a3_slab"] = sum(p[0] for p in per_rank)
+        launches["sweep_b3_slab"] = sum(p[1] for p in per_rank)
+
+        # the gather path
+        g = torch.load(out / "gather.pt")
+        if any(r["gather_overflow"] != [0] * PAR_GATHER_STEPS for r in rk):
+            raise AssertionError("gather path overflowed")
+        if not torch.isfinite(g["pos"][g["active"]]).all():
+            raise AssertionError("gather path: non-finite positions")
+        want, shuf = one_device_runs(
+            lambda st: T.step(st, scp.cfg, scp.neighbor_capacity)[0],
+            scp.state, (PAR_GATHER_STEPS,))
+        gworst = hold_close(
+            f"gather path, {PAR_GATHER_STEPS} steps, {PAR_RANKS} ranks vs "
+            "one device's unfused step", _by_identity(g)[0],
+            want[PAR_GATHER_STEPS], shuf[PAR_GATHER_STEPS], PAR_GATHER_TOLS)
+
+        # the halo path on x7
+        x7 = T.build_scene("biceps_full", replicate=PAR_HALO_REPLICATE,
+                           device=dev)
+        caps = rk[0]["halo_caps"]
+        ovf = [r["halo_overflow"] for r in rk]
+        if any(any(o) for o in ovf):
+            raise AssertionError(f"halo path overflowed: {ovf}")
+        h, n_h = _by_identity(torch.load(out / "halo.pt"))
+        if n_h != x7.num_particles:
+            raise AssertionError(f"halo path: {n_h} particles, want "
+                                 f"{x7.num_particles}")
+        want, shuf = one_device_runs(
+            lambda st: T.step_fused(st, x7.cfg, x7.sub_block)[0],
+            x7.state, (PAR_PARITY_STEPS,))
+        herr = hold_close(
+            f"halo path on biceps_full x{PAR_HALO_REPLICATE} "
+            f"({x7.num_particles} particles, every one kept; S, mig_cap, "
+            f"halo_cap = {caps}), {PAR_PARITY_STEPS} steps, {PAR_RANKS} "
+            "ranks vs one device", h, want[PAR_PARITY_STEPS],
+            shuf[PAR_PARITY_STEPS], PAR_HALO_TOLS)
+        end = torch.load(out / "halo_end.pt")
+        e, n_e = _by_identity(end)
+        if n_e != x7.num_particles or not np.isfinite(e["pos"]).all():
+            raise AssertionError(f"halo run: {n_e} particles or non-finite")
+        lay, s0, _, _ = PH.halo_layout(x7.state, PAR_RANKS, x7.cfg,
+                                       q_block=x7.sub_block)
+        start = {k: torch.from_numpy(np.asarray(v)) for k, v in lay.items()
+                 if k in PAR_FIELDS}
+        rank0 = _by_identity({**start, "rank": torch.arange(
+            start["active"].shape[0]) // s0})[0]["rank"]
+        rank1 = _by_identity({**end, "rank": torch.arange(
+            end["active"].shape[0]) // caps[0]})[0]["rank"]
+        migrated = int((rank0 != rank1).sum())
+        print(f"halo run: {PAR_HALO_STEPS} steps, every particle kept, "
+              f"{migrated} particles ended on another rank than they "
+              f"started on, overflow 0", flush=True)
+        halo_k = check_halo_kernels(dev, out, x7.cfg, x7.sub_block)
+        for name in errs:
+            errs[name] = max(errs[name], halo_k[name])
+
+    # the single device's ms/step on the same padded state, and NCCL at 1
+    sm_inv = sm_invariants(scp.state, scp.cfg)
+    holder = {"s": scp.state}
+
+    def one():
+        holder["s"], _ = T.step_fused(holder["s"], scp.cfg, scp.sub_block,
+                                      sm_inv=sm_inv)
+    for _ in range(3):
+        one()
+    one_ms = cuda_ms(one, PAR_TIMING_STEPS)
+    nccl = nccl_world_one(dev, scp)
+
+    with tempfile.TemporaryDirectory() as tmpd:
+        cli_runs = cli_par_runs(Path(tmpd))
+
+    label = f"two ranks on one card ({roofline.card_line()})"
+    ms = {"fused": rk[0]["fused_ms"], "gather": rk[0]["gather_ms"],
+          f"halo_x{PAR_HALO_REPLICATE}": rk[0]["halo_ms"]}
+    print(f"ms/step, {label}: fused slab {ms['fused']:.3f} (biceps_full), "
+          f"gather {ms['gather']:.3f} (biceps_full), halo "
+          f"{ms[f'halo_x{PAR_HALO_REPLICATE}']:.3f} (biceps_full "
+          f"x{PAR_HALO_REPLICATE}); one device, no ranks: {one_ms:.3f} "
+          "(biceps_full, CUDA events); K1 / K2 slab launches per step and "
+          "rank: 1 each (fused and halo), 0 (gather). Not a multi-GPU "
+          "speedup: both ranks share one card.", flush=True)
+    for name in errs:
+        report[name] = {"max_abs_err": errs[name]}
+        times[name] = slab_times[name]
+        bounds[name] = slab_bounds[name]
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 30 took {phase_s:.3f} s", flush=True)
+    return {"label": label, "transport": rk[0]["transport"],
+            "gloo_cuda": gloo_cuda, "ms_per_step": ms,
+            "one_device_ms_per_step": one_ms,
+            "fused_protocol_wall_s": rk[0]["protocol"]["wall_s"],
+            "fused_parity": worst, "gather_parity": gworst,
+            "halo_parity": herr, "halo_caps": caps, "migrated": migrated,
+            "halo_kernel_ms": {k: v for k, v in halo_k.items()
+                               if k.endswith("_ms")},
+            "nccl_world1": nccl,
+            "cli_wall_s": {k: v[0] for k, v in cli_runs.items()},
+            "phase_s": phase_s}
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2145,6 +2775,10 @@ def main() -> int:
     cli_out = phase_cli(dev)
     cli_out["phase_s"] = time.perf_counter() - t0
     print(f"phase 29 took {cli_out['phase_s']:.3f} s", flush=True)
+    phase(f"30 multi-device: K1 / K2 on slabs of rows, the fused slab, "
+          f"gather and halo paths with {PAR_RANKS} ranks on the card, NCCL "
+          "at world size 1, the command line with --devices")
+    par = phase_parallel(dev, report, times, bounds, launches)
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
@@ -2154,7 +2788,7 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name)}
-        for name, source, replaces, _ in KERNELS],
+        for name, source, replaces, _ in KERNELS + SLAB_KERNELS],
         "step_ms": kernel_ms, "plain_step_ms": plain_ms,
         "fit_fwd_ms_per_step": fwd_ms, "fit_grad_ms_per_step": grad_ms,
         "bwd_device_ms": bwd_device_ms, "hash9_device_ms": hash9_device_ms,
@@ -2178,7 +2812,7 @@ def main() -> int:
                       "peak_gib": big_peak / 2**30},
         "multi_muscle": {**multi, "sm_only": sm_big,
                          "timing": multi_timing},
-        "demos": demos, "cli": cli_out}), flush=True)
+        "demos": demos, "cli": cli_out, "parallel": par}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,13 +14,24 @@ through run_protocol; monodomain: the Laplacian sweep; sph: the fused SPH
 sweeps). On the CPU each mode runs the unfused path, which the JAX package
 runs off the TPU, so a CPU run compares with the JAX package's.
 
-Multi-device runs (`--devices` > 1, `--parallel`) are parsed and refused:
-their port is a later slice (ROADMAP.md, Queue 1 row 5).
+Multi-device runs (`--devices N`, `--parallel gather|fused|halo`, coupled
+mode): the command starts N ranks itself (one process each, on this host),
+or, started by `torchrun`, joins the ranks it was given. On the CPU the
+ranks talk gloo; on the card NCCL where every rank has a card of its own,
+else gloo through host copies (ranks sharing one card); the run prints the
+transport. `auto` takes the fused slab path on the card and the unfused
+all-gather path on the CPU. Rank 0 prints, writes the trajectory, frames,
+report and checkpoint; a halo run's state is compacted back to a dense
+single-device state first, so its checkpoint resumes on one device.
 
 Usage examples:
   python -m sph_sm_monodomain_tpu_torch --scene biceps_full --steps 500
   python -m sph_sm_monodomain_tpu_torch --scene susane --mode sph \\
       --steps 300 --report out.csv --device cpu
+  python -m sph_sm_monodomain_tpu_torch --scene biceps_full --devices 2 \\
+      --parallel halo
+  torchrun --nproc-per-node 4 -m sph_sm_monodomain_tpu_torch \\
+      --scene biceps_full --devices 4
 """
 
 from __future__ import annotations
@@ -100,8 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stream per-chunk [pos3, vm] frames to a binary "
                         "trajectory file (native async writer)")
     p.add_argument("--devices", type=int, default=1,
-                   help=">1: shard particles over several devices (not "
-                        "ported yet: ROADMAP.md Queue 1 row 5)")
+                   help=">1: shard particles over N ranks (coupled mode), "
+                        "one process each, started here unless a launcher "
+                        "such as torchrun started them")
     p.add_argument("--control", default=None, metavar="PATH",
                    help="runtime control file, polled between chunks — the "
                         "headless equivalent of the reference's keyboard "
@@ -116,8 +128,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "step (repeatable); resume via the --control file")
     p.add_argument("--parallel", default="auto",
                    choices=["auto", "gather", "fused", "halo"],
-                   help="multi-device strategy with --devices>1 (not "
-                        "ported yet: ROADMAP.md Queue 1 row 5)")
+                   help="multi-device strategy with --devices>1: "
+                        "'gather' = all-gather + unfused step, 'fused' = "
+                        "all-gather + the v4 sweep kernels on each rank's "
+                        "slab of sorted rows, 'halo' = slab ownership with "
+                        "boundary-plane exchange and migration; 'auto' = "
+                        "fused on the card, gather on the CPU")
     return p
 
 
@@ -226,11 +242,57 @@ def _host(x):
     return x.detach().cpu().numpy()
 
 
+def _rank_main(comm, argv):
+    """One rank of a multi-device run started by `main` (comm.spawn)."""
+    rc = _run(build_parser().parse_args(argv), comm)
+    if rc:
+        raise RuntimeError(f"rank {comm.rank} ended with exit code {rc}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.devices > 1 or args.parallel != "auto":
-        sys.exit("--devices > 1 and --parallel (multi-device runs) are not "
-                 "ported yet: ROADMAP.md Queue 1 row 5 (multi-device)")
+    multi = args.devices > 1
+    if multi and args.mode != "coupled":
+        sys.exit(f"--devices only supports --mode coupled "
+                 f"(got --mode {args.mode})")
+    if multi and args.parallel == "halo" and args.dynamic_set:
+        sys.exit("--dynamic-set is not supported with --parallel halo "
+                 "(as in the JAX package's command line; use gather/fused)")
+    from .parallel import comm as comm_mod
+    if comm_mod.launched_by_env():
+        # started by a launcher (torchrun): join the ranks it was given
+        from .state import resolve_device
+        try:
+            dev_type = resolve_device(args.device).type
+        except RuntimeError as e:
+            sys.exit(f"{e} (--device cpu)")
+        comm = comm_mod.init_from_env(dev_type)
+        try:
+            if args.devices not in (1, comm.size):
+                sys.exit(f"--devices {args.devices} but the launcher "
+                         f"started {comm.size} ranks")
+            return _run(args, comm if comm.size > 1 else None)
+        finally:
+            comm_mod.shutdown()
+    if not multi:
+        return _run(args, None)
+    from .state import resolve_device
+    try:
+        dev_type = resolve_device(args.device).type
+    except RuntimeError as e:
+        sys.exit(f"{e} (--device cpu)")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        comm_mod.spawn(_rank_main, args.devices, (argv,),
+                       device_type=dev_type)
+    except Exception as e:  # a rank failed: the others were ended
+        sys.exit(f"multi-device run failed: {e}")
+    return 0
+
+
+def _run(args, comm) -> int:
+    """The run itself, in one process (`comm` None) or as one rank of a
+    multi-device run (rank 0 prints and writes the outputs)."""
     import numpy as np
     import torch
     from .config import SimConfig
@@ -242,10 +304,15 @@ def main(argv=None) -> int:
     from .models import variants
     from .models.monodomain import run_protocol
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        sys.exit(f"{e} (--device cpu)")
+    lead = comm is None or comm.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if comm is not None:
+        device = comm.device
+    else:
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            sys.exit(f"{e} (--device cpu)")
     on_card = device.type == "cuda"
 
     cfg = SimConfig()
@@ -284,16 +351,35 @@ def main(argv=None) -> int:
         from .config import resolve_params
         return resolve_params(c, params) if params else c
 
+    pad_to = None
+    # the --parallel strategy ('auto': the fused slab path on the card,
+    # the unfused all-gather path on the CPU)
+    impl = None
+    if comm is not None:
+        impl = (args.parallel if args.parallel != "auto"
+                else "fused" if on_card else "gather")
+    if comm is not None:
+        import math
+        from .state import PAD_MULTIPLE
+        # the capacity must divide evenly over the ranks
+        probe = build_scene(args.scene, cfg, replicate=args.replicate,
+                            stim=False, device="cpu")
+        d = comm.size
+        lcm = (PAD_MULTIPLE * d) // math.gcd(PAD_MULTIPLE, d)
+        if args.parallel in ("auto", "fused"):
+            # fused slabs: every rank owns whole sub-blocks of sorted rows
+            lcm = max(lcm, d * (probe.sub_block or 128))
+        pad_to = -(-probe.state.capacity // lcm) * lcm
     scene = build_scene(args.scene, cfg, replicate=args.replicate,
                         stim=args.mode in ("coupled", "monodomain"),
-                        device=device)
+                        pad_to=pad_to, device=device)
     cfg = scene.cfg
     state = scene.state
     start_step = 0
     if args.load_checkpoint:
         state, start_step, ckpt_cfg = load_checkpoint(
             args.load_checkpoint, with_config=True, device=device)
-        print(f"resumed from {args.load_checkpoint} at step {start_step}")
+        say(f"resumed from {args.load_checkpoint} at step {start_step}")
         if ckpt_cfg is not None:
             # the checkpoint's config snapshot is authoritative for the
             # physics (resume correctness must not depend on the user
@@ -303,25 +389,25 @@ def main(argv=None) -> int:
             diffs = [f.name for f in _dc.fields(ckpt_cfg)
                      if getattr(ckpt_cfg, f.name) != getattr(cfg, f.name)]
             if diffs:
-                print("config restored from checkpoint (overrides flag "
-                      f"defaults for: {', '.join(diffs)})")
+                say("config restored from checkpoint (overrides flag "
+                    f"defaults for: {', '.join(diffs)})")
             cfg = _apply_overrides(ckpt_cfg, args.set)
             scene = scene._replace(cfg=cfg)
         if cfg.sm_tile_rows > 0:
             # the contig segment form assumes tile k owns rows
-            # [k*R, (k+1)*R); verify on the host and fall back to the
-            # order-insensitive forms if the layout doesn't hold
+            # [k*R, (k+1)*R); a checkpoint of a row-migrating run (the
+            # halo path) breaks that: verify on the host and fall back to
+            # the order-insensitive forms if the layout doesn't hold
             k, r_rows = cfg.sm_clusters, cfg.sm_tile_rows
             tile_w = cfg.world_size[0] / k
             got = np.floor(_host(state.orig_pos[:k * r_rows, 0])
                            / tile_w).clip(0, k - 1).astype(int)
             want = np.repeat(np.arange(k), r_rows)
             if got.shape != want.shape or (got != want).any():
-                print("checkpoint rows are not tile-contiguous; using the "
-                      "order-insensitive clustered-SM forms")
+                say("checkpoint rows are not tile-contiguous; using the "
+                    "order-insensitive clustered-SM forms")
                 cfg = cfg.replace(sm_tile_rows=0)
                 scene = scene._replace(cfg=cfg)
-
     stim_off = (args.steps // 2 if args.stim_off_step is None
                 else args.stim_off_step)
     if args.mode != "coupled" and args.stim_off_step is not None:
@@ -333,19 +419,19 @@ def main(argv=None) -> int:
         # saved run already passed it)
         remaining = max(0, args.steps - start_step)
         stim_off = stim_off - start_step if stim_off >= start_step else -1
-        print(f"protocol: {remaining} steps remain of {args.steps}; "
-              f"stim-off {'at step ' + str(stim_off + start_step)
-                          if stim_off >= 0 else 'already fired'}")
+        say(f"protocol: {remaining} steps remain of {args.steps}; "
+            f"stim-off {'at step ' + str(stim_off + start_step)
+                        if stim_off >= 0 else 'already fired'}")
         args.steps = remaining
-    print(f"scene={scene.name} n={scene.num_particles} "
-          f"capacity={state.capacity} cell_cap={scene.cell_capacity} "
-          f"nbr_cap={scene.neighbor_capacity} mode={args.mode} "
-          f"device={device}")
+    say(f"scene={scene.name} n={scene.num_particles} "
+        f"capacity={state.capacity} cell_cap={scene.cell_capacity} "
+        f"nbr_cap={scene.neighbor_capacity} mode={args.mode} "
+        f"device={device}")
 
     frames = []
     render_every = args.render_every
     traj_writer = None
-    if args.traj:
+    if args.traj and lead:
         from .runtime import TrajectoryWriter
         traj_writer = TrajectoryWriter(args.traj, scene.num_particles,
                                        fields=4)
@@ -378,13 +464,31 @@ def main(argv=None) -> int:
                           flush=True)
             os.replace(tmp, target)
 
+    if comm is not None:
+        from .parallel import halo_step as HS
+        from .parallel import sharded_step as SS
+
+        def full_state(st, allow_loss=True):
+            """Every rank's rows as one dense state (a collective): the
+            halo layout compacted back to rows [0, n)."""
+            full = SS.gather_state(st, comm)
+            if impl != "halo":
+                return full
+            return HS.unshard_state_halo(full, scene.num_particles, cfg,
+                                         allow_loss=allow_loss)
+
     controller = None
+    pending_saves = []
     if args.control or args.pause_at:
         if args.pause_at and not args.control:
             sys.exit("--pause-at needs --control (there is no other way "
                      "to resume a headless run)")
 
         def _save(path, st, done):
+            if comm is not None:
+                # a collective: every rank gathers after the broadcast
+                pending_saves.append((path, done))
+                return
             # record the GLOBAL step so a resume maps the protocol
             # correctly; the cfg snapshot carries any --dynamic-set values
             # (resume trusts it)
@@ -392,9 +496,33 @@ def main(argv=None) -> int:
                             cfg=effective_cfg(cfg))
             print(f"control: checkpoint (step {start_step + done}) -> "
                   f"{path}", flush=True)
-        controller = RunController(args.control, args.pause_at,
-                                   save_fn=_save)
+        if lead:
+            controller = RunController(args.control, args.pause_at,
+                                       save_fn=_save)
 
+    def control(done, st):
+        """The controller's command on every rank (rank 0 reads the
+        control file, the others receive its command and saves)."""
+        if comm is None:
+            return controller(done, st) if controller is not None else {}
+        cmd = controller(done, st) if controller is not None else {}
+        cmd, saves = comm.broadcast_object((cmd, list(pending_saves)))
+        pending_saves.clear()
+        for path, at in saves:
+            try:
+                full = full_state(st, allow_loss=False)
+            except ValueError as e:    # lossy: refuse, keep running
+                say(f"control: NOT saving checkpoint: {e}", file=sys.stderr,
+                    flush=True)
+                continue
+            if lead:
+                save_checkpoint(path, full, step=start_step + at,
+                                cfg=effective_cfg(cfg))
+                print(f"control: checkpoint (step {start_step + at}) -> "
+                      f"{path}", flush=True)
+        return cmd
+
+    has_control = args.control or args.pause_at
     t0 = time.time()
     executed = {"steps": 0}   # actual steps run (early stop may cut short)
     # every mode runs its chunked driver (never a per-step host read);
@@ -463,6 +591,58 @@ def main(argv=None) -> int:
                           file=sys.stderr, flush=True)
                 if cmd.get("stop"):
                     break
+    elif comm is not None:
+        from .ops.electrophysiology import turn_off_stim
+        if impl == "halo":
+            # each rank's slab capacity aligns to the scene's sub-blocks
+            sharded, _s_cap, mig_cap, halo_cap = HS.shard_state_halo(
+                state, comm, cfg, q_block=sub_q)
+
+            def get_sim(n_chunk, off):
+                return HS.make_halo_simulate(
+                    comm, cfg, mig_cap, halo_cap, num_steps=n_chunk,
+                    stim_off_step=off, sub_q=sub_q)
+        else:
+            sharded = SS.shard_state(state, comm)
+
+            def get_sim(n_chunk, off):
+                if impl == "fused":
+                    return SS.make_sharded_simulate_fused(
+                        comm, cfg, num_steps=n_chunk, stim_off_step=off,
+                        sub_q=sub_q)
+                return SS.make_sharded_simulate(
+                    comm, cfg, scene.neighbor_capacity, num_steps=n_chunk,
+                    stim_off_step=off)
+
+        say(f"parallel impl: {impl} over {comm.size} devices, "
+            f"{comm.describe()}", flush=True)
+        overflow = 0
+        done = 0
+        while done < args.steps:
+            n_chunk = min(args.chunk, args.steps - done)
+            off = (stim_off - done
+                   if done <= stim_off < done + n_chunk else -1)
+            sim_fn = get_sim(n_chunk, off)
+            sharded, ovf = sim_fn(sharded, params)
+            overflow = max(overflow, int(ovf))
+            done += n_chunk
+            executed["steps"] = done
+            if traj_writer is not None or render_every or args.render_live:
+                # the outputs read a dense [0, n) state: gather (and, on
+                # the halo path, compact) once a chunk
+                view = full_state(sharded)
+                if lead:
+                    stream_frame(done, view)
+                    if render_every:
+                        frames.append((done, view))
+            if has_control:
+                cmd = control(done, sharded)
+                if cmd.get("stim_off"):
+                    sharded = turn_off_stim(sharded, cfg)
+                    stim_off = -1
+                if cmd.get("stop"):
+                    break
+        state = sharded
     else:
         scene = scene._replace(state=state)
 
@@ -484,31 +664,53 @@ def main(argv=None) -> int:
     wall = time.time() - t0
     steps_run = executed["steps"] or args.steps
     avg_step = wall / max(steps_run, 1)
-    print(f"{steps_run} steps in {wall:.2f}s ({avg_step*1e3:.2f} ms/step, "
-          f"incl. first-call builds), overflow={overflow}")
+    say(f"{steps_run} steps in {wall:.2f}s ({avg_step*1e3:.2f} ms/step, "
+        f"incl. first-call builds), overflow={overflow}")
     if overflow:
-        print("WARNING: neighbor-table overflow detected — rebuild the "
-              "scene with larger cell/neighbor capacities for exact physics",
-              file=sys.stderr)
+        say("WARNING: neighbor-table overflow detected — rebuild the "
+            "scene with larger cell/neighbor capacities for exact physics",
+            file=sys.stderr)
 
     n = scene.num_particles
-    disp = _host(state.displacement())[:n]
-    vm = _host(state.vm)[:n]
-    print(f"displacement mean={disp.mean():.4f} max={disp.max():.4f} | "
-          f"Vm [{vm.min():.2f}, {vm.max():.2f}]")
+    if comm is not None:
+        full = SS.gather_state(state, comm)
+        # a halo layout holds its particles among padding rows: select by
+        # the mask, not a row range
+        keep = (_host(full.active) if impl == "halo"
+                else np.arange(full.capacity) < n)
+        disp = _host(full.displacement())[keep]
+        vm = _host(full.vm)[keep]
+    else:
+        disp = _host(state.displacement())[:n]
+        vm = _host(state.vm)[:n]
+    say(f"displacement mean={disp.mean():.4f} max={disp.max():.4f} | "
+        f"Vm [{vm.min():.2f}, {vm.max():.2f}]")
 
     if traj_writer is not None:
         written = traj_writer.close()
         print(f"trajectory ({written} frames) -> {args.traj}")
 
+    exit_code = 0
     if args.save_checkpoint:
-        # accumulated step count: resumed steps + steps ACTUALLY executed
-        # this run (an early `stop` must not claim unexecuted steps)
-        save_checkpoint(args.save_checkpoint, state,
-                        step=start_step + steps_run, cfg=effective_cfg(cfg))
-        print(f"checkpoint -> {args.save_checkpoint}")
+        ckpt_state = state
+        if comm is not None:
+            try:
+                ckpt_state = (HS.unshard_state_halo(full, n, cfg)
+                              if impl == "halo" else full)
+            except ValueError as e:    # lossy state: refuse to persist it
+                say(f"NOT writing checkpoint: {e}", file=sys.stderr,
+                    flush=True)
+                ckpt_state, exit_code = None, 1
+        if ckpt_state is not None and lead:
+            # accumulated step count: resumed steps + steps ACTUALLY
+            # executed this run (an early `stop` must not claim
+            # unexecuted steps)
+            save_checkpoint(args.save_checkpoint, ckpt_state,
+                            step=start_step + steps_run,
+                            cfg=effective_cfg(cfg))
+            print(f"checkpoint -> {args.save_checkpoint}")
 
-    if render_every:
+    if render_every and lead:
         states = [s for _, s in frames]
         paths = render_mod.render_frames(
             states, cfg, args.render_dir,
@@ -522,7 +724,7 @@ def main(argv=None) -> int:
             write_gif(args.gif, [read_png_rgb(p) for p in paths], fps=15)
             print(f"animation -> {args.gif}")
 
-    if args.report:
+    if args.report and lead:
         phases = {}
         if args.profile_phases:
             # profile the path that actually ran: the fused kernels on the
@@ -567,7 +769,7 @@ def main(argv=None) -> int:
                 f.write(REPORT_HEADER + "\n")
             f.write(row + "\n")
         print(f"report row -> {args.report}")
-    return 0
+    return exit_code
 
 
 if __name__ == "__main__":

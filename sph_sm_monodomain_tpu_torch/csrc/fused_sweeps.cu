@@ -7,7 +7,11 @@
 //
 // Replaces the Pallas TPU kernels of sph_sm_monodomain_tpu/ops/fused_step.py:
 //   _kernel_a3 / _kernel_b3 with stencil="xyz3" (enumeration _gather_loop4)
-//     -> sweep_a3_xyz3_kernel / sweep_b3_xyz3_kernel       (K1, K2)
+//     -> sweep_a3_xyz3_kernel / sweep_b3_xyz3_kernel       (K1, K2), over
+//        all N sorted rows (sph_sweep_a3 / sph_sweep_b3) or, as the JAX
+//        kernels with q_slice and the multi-device steps run them, over a
+//        slab of n_q query rows against n_c candidates (sph_sweep_a3_rows
+//        / sph_sweep_b3_rows)
 //   _kernel_a3 / _kernel_b3 with stencil="hash9" (enumeration _gather_loop)
 //     -> sweep_a3_hash9_kernel / sweep_b3_hash9_kernel     (K6)
 //   _kernel_a5 / _kernel_b5 (packed slabs)
@@ -248,6 +252,12 @@ using WordsL = Rows<0, 1, 2, 3, 4, -1>;
 // Sweep A on the v4 windows (replaces _kernel_a3 with stencil "xyz3"): the
 // PairSumsA sums under the full per-axis mask, then epilogue_a with the
 // quirks, with_ep and the constants `prm` (a dynp vector or the config's).
+// The launch's rows are the query rows of `qm` (the grid), `blk_lo` /
+// `blk_hi` hold their sub-blocks' windows, and `n_c` is the candidate
+// count, the row stride of the (16, n_c) `feats`: a slab of query rows
+// (the multi-device steps) comes as pointers to its first row and its
+// first sub-block's bounds, with window bounds that index the whole
+// candidate matrix.
 // The plain version takes the cyz half of the mask alone where Poly6's
 // support fits one cell (_mask_a_full false): the pairs that half admits
 // and the full mask drops have |dcx| >= 2, so they lie more than a cell
@@ -260,7 +270,7 @@ __global__ void __launch_bounds__(32 * Slices)
                          const int* __restrict__ blk_lo,
                          const int* __restrict__ blk_hi,
                          const float* __restrict__ prm,
-                         float* __restrict__ out, int n, int sub_q,
+                         float* __restrict__ out, int n_c, int sub_q,
                          int with_ep, int g_mid, int q_double, int q_gate,
                          int q_acc) {
   constexpr int V = (WordsA::count + 2) / 4;
@@ -274,7 +284,7 @@ __global__ void __launch_bounds__(32 * Slices)
   const bool qlive = qcx >= 0.0f;
   PairSumsA s(q, prm);
   for_each_warp_candidate(CellWindows{g_mid}, WordsA{}, stage[w], feats,
-                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          blk_lo, blk_hi, n_c, (int)(row / sub_q), w, Slices,
                           qcyz, qcx, qlive,
                           [&](const float* c) { s.add(c, 1, 0); });
   part[0][w][lane] = s.a_d;
@@ -306,7 +316,7 @@ __global__ void __launch_bounds__(32 * Slices)
                          const int* __restrict__ blk_lo,
                          const int* __restrict__ blk_hi,
                          const float* __restrict__ prm,
-                         float* __restrict__ out, int n, int sub_q,
+                         float* __restrict__ out, int n_c, int sub_q,
                          int with_ep, int g_mid) {
   constexpr int V = (WordsB::count + 2) / 4;
   __shared__ float4 stage[Slices][32 * V];
@@ -318,7 +328,7 @@ __global__ void __launch_bounds__(32 * Slices)
   const bool qlive = qcx >= 0.0f;
   PairSumsB s(q, prm, with_ep);
   for_each_warp_candidate(CellWindows{g_mid}, WordsB{}, stage[w], feats,
-                          blk_lo, blk_hi, n, (int)(row / sub_q), w, Slices,
+                          blk_lo, blk_hi, n_c, (int)(row / sub_q), w, Slices,
                           qcyz, qcx, qlive,
                           [&](const float* c) { s.add(c, 1, 0); });
   part[0][w][lane] = s.a_ax;
@@ -592,6 +602,35 @@ int sph_sweep_b3(const float* qm, const float* feats, const int* blk_lo,
                  int sub_q, int with_ep, int g_mid, void* stream) {
   return launch_sliced<LaunchB3>(n, stream, qm, feats, blk_lo, blk_hi, prm,
                                  out, n, sub_q, with_ep, g_mid);
+}
+
+// K1 / K2 on a slab of query rows (the JAX kernels' q_slice, and the halo
+// step's S local rows against its S + 2H merged candidates): `qm`, `blk_lo`
+// and `blk_hi` point at the slab's first row and first sub-block, `out`
+// receives its n_q rows, and `feats` is the whole (16, n_c) candidate
+// matrix the windows index. The warp-slice count is picked from n_q, not
+// n_c: warp_slices fills the card with the launch's n_q / 32 row warps,
+// and a row warp's own walk does not depend on how many candidates lie
+// outside its windows.
+int sph_sweep_a3_rows(const float* qm, const float* feats,
+                      const int* blk_lo, const int* blk_hi, const float* prm,
+                      float* out, int n_q, int n_c, int sub_q, int with_ep,
+                      int g_mid, int quirk_double_self_density,
+                      int quirk_pressure_stim_gate,
+                      int quirk_iion_accumulate, void* stream) {
+  return launch_sliced<LaunchA3>(n_q, stream, qm, feats, blk_lo, blk_hi, prm,
+                                 out, n_c, sub_q, with_ep, g_mid,
+                                 quirk_double_self_density,
+                                 quirk_pressure_stim_gate,
+                                 quirk_iion_accumulate);
+}
+
+int sph_sweep_b3_rows(const float* qm, const float* feats,
+                      const int* blk_lo, const int* blk_hi, const float* prm,
+                      float* out, int n_q, int n_c, int sub_q, int with_ep,
+                      int g_mid, void* stream) {
+  return launch_sliced<LaunchB3>(n_q, stream, qm, feats, blk_lo, blk_hi, prm,
+                                 out, n_c, sub_q, with_ep, g_mid);
 }
 
 int sph_sweep_a3_hash9(const float* qm, const float* feats,

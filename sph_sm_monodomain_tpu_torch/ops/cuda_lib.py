@@ -38,6 +38,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sph_sweep_a3": [_P] * 6 + [_I] * 8 + [_P],
     "sph_sweep_b3": [_P] * 6 + [_I] * 4 + [_P],
+    "sph_sweep_a3_rows": [_P] * 6 + [_I] * 8 + [_P],
+    "sph_sweep_b3_rows": [_P] * 6 + [_I] * 5 + [_P],
     "sph_sweep_a3_hash9": [_P] * 6 + [_I] * 8 + [_P],
     "sph_sweep_b3_hash9": [_P] * 6 + [_I] * 5 + [_P],
     "sph_sweep_a5": [_P] * 5 + [_I] * 9 + [_P],
@@ -114,10 +116,14 @@ def build(verbose: bool = False, csrc: Path | None = None,
 
 
 def bind(path: Path) -> ctypes.CDLL:
-    """The library at `path` with the C entry points' signatures set."""
+    """The library at `path` with the C entry points' signatures set. An
+    entry point the library lacks (an older build of the sources, as
+    compare_builds.py loads beside the checkout's) is left unbound."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.sph_cuda_error_string.argtypes = [ctypes.c_int]

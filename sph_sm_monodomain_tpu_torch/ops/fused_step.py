@@ -352,10 +352,10 @@ def _terms_b(q, c, m, P: _Phys, with_ep: bool) -> torch.Tensor:
 
 
 def _dense_sums(qm, feats, mask, terms) -> torch.Tensor:
-    """(N, 4) pair sums of every query row of qm (N, 16) over all
-    candidates feats (16, N), in row chunks: terms(q, feats, mask(q,
-    feats))."""
-    rows = _rows_per_chunk(qm.shape[0], qm.device)
+    """(N_q, 4) pair sums of every query row of qm (N_q, 16) over all
+    candidates feats (16, N_c), in row chunks sized by the candidate count:
+    terms(q, feats, mask(q, feats))."""
+    rows = _rows_per_chunk(feats.shape[1], qm.device)
     return torch.cat([terms(q, feats, mask(q, feats))
                       for q in qm.split(rows)])
 
@@ -374,10 +374,12 @@ def _slab_sums(qm, slabs, terms) -> torch.Tensor:
 
 def sweep_a3_plain(fs, feats_a, cfg: SimConfig, with_ep: bool = True,
                    dynp=None, stencil: str = "xyz3") -> torch.Tensor:
-    """Plain PyTorch sweep A: QM_A (N,16) + sweep-A features (16,N) ->
-    OUT_A (N,16). Dense over all candidates (no window bounds) under the
+    """Plain PyTorch sweep A: QM_A (N_q,16) + sweep-A features (16,N_c) ->
+    OUT_A (N_q,16). Dense over all candidates (no window bounds) under the
     v4 ("xyz3") or v3 ("hash9") stencil; dead query rows (cell sentinel in
-    column 12) get zero sums."""
+    column 12) get zero sums. The query rows may be a slab of the
+    candidates' rows (N_q < N_c), or other rows altogether (the halo
+    step's local rows against its merged candidates)."""
     P = _Phys(kernel_params(cfg, dynp, fs.device))
     s = _dense_sums(fs, feats_a, _window_mask(cfg, stencil, True),
                     lambda q, c, m: _terms_a(q, c, m, P))
@@ -386,8 +388,8 @@ def sweep_a3_plain(fs, feats_a, cfg: SimConfig, with_ep: bool = True,
 
 def sweep_b3_plain(out_a, feats_b, cfg: SimConfig, with_ep: bool = True,
                    dynp=None, stencil: str = "xyz3") -> torch.Tensor:
-    """Plain PyTorch sweep B: OUT_A (N,16) + sweep-B features (16,N) ->
-    OUT_B (N,16)."""
+    """Plain PyTorch sweep B: OUT_A (N_q,16) + sweep-B features (16,N_c)
+    -> OUT_B (N_q,16), query rows as in sweep_a3_plain."""
     P = _Phys(kernel_params(cfg, dynp, out_a.device))
     s = _dense_sums(out_a, feats_b, _window_mask(cfg, stencil, False),
                     lambda q, c, m: _terms_b(q, c, m, P, with_ep))
@@ -429,17 +431,22 @@ def _check_cuda_operands(qm, *operands) -> None:
 
 
 def _check_sweep_inputs(qm, feats, blk_lo, blk_hi, sub_q: int,
-                        stride: int = 4) -> None:
+                        stride: int = 4, any_candidates: bool = False
+                        ) -> None:
     """Shapes of a window sweep: `stride` bounds per sub-block (4 for the
-    v4 windows, 16 for the v3 runs)."""
+    v4 windows, 16 for the v3 runs); features (16, N) for the N query
+    rows, or (16, N_c) for any N_c >= 1 with `any_candidates`."""
     n = qm.shape[0]
     if qm.dim() != 2 or qm.shape[1] != 16:
         raise ValueError(f"query matrix must be (N, 16), got {tuple(qm.shape)}")
     if n == 0 or n % sub_q or sub_q % 32 or not 32 <= sub_q <= 1024:
         raise ValueError(f"{n} query rows must be a positive multiple of "
                          f"sub_q={sub_q} (a multiple of 32 in [32, 1024])")
-    if tuple(feats.shape) != (16, n):
-        raise ValueError(f"features must be (16, {n}), got "
+    ok = (feats.dim() == 2 and feats.shape[0] == 16 and feats.shape[1] >= 1
+          if any_candidates else tuple(feats.shape) == (16, n))
+    if not ok:
+        want = "(16, N_c)" if any_candidates else f"(16, {n})"
+        raise ValueError(f"features must be {want}, got "
                          f"{tuple(feats.shape)}")
     want = (n // sub_q) * stride
     for name, t in (("blk_lo", blk_lo), ("blk_hi", blk_hi)):
@@ -499,60 +506,102 @@ def _quirks(cfg: SimConfig) -> tuple:
             int(cfg.quirk_iion_accumulate))
 
 
+def _query_slab(qm, blk_lo, blk_hi, q_slice, sub_q: int, stride: int = 4):
+    """The query rows and window bounds of `q_slice` = (off, cnt): rows
+    [off, off + cnt) of qm and the bounds of their sub-blocks, as the JAX
+    package's _call_kernel3 slices them (views, no copy)."""
+    if q_slice is None:
+        return qm, blk_lo, blk_hi
+    off, cnt = (int(v) for v in q_slice)
+    if off < 0 or cnt <= 0 or off % sub_q or cnt % sub_q \
+            or off + cnt > qm.shape[0]:
+        raise ValueError(f"q_slice={q_slice} must be whole sub-blocks of "
+                         f"sub_q={sub_q} rows within {qm.shape[0]} rows")
+    b0, b1 = off // sub_q * stride, (off + cnt) // sub_q * stride
+    return qm[off:off + cnt], blk_lo[b0:b1], blk_hi[b0:b1]
+
+
 def sweep_a3(fs, feats_a, blk_lo, blk_hi, cfg: SimConfig,
              with_ep: bool = True, sub_q: int = 128, dynp=None,
-             stencil: str = "xyz3"):
-    """QM_A (N,16) + sweep-A features (16,N) -> OUT_A (N,16), sorted order,
+             stencil: str = "xyz3", q_slice=None):
+    """QM_A (N,16) + sweep-A features (16,N_c) -> OUT_A, sorted order,
     over the three merged windows per sub-block of `sub_q` rows
     (blk_lo/blk_hi from sweeps.sweep_bookkeeping3). `dynp`: optional
-    (1, 16) dynamic physics constants (build_dynp). On a CUDA tensor this
-    launches the sweep-A kernel; on a CPU tensor it runs sweep_a3_plain.
+    (1, 16) dynamic physics constants (build_dynp). `q_slice` = (off, cnt)
+    sweeps only rows [off, off + cnt) (whole sub-blocks) and returns their
+    (cnt, 16) rows, as the JAX kernel's q_slice does; the candidates may
+    be other rows than the queries (N_c != N: the halo step's merged
+    matrix), the windows indexing them. On a CUDA tensor this launches the
+    sweep-A kernel (over a slab of rows: `sph_sweep_a3_rows`, counted in
+    `sweep_a3.slab_launches`); on a CPU tensor it runs sweep_a3_plain.
     stencil="hash9" runs sweep_a3_hash9 (the v3 run windows) instead: the
     JAX package's signature, kept so code written against it ports as is;
     the step calls sweep_a3_hash9 directly."""
     if stencil == "hash9":
+        if q_slice is not None:
+            raise ValueError("q_slice is taken by the xyz3 sweeps only")
         return sweep_a3_hash9(fs, feats_a, blk_lo, blk_hi, cfg, with_ep,
                               sub_q, dynp)
     if stencil != "xyz3":
         raise ValueError(f"unknown stencil {stencil!r}")
-    _check_sweep_inputs(fs, feats_a, blk_lo, blk_hi, sub_q)
+    qm, lo, hi = _query_slab(fs, blk_lo, blk_hi, q_slice, sub_q)
+    _check_sweep_inputs(qm, feats_a, lo, hi, sub_q, any_candidates=True)
     if fs.device.type == "cpu":
-        return sweep_a3_plain(fs, feats_a, cfg, with_ep, dynp)
+        return sweep_a3_plain(qm, feats_a, cfg, with_ep, dynp)
     lib = cuda_lib.load()
-    out = _launch(lib.sph_sweep_a3, fs, feats_a, blk_lo, blk_hi,
-                  kernel_params(cfg, dynp, fs.device), sub_q, int(with_ep),
-                  int(_mask_a_full(cfg)), _g_mid(cfg), *_quirks(cfg))
-    sweep_a3.launches += 1
+    prm = kernel_params(cfg, dynp, fs.device)
+    if q_slice is None and feats_a.shape[1] == qm.shape[0]:
+        out = _launch(lib.sph_sweep_a3, qm, feats_a, lo, hi, prm, sub_q,
+                      int(with_ep), int(_mask_a_full(cfg)), _g_mid(cfg),
+                      *_quirks(cfg))
+        sweep_a3.launches += 1
+        return out
+    out = _launch(lib.sph_sweep_a3_rows, qm, feats_a, lo, hi, prm,
+                  feats_a.shape[1], sub_q, int(with_ep), _g_mid(cfg),
+                  *_quirks(cfg))
+    sweep_a3.slab_launches += 1
     return out
 
 
 sweep_a3.launches = 0
+sweep_a3.slab_launches = 0
 
 
 def sweep_b3(out_a, feats_b, blk_lo, blk_hi, cfg: SimConfig,
              with_ep: bool = True, sub_q: int = 128, dynp=None,
-             stencil: str = "xyz3"):
-    """OUT_A (N,16) + sweep-B features (16,N) -> OUT_B (N,16), sorted order.
-    On a CUDA tensor this launches the sweep-B kernel; on a CPU tensor it
-    runs sweep_b3_plain. stencil="hash9" runs sweep_b3_hash9 instead (the
-    JAX package's signature, as in sweep_a3)."""
+             stencil: str = "xyz3", q_slice=None):
+    """OUT_A (N,16) + sweep-B features (16,N_c) -> OUT_B, sorted order,
+    `q_slice` and the candidates as in sweep_a3. On a CUDA tensor this
+    launches the sweep-B kernel (over a slab of rows: `sph_sweep_b3_rows`,
+    counted in `sweep_b3.slab_launches`); on a CPU tensor it runs
+    sweep_b3_plain. stencil="hash9" runs sweep_b3_hash9 instead (the JAX
+    package's signature, as in sweep_a3)."""
     if stencil == "hash9":
+        if q_slice is not None:
+            raise ValueError("q_slice is taken by the xyz3 sweeps only")
         return sweep_b3_hash9(out_a, feats_b, blk_lo, blk_hi, cfg, with_ep,
                               sub_q, dynp)
     if stencil != "xyz3":
         raise ValueError(f"unknown stencil {stencil!r}")
-    _check_sweep_inputs(out_a, feats_b, blk_lo, blk_hi, sub_q)
+    qm, lo, hi = _query_slab(out_a, blk_lo, blk_hi, q_slice, sub_q)
+    _check_sweep_inputs(qm, feats_b, lo, hi, sub_q, any_candidates=True)
     if out_a.device.type == "cpu":
-        return sweep_b3_plain(out_a, feats_b, cfg, with_ep, dynp)
+        return sweep_b3_plain(qm, feats_b, cfg, with_ep, dynp)
     lib = cuda_lib.load()
-    out = _launch(lib.sph_sweep_b3, out_a, feats_b, blk_lo, blk_hi,
-                  kernel_params(cfg, dynp, out_a.device), sub_q,
-                  int(with_ep), _g_mid(cfg))
-    sweep_b3.launches += 1
+    prm = kernel_params(cfg, dynp, out_a.device)
+    if q_slice is None and feats_b.shape[1] == qm.shape[0]:
+        out = _launch(lib.sph_sweep_b3, qm, feats_b, lo, hi, prm, sub_q,
+                      int(with_ep), _g_mid(cfg))
+        sweep_b3.launches += 1
+        return out
+    out = _launch(lib.sph_sweep_b3_rows, qm, feats_b, lo, hi, prm,
+                  feats_b.shape[1], sub_q, int(with_ep), _g_mid(cfg))
+    sweep_b3.slab_launches += 1
     return out
 
 
 sweep_b3.launches = 0
+sweep_b3.slab_launches = 0
 
 
 # --- the v3 sweeps: nine hash run windows (sweeps.sweep_bookkeeping2) --------

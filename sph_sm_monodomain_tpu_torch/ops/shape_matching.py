@@ -22,6 +22,15 @@ per-cluster sums take one of the JAX package's three forms: blocked
 (tile-contiguous rows, `cfg.sm_tile_rows`) or one-hot. All reductions are
 fp32 matrix products or sums, none atomic, so the card gives the same bits
 on every run; each entry point here turns TF32 off (numerics.ensure_fp32).
+
+`comm` (a parallel.comm.Comm, the counterpart of the JAX package's
+`axis_name`): the rows are one rank's share of the particles, and every
+global sum (mass sums, centers of mass, Apq / Aqq, the 9-D moments, the
+clustered per-cluster sums, the float64 rest-shape ones too) is taken
+over the ranks with `comm.all_sum`, the sums of one stage packed into one
+collective; the 3x3 chain then runs replicated on every rank. Under
+`comm` the clustered moments take the blocked or one-hot form, never the
+contig one, which needs the tile-contiguous rows of one process.
 """
 
 from __future__ import annotations
@@ -114,36 +123,53 @@ def _masses(state: ParticleState, cfg: SimConfig):
     return m, m_cm
 
 
+def _allsum(comm, *parts):
+    """The parts (tensors or None) summed over the ranks of `comm` in one
+    collective, or unchanged without `comm`."""
+    if comm is None:
+        return parts
+    live = [p for p in parts if p is not None]
+    flat = comm.all_sum(torch.cat([p.reshape(-1) for p in live]))
+    out, k = [], 0
+    for p in parts:
+        if p is None:
+            out.append(None)
+            continue
+        out.append(flat[k:k + p.numel()].reshape(p.shape))
+        k += p.numel()
+    return tuple(out)
+
+
 def _quad_basis(q: torch.Tensor) -> torch.Tensor:
     x, y, z = q[:, 0], q[:, 1], q[:, 2]
     return torch.stack([x, y, z, x * x, y * y, z * z, x * y, y * z, z * x],
                        dim=1)
 
 
-def sm_invariants(state: ParticleState, cfg: SimConfig) -> SMInvariants:
-    """Precompute the rest-shape moments of `project_positions`."""
+def sm_invariants(state: ParticleState, cfg: SimConfig,
+                  comm=None) -> SMInvariants:
+    """Precompute the rest-shape moments of `project_positions` (summed
+    over the ranks of `comm` when given)."""
     ensure_fp32()
     m, m_cm = _masses(state, cfg)
     k = cfg.sm_clusters
     if k > 1:
-        return _clustered_invariants(state, cfg, m, m_cm)
-    mass_cm_sum = m_cm.sum()
-    ocm = (m_cm @ state.orig_pos) / mass_cm_sum
+        return _clustered_invariants(state, cfg, m, m_cm, comm)
+    mass_cm_sum, ocm_num = _allsum(comm, m_cm.sum(), m_cm @ state.orig_pos)
+    ocm = ocm_num / mass_cm_sum
     q = state.orig_pos - ocm
-    mq = m @ q
     if not cfg.quadratic_match:
-        aqq = (q * m[:, None]).T @ q
+        mq, aqq = _allsum(comm, m @ q, (q * m[:, None]).T @ q)
         return SMInvariants(mass_cm_sum, ocm, q, mq, invert3(aqq),
                             None, None, None)
     q9 = _quad_basis(q)
-    mq9 = m @ q9
-    a9qq = (q9 * m[:, None]).T @ q9
+    mq, mq9, a9qq = _allsum(comm, m @ q, m @ q9, (q9 * m[:, None]).T @ q9)
     return SMInvariants(mass_cm_sum, ocm, q, mq, None, q9, mq9,
                         pseudo_inverse(a9qq, cfg.jacobi_iterations))
 
 
 def _clustered_invariants(state: ParticleState, cfg: SimConfig, m,
-                          m_cm) -> SMInvariants:
+                          m_cm, comm=None) -> SMInvariants:
     """The moments of K clusters, each with a leading (K,) axis.
 
     Computed in float64 and rounded once to the state's dtype (the JAX
@@ -153,13 +179,15 @@ def _clustered_invariants(state: ParticleState, cfg: SimConfig, m,
     off by far more than fp32 rounding of the result; the fit carries that
     into every goal (tools/sm_precision.py). The sums take the rows as the
     step's form does: through the (K, R, .) reshape where that form is
-    contig, so no (N, K) one-hot is built, else through the one-hot."""
+    contig, so no (N, K) one-hot is built, else through the one-hot; under
+    `comm` through the one-hot, summed over the ranks."""
     k, dtype, f64 = cfg.sm_clusters, state.pos.dtype, torch.float64
     n, tile_r = state.pos.shape[0], cfg.sm_tile_rows
     f = 9 if cfg.quadratic_match else 3
     cid = cluster_ids(state.orig_pos, cfg)
     m, m_cm, orig = m.to(f64), m_cm.to(f64), state.orig_pos.to(f64)
-    if f * k > _BLOCKED_MAX_LANES and tile_r > 0 and k * tile_r <= n:
+    if comm is None and f * k > _BLOCKED_MAX_LANES and tile_r > 0 \
+            and k * tile_r <= n:
         def r3(v):
             return v[:k * tile_r].reshape(k, tile_r, -1)
 
@@ -178,19 +206,23 @@ def _clustered_invariants(state: ParticleState, cfg: SimConfig, m,
             outer = a[:, :, None] * b[:, None, :]
             return (oh.T @ outer.reshape(n, -1)).reshape(
                 k, a.shape[1], b.shape[1])
+    mass_cm_sum, ocm_num = _allsum(comm, seg_sum(m_cm[:, None])[:, 0],
+                                   seg_sum(m_cm[:, None] * orig))
     # an all-inactive cluster divides by 1e-30 instead of 0 (no NaN)
-    mass_cm_sum = torch.clamp(seg_sum(m_cm[:, None])[:, 0], min=1e-30)
-    ocm = seg_sum(m_cm[:, None] * orig) / mass_cm_sum[:, None]
+    mass_cm_sum = torch.clamp(mass_cm_sum, min=1e-30)
+    ocm = ocm_num / mass_cm_sum[:, None]
     q = orig - ocm[cid]
-    mq = seg_sum(m[:, None] * q)
     if not cfg.quadratic_match:
-        fields = (mass_cm_sum, ocm, q, mq,
-                  invert3(seg_outer(q * m[:, None], q)), None, None, None)
+        mq, aqq = _allsum(comm, seg_sum(m[:, None] * q),
+                          seg_outer(q * m[:, None], q))
+        fields = (mass_cm_sum, ocm, q, mq, invert3(aqq), None, None, None)
     else:
         q9 = _quad_basis(q)
-        fields = (mass_cm_sum, ocm, q, mq, None, q9, seg_sum(m[:, None] * q9),
-                  pseudo_inverse(seg_outer(q9 * m[:, None], q9),
-                                 cfg.jacobi_iterations))
+        mq, mq9, a9qq = _allsum(comm, seg_sum(m[:, None] * q),
+                                seg_sum(m[:, None] * q9),
+                                seg_outer(q9 * m[:, None], q9))
+        fields = (mass_cm_sum, ocm, q, mq, None, q9, mq9,
+                  pseudo_inverse(a9qq, cfg.jacobi_iterations))
     inv = SMInvariants(*(None if x is None else x.to(dtype)
                          for x in fields))
     return _hoist_blocked(inv, cid, m_cm.to(dtype), k)
@@ -278,19 +310,22 @@ def _quadratic_transform(Apq, A9pq, a9qq_pinv, cfg: SimConfig):
     return A9
 
 
-def _segment_form(sm_inv: SMInvariants, cfg: SimConfig, n: int) -> str:
+def _segment_form(sm_inv: SMInvariants, cfg: SimConfig, n: int,
+                  comm=None) -> str:
     """The clustered form `project_positions` takes, by the JAX package's
     rule: "blocked" when the hoists exist (f*K <= _BLOCKED_MAX_LANES),
-    "contig" when the rows are tile-contiguous (sm_tile_rows) and K tiles
-    fit the rows, else "onehot"."""
+    "contig" when the rows are tile-contiguous (sm_tile_rows), K tiles fit
+    the rows and no `comm` splits them over ranks, else "onehot"."""
     if sm_inv.qb is not None:
         return "blocked"
     k, tile_r = sm_inv.ocm.shape[0], cfg.sm_tile_rows
-    return "contig" if tile_r > 0 and k * tile_r <= n else "onehot"
+    return ("contig" if comm is None and tile_r > 0 and k * tile_r <= n
+            else "onehot")
 
 
 def _clustered_goal(state: ParticleState, cfg: SimConfig,
-                    sm_inv: SMInvariants, m, m_cm) -> torch.Tensor:
+                    sm_inv: SMInvariants, m, m_cm,
+                    comm=None) -> torch.Tensor:
     """Goal positions of K independent clusters (cfg.sm_clusters > 1):
     the per-cluster moments in the form `_segment_form` picks, one batched
     transform, and the goals.
@@ -310,11 +345,12 @@ def _clustered_goal(state: ParticleState, cfg: SimConfig,
     mqf = sm_inv.mq9 if quad else sm_inv.mq
     rel = (state.pos - state.orig_pos) + sm_inv.q           # pos - ocm[cid]
     relm = rel * m[:, None]
-    form = _segment_form(sm_inv, cfg, n)
+    form = _segment_form(sm_inv, cfg, n, comm)
     if form == "blocked":
         # the cluster axis folded into the columns of a block-sparse q
-        cm = (sm_inv.w_cm.T @ rel) / sm_inv.mass_cm_sum[:, None]
-        Afpq = (relm.T @ sm_inv.qb).reshape(3, k, f).permute(1, 0, 2) \
+        cm_num, afpq = _allsum(comm, sm_inv.w_cm.T @ rel, relm.T @ sm_inv.qb)
+        cm = cm_num / sm_inv.mass_cm_sum[:, None]
+        Afpq = afpq.reshape(3, k, f).permute(1, 0, 2) \
             - cm[:, :, None] * mqf[:, None, :]             # (K, 3, f)
     elif form == "contig":
         nk = k * cfg.sm_tile_rows
@@ -329,10 +365,11 @@ def _clustered_goal(state: ParticleState, cfg: SimConfig,
     else:
         cid = cluster_ids(state.orig_pos, cfg)
         oh = _cluster_onehot(cid, k, rel.dtype)
-        cm = (oh.T @ (m_cm[:, None] * rel)) / sm_inv.mass_cm_sum[:, None]
         outer = relm[:, :, None] * qf[:, None, :]          # (N, 3, f)
-        Afpq = (oh.T @ outer.reshape(n, 3 * f)).reshape(k, 3, f) \
-            - cm[:, :, None] * mqf[:, None, :]
+        cm_num, afpq = _allsum(comm, oh.T @ (m_cm[:, None] * rel),
+                               oh.T @ outer.reshape(n, 3 * f))
+        cm = cm_num / sm_inv.mass_cm_sum[:, None]
+        Afpq = afpq.reshape(k, 3, f) - cm[:, :, None] * mqf[:, None, :]
     cm = cm + sm_inv.ocm                                   # world frame
 
     if quad:
@@ -353,30 +390,34 @@ def _clustered_goal(state: ParticleState, cfg: SimConfig,
 
 
 def project_positions(state: ParticleState, cfg: SimConfig,
-                      sm_inv: SMInvariants | None = None) -> torch.Tensor:
+                      sm_inv: SMInvariants | None = None,
+                      comm=None) -> torch.Tensor:
     """Goal positions from the best-fit transform of each cluster
     (cpp:234-446); fixed particles keep their previous goal. The deforming
     side of the moment splits as Apq = sum(m pos q^T) - cm (x) sum(m q), so
-    the per-step work is one (3,N)@(N,f) product plus the cm reduction."""
+    the per-step work is one (3,N)@(N,f) product plus the cm reduction
+    (and, under `comm`, one all_sum of both)."""
     ensure_fp32()
     if sm_inv is None:
-        sm_inv = sm_invariants(state, cfg)
+        sm_inv = sm_invariants(state, cfg, comm)
     m, m_cm = _masses(state, cfg)
     if sm_inv.ocm.dim() == 2:
-        goal = _clustered_goal(state, cfg, sm_inv, m, m_cm)
+        goal = _clustered_goal(state, cfg, sm_inv, m, m_cm, comm)
         return torch.where(state.fixed[:, None], state.goal_pos, goal)
     posm = state.pos * m[:, None]
-    q = sm_inv.q
-    cm = (m_cm @ state.pos) / sm_inv.mass_cm_sum           # cpp:244-253
-    Apq = posm.T @ q - cm[:, None] * sm_inv.mq[None, :]    # cpp:269-279
+    q, q9 = sm_inv.q, sm_inv.q9
+    cm_num, apq, a9pq = _allsum(comm, m_cm @ state.pos, posm.T @ q,
+                                None if q9 is None else posm.T @ q9)
+    cm = cm_num / sm_inv.mass_cm_sum                       # cpp:244-253
+    Apq = apq - cm[:, None] * sm_inv.mq[None, :]           # cpp:269-279
 
     if not cfg.quadratic_match:
         # anti-flip BEFORE polar decomposition in the linear path
         T = _linear_transform(Apq, sm_inv.aqq_inv, cfg)
         goal = q @ T.T + cm                                # cpp:324-329
     else:
-        q9 = sm_inv.q9                                     # cpp:348-350
-        A9pq = posm.T @ q9 - cm[:, None] * sm_inv.mq9[None, :]
+        # q9: cpp:348-350
+        A9pq = a9pq - cm[:, None] * sm_inv.mq9[None, :]
         A9 = _quadratic_transform(Apq, A9pq, sm_inv.a9qq_pinv, cfg)
         goal = q9 @ A9.T + cm                              # cpp:429-443
     return torch.where(state.fixed[:, None], state.goal_pos, goal)
@@ -384,11 +425,12 @@ def project_positions(state: ParticleState, cfg: SimConfig,
 
 def corrected_velocity(state: ParticleState, cfg: SimConfig,
                        sm_inv: SMInvariants | None = None,
-                       external_forces=None) -> ParticleState:
+                       external_forces=None, comm=None) -> ParticleState:
     """Full SM velocity-correction phase (calculate_corrected_velocity,
-    cpp:653-667): external forces -> goal positions -> corrected_vel."""
+    cpp:653-667): external forces -> goal positions -> corrected_vel;
+    the moments summed over the ranks of `comm` when given."""
     state = apply_external_forces(state, cfg, external_forces)
-    goal = project_positions(state, cfg, sm_inv=sm_inv)
+    goal = project_positions(state, cfg, sm_inv=sm_inv, comm=comm)
     cv = state.predicted_vel + (goal - state.pos) * (
         (1.0 / cfg.time_delta) * cfg.sm_alpha)             # cpp:661-666
     return state.replace(goal_pos=goal, corrected_vel=cv)

@@ -255,13 +255,16 @@ def scene_slot_stats(pts: np.ndarray, cfg, impl: str, sub_q: int,
             "n": len(c), "cap": cap}
 
 
-def pair_counts(fs, lo, hi, cfg, sub_q: int) -> dict:
+def pair_counts(fs, lo, hi, cfg, sub_q: int, cand=None) -> dict:
     """Pairs the sweeps need on these sorted inputs (a QM matrix fs and
     the v4 windows lo / hi of its sub_q-row sub-blocks), counted on fs's
     device from the windows and the exact full cell mask (query and
     candidate live): {"full": every pair the mask passes, "h": of those,
     r^2 < h^2, "2h": 1e-12 < r^2 < 4h^2}. The windows hold every pair the
-    mask passes, so the counts do not depend on sub_q."""
+    mask passes, so the counts do not depend on sub_q. `cand`: the
+    candidates' QM-layout rows the windows index, when they are not fs's
+    own (a slab of query rows, the halo step's merged matrix)."""
+    cand = fs if cand is None else cand
     gm = float(fst._g_mid(cfg))
     h2 = cfg.kernel_h * cfg.kernel_h
     lo_l, hi_l = lo.tolist(), hi.tolist()
@@ -272,7 +275,7 @@ def pair_counts(fs, lo, hi, cfg, sub_q: int) -> dict:
             w_lo, w_hi = lo_l[4 * b + r], hi_l[4 * b + r]
             if w_hi <= w_lo:
                 continue
-            c = fs[None, w_lo:w_hi]
+            c = cand[None, w_lo:w_hi]
             full = ((q[..., 13] + (r - 1) * gm - c[..., 13]).abs() <= 1.0) \
                 & ((q[..., 12] - c[..., 12]).abs() <= 1.0) \
                 & (q[..., 12] >= 0.0) & (c[..., 12] >= 0.0)

@@ -1,9 +1,10 @@
 """The port's command line (cli.py) against the JAX package.
 
 - RunController on the cases of tests/test_control.py:17-62, and the
-  CLI's refusals: an unknown --set key, --devices 2 (multi-device is not
-  ported), and a run that does not ask for the CPU on a host where torch
-  sees no GPU.
+  CLI's refusals: an unknown --set key, --devices 2 outside --mode
+  coupled, --dynamic-set with --parallel halo (the JAX package's
+  refusals), and a run that does not ask for the CPU on a host where
+  torch sees no GPU.
 - The CLI on the CPU, on susane (507 particles, the smallest named scene)
   for a few steps with --save-checkpoint, in each mode and with --set,
   --corrected-physics, --dynamic-set and --stim-off-step: the saved state
@@ -15,6 +16,10 @@
 - A --traj run whose file the JAX package's reader reads, and a resume:
   a run stopped by its control file, then resumed from its checkpoint,
   ends on the uninterrupted run's bits.
+- `--devices 2 --device cpu` (two ranks on gloo) on the unfused all-gather
+  and the halo path: the checkpoint against the single-device run, and
+  the halo checkpoint resumed on one device; the same command under
+  torchrun, which started the ranks.
 """
 
 import threading
@@ -86,8 +91,9 @@ def test_run_controller_pause_resume(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["--set", "nope=1"],
     ["--dynamic-set", "cell_size=0.05"],
-    ["--devices", "2"],
-    ["--parallel", "halo"],
+    ["--devices", "2", "--mode", "sm"],
+    ["--devices", "2", "--parallel", "halo", "--dynamic-set",
+     "k_stiffness=0.8"],
     ["--mode", "sm", "--stim-off-step", "2"],
 ], ids=["unknown-set", "static-dynamic-set", "devices", "parallel",
         "stim-off-non-coupled"])
@@ -99,9 +105,10 @@ def test_cli_refuses(argv):
 
 
 def test_devices_error_names_the_multi_device_slice(capsys):
+    """Multi-device runs are the coupled mode's (as in the JAX package)."""
     with pytest.raises(SystemExit) as e:
-        cli.main(["--devices", "2"])
-    assert "Queue 1 row 5" in str(e.value.code)
+        cli.main(["--devices", "2", "--mode", "monodomain"])
+    assert "--devices only supports --mode coupled" in str(e.value.code)
 
 
 def test_cli_without_a_gpu_fails_unless_asked_for_the_cpu():
@@ -248,3 +255,80 @@ def test_cli_resume_ends_on_the_uninterrupted_bits(tmp_path):
     assert step == STEPS
     for name in ("pos", "vel", "vm", "dens", "stim"):
         assert torch.equal(getattr(end, name), getattr(full, name)), name
+
+
+# --- two ranks on gloo (--devices 2 --device cpu) -----------------------------
+
+# tests/test_sharded.py's (unfused, all-gather) and tests/test_halo.py's
+# tolerances: the shape-matching sums run in rank order
+MULTI_TOLS = {"gather": {"pos": 5e-5, "vel": 5e-4, "vm": 1e-3},
+              "halo": {"pos": 2e-5, "vel": 5e-3, "vm": 1e-3, "dens": 1.0}}
+
+
+def _identity_sorted(st):
+    act = st.active.numpy()
+    op = st.orig_pos.numpy()[act]
+    key = np.lexsort((op[:, 2], op[:, 1], op[:, 0]))
+    return {n: getattr(st, n).numpy()[act][key]
+            for n in ("pos", "vel", "vm", "dens")}
+
+
+@pytest.mark.parametrize("parallel", ("gather", "halo"))
+def test_cli_two_ranks_match_one_device(parallel, tmp_path, capfd):
+    """The CLI's two-rank run against the single-device path it shards:
+    the unfused step (what the CLI runs on the CPU) for gather, the fused
+    v4 run_protocol for halo; the halo checkpoint is dense and resumes on
+    one device."""
+    ckpt = tmp_path / "two.npz"
+    assert cli.main(["--scene", SCENE, "--steps", str(STEPS), "--chunk",
+                     str(CHUNK), "--device", "cpu", "--devices", "2",
+                     "--parallel", parallel, "--save-checkpoint",
+                     str(ckpt)]) == 0
+    out = capfd.readouterr().out
+    assert f"parallel impl: {parallel} over 2 devices, transport gloo" in out
+    two, step = T.load_checkpoint(str(ckpt), device="cpu")
+    assert step == STEPS and int(two.active.sum()) == 507
+    if parallel == "gather":
+        one = _cli_run(tmp_path, [])[0]
+    else:
+        sc = T.build_scene(SCENE, device="cpu")
+        one = T.run_protocol(sc, num_steps=STEPS, chunk=CHUNK,
+                             fused=True, impl="v4")[0]
+    a, b = _identity_sorted(two), _identity_sorted(one)
+    for name, tol in MULTI_TOLS[parallel].items():
+        np.testing.assert_allclose(a[name], b[name], atol=tol,
+                                   err_msg=f"{parallel}: {name}")
+    if parallel == "halo":
+        end = tmp_path / "end.npz"
+        assert cli.main(["--scene", SCENE, "--steps", str(STEPS + CHUNK),
+                         "--chunk", str(CHUNK), "--device", "cpu",
+                         "--load-checkpoint", str(ckpt),
+                         "--save-checkpoint", str(end)]) == 0
+        st, step = T.load_checkpoint(str(end), device="cpu")
+        assert step == STEPS + CHUNK
+        assert torch.isfinite(st.pos[st.active]).all()
+
+
+def test_cli_under_torchrun_joins_its_ranks(tmp_path):
+    """Started by torchrun (RANK / WORLD_SIZE in the environment), the
+    command line joins the ranks the launcher started instead of starting
+    its own; rank 0 alone prints and writes the checkpoint."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    ckpt = tmp_path / "torchrun.npz"
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "sph_sm_monodomain_tpu_torch",
+         "--scene", SCENE, "--steps", str(CHUNK), "--chunk", "1",
+         "--devices", "2", "--device", "cpu", "--parallel", "halo",
+         "--save-checkpoint", str(ckpt)],
+        capture_output=True, text=True, timeout=300, cwd=str(root),
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("parallel impl: halo over 2 devices, "
+                            "transport gloo") == 1
+    st, step = T.load_checkpoint(str(ckpt), device="cpu")
+    assert step == CHUNK and int(st.active.sum()) == 507

@@ -2,9 +2,10 @@
 backward, the Laplacian-only sweep, and the v1 / v2 raw-sum sweeps), the
 roofline tool's FMA-chain probe, its fused steps, its differentiable step,
 the monodomain mode's gradient, the clustered shape matching of the
-multi-muscle scenes and the demos on the card, against their plain PyTorch
-versions and the CPU path (marker `cuda`; skipped where torch sees no
-GPU).
+multi-muscle scenes and the demos on the card, K1 / K2 on a slab of query
+rows and the multi-device fused slab and halo paths with two ranks on the
+card, against their plain PyTorch versions and the CPU path (marker
+`cuda`; skipped where torch sees no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -896,3 +897,84 @@ def test_contraction_demo_on_card(device, tmp_path):
                                  str(tmp_path)])
     assert len(res["frames"]) == 20
     assert all(os.path.isfile(f) for f in res["frames"])
+
+
+@pytest.mark.parametrize("form", ["slab0", "slab1", "rows"])
+def test_k1_k2_on_a_slab_of_rows_match_plain(device, form):
+    """K1 / K2 over a slab of sorted query rows (q_slice, as the fused
+    slab path launches them) and over query rows that are not the
+    candidates' rows (n_q != n_c, as the halo path launches them), against
+    their plain versions; counted as slab launches; two launches bitwise
+    equal."""
+    cfg, st = _blob(device, n=900, seed=5)
+    sub_q, n = 128, st.capacity
+    order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg,
+                                                   sub_q)
+    fs, fa = fst.build_qm_feats(st, cx, cyz, order)
+    half = n // 2
+    out_a = fst.sweep_a3_plain(fs, fa, cfg)
+    fb = fst.feats_b(out_a)
+    if form == "rows":
+        rows = slice(256, 256 + half)
+        b0, b1 = 256 // sub_q * 4, (256 + half) // sub_q * 4
+        qa, qb = fs[rows].contiguous(), out_a[rows].contiguous()
+        kw = dict(sub_q=sub_q)
+        args = (lo[b0:b1], hi[b0:b1])
+    else:
+        off = 0 if form == "slab0" else half
+        rows = slice(off, off + half)
+        qa, qb, args = fs, out_a, (lo, hi)
+        kw = dict(sub_q=sub_q, q_slice=(off, half))
+    n0 = (fst.sweep_a3.slab_launches, fst.sweep_b3.slab_launches,
+          fst.sweep_a3.launches, fst.sweep_b3.launches)
+    got_a = fst.sweep_a3(qa, fa, *args, cfg, **kw)
+    got_b = fst.sweep_b3(qb, fb, *args, cfg, **kw)
+    torch.cuda.synchronize()
+    assert (fst.sweep_a3.slab_launches, fst.sweep_b3.slab_launches,
+            fst.sweep_a3.launches, fst.sweep_b3.launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    _check(got_a, fst.sweep_a3_plain(fs[rows], fa, cfg), f"K1 {form}")
+    _check(got_b, fst.sweep_b3_plain(out_a[rows], fb, cfg), f"K2 {form}")
+    assert torch.equal(got_a, fst.sweep_a3(qa, fa, *args, cfg, **kw))
+    assert torch.equal(got_b, fst.sweep_b3(qb, fb, *args, cfg, **kw))
+
+
+def test_two_ranks_on_the_card_match_one_device(device, tmp_path):
+    """The fused slab path and the halo path with two ranks sharing the
+    card (gloo through host copies) against the single-device v4 step on
+    the card, at tests/test_sharded_fused.py's and tests/test_halo.py's
+    tolerances; K1 / K2 launched on slabs only."""
+    import torch_parallel_ranks as R
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    C.spawn(R.run_card, 2, (str(tmp_path),), device_type="cuda")
+    res = dict(np.load(tmp_path / "card2.npz"))
+    assert str(res["transport"]) == C.pick_transport(2, "cuda")
+    launches = res["launches"]
+    assert (launches[:, 0] == R.FUSED_STEPS + R.HALO_STEPS).all()
+    assert (launches[:, 1] == R.FUSED_STEPS + R.HALO_STEPS).all()
+    assert (launches[:, 2:] == 0).all()
+    st = R.blob_state(400, 5, pad_to=512, seed=1).to(device)
+    for _ in range(R.FUSED_STEPS):
+        st, _ = T.step_fused(st, R.CFG, R.FUSED_SUB_Q)
+    for name, (atol, rtol) in {"pos": (5e-5, 0), "vel": (5e-4, 0),
+                               "vm": (1e-3, 0), "dens": (0, 1e-5)}.items():
+        np.testing.assert_allclose(res[f"fused/{name}"][:400],
+                                   getattr(st, name).cpu().numpy()[:400],
+                                   atol=atol, rtol=rtol, err_msg=name)
+    cfg, st, steps = R.halo_cases()["uniform"]
+    st = st.to(device)
+    for _ in range(steps):
+        st, _ = T.step_fused(st, cfg, R.HALO_SUB_Q)
+    assert list(res["halo/overflow"]) == [0] * steps
+    act = res["halo/active"].astype(bool)
+    assert int(act.sum()) == 900
+    op = res["halo/orig_pos"][act]
+    key = np.lexsort((op[:, 2], op[:, 1], op[:, 0]))
+    ref_op = st.orig_pos.cpu().numpy()[:900]
+    rkey = np.lexsort((ref_op[:, 2], ref_op[:, 1], ref_op[:, 0]))
+    for name, tol in {"pos": 2e-5, "vel": 5e-3, "vm": 1e-3,
+                      "dens": 1.0}.items():
+        np.testing.assert_allclose(
+            res[f"halo/{name}"][act][key],
+            getattr(st, name).cpu().numpy()[:900][rkey], atol=tol,
+            err_msg=f"halo {name}")

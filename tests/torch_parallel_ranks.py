@@ -1,0 +1,300 @@
+"""The multi-device cases of tests/test_torch_parallel.py, run by the ranks
+that test spawns (gloo over CPU tensors), and the inputs they share with
+the test process. Imports numpy, torch and the port only: the ranks never
+import jax nor the JAX package.
+
+`run_world(comm, out_dir)` runs every case on this rank, each from inputs
+made here with numpy from fixed seeds, and rank 0 writes the gathered
+results to out_dir/world<D>.npz; each rank also writes the modules it has
+imported to out_dir/modules<rank>.txt.
+
+    python tests/torch_parallel_ranks.py D OUT_DIR
+
+spawns D ranks of run_world (the test starts it in the background).
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.parallel import comm as C
+from sph_sm_monodomain_tpu_torch.parallel import halo_step as H
+from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
+
+CFG = T.SimConfig()
+NBR = 9 * 64             # unfused table width (tests/test_sharded.py)
+FUSED_SUB_Q = 32         # capacity 512 = 4 ranks x 4 sub-blocks of 32 rows
+HALO_SUB_Q = 64          # the JAX halo tests' sub_q
+GATHER_STEPS, FUSED_STEPS, HALO_STEPS, MIGRATION_STEPS = 3, 2, 3, 8
+# physics overrides of the dynamic-params cases (tests/test_halo.py)
+OVERRIDES = {"k_stiffness": 0.8, "mu_viscosity": 150.0, "sm_alpha": 0.5,
+             "fh_c1": 0.2}
+# a world of 750^3 cells: window ids pass 2^24, where a value cast of the
+# id column through float32 would merge neighbouring ids
+BIG_WORLD = (30.0, 30.0, 30.0)
+
+
+def blob_state(n=300, n_fixed=7, pad_to=None, seed=0):
+    """tests/test_sharded.py's state: a Gaussian blob, stimulated in a
+    sphere, its first rows fixed."""
+    rng = np.random.default_rng(seed)
+    pts = np.clip(rng.normal(size=(n, 3)).astype(np.float32) * 0.06 + 0.6,
+                  0.05, 1.2)
+    st = T.init_fluid(pts, CFG, pad_to=pad_to, device="cpu")
+    st = T.stim.set_stim(st, (0.6, 0.6, 0.6), 0.5, CFG.stim_strength, CFG)
+    fixed = torch.zeros(st.capacity, dtype=torch.bool)
+    fixed[:n_fixed] = True
+    return st.replace(fixed=fixed)
+
+
+def clustered_gather_state(seed=2):
+    """tests/test_sharded.py's two-muscle state (sm_clusters = 2)."""
+    cfg = CFG.replace(world_size=(3.0, 1.5, 1.5), sm_clusters=2)
+    rng = np.random.default_rng(seed)
+    pts = np.clip(rng.normal(size=(144, 3)).astype(np.float32) * 0.06
+                  + 0.6, 0.05, 1.2)
+    both = np.concatenate([pts, pts + [1.5, 0, 0]]).astype(np.float32)
+    st = T.init_fluid(both, cfg, pad_to=512, device="cpu")
+    st = T.stim.set_stim(st, (0.6, 0.6, 0.6), 0.5, cfg.stim_strength, cfg)
+    st = T.stim.set_stim(st, (2.1, 0.6, 0.6), 0.5, cfg.stim_strength, cfg)
+    return cfg, st
+
+
+def halo_cases() -> dict:
+    """{name: (cfg, state, steps)} of the halo cases (tests/test_halo.py's
+    clouds): uniform, one occupied slab (empty ranks), an x-stretched
+    world, two muscles, a world whose ids pass 2^24."""
+    out = {}
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(0.06, 1.44, size=(900, 3)).astype(np.float32)
+    st = T.init_fluid(pts, CFG, device="cpu")
+    out["uniform"] = (CFG, T.stim.turn_on_stim_mesh(st, pts, CFG),
+                      HALO_STEPS)
+
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(0.05, 0.15, size=(400, 3)).astype(np.float32)
+    pts[:, :2] = rng.uniform(0.4, 1.1, size=(400, 2)).astype(np.float32)
+    st = T.init_fluid(pts, CFG, device="cpu")
+    out["empty"] = (CFG, T.stim.turn_on_stim_mesh(st, pts, CFG), HALO_STEPS)
+
+    cfg = CFG.replace(world_size=(6.0, 1.5, 1.5))
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0.06, 1.44, size=(700, 3)).astype(np.float32)
+    pts[:, 0] = rng.uniform(0.06, 5.9, size=700).astype(np.float32)
+    st = T.init_fluid(pts, cfg, device="cpu")
+    out["stretched"] = (cfg, T.stim.turn_on_stim_mesh(st, pts, cfg),
+                        HALO_STEPS)
+
+    cfg = CFG.replace(world_size=(3.0, 1.5, 1.5), sm_clusters=2)
+    rng = np.random.default_rng(6)
+    pts = rng.uniform(0.06, 1.44, size=(260, 3)).astype(np.float32)
+    both = np.concatenate([pts, pts + [1.5, 0, 0]]).astype(np.float32)
+    st = T.init_fluid(both, cfg, device="cpu")
+    out["clustered"] = (cfg, T.stim.turn_on_stim_mesh(st, both, cfg,
+                                                      tile_width=1.5),
+                        HALO_STEPS)
+
+    cfg = CFG.replace(world_size=BIG_WORLD)
+    rng = np.random.default_rng(7)
+    pts = (rng.uniform(-0.5, 0.5, size=(1500, 3)) * [0.3, 0.3, 0.5]
+           + 15.0).astype(np.float32)
+    st = T.init_fluid(pts, cfg, device="cpu")
+    out["big_world"] = (cfg, T.stim.turn_on_stim_mesh(st, pts, cfg),
+                        HALO_STEPS)
+    return out
+
+
+def migration_state():
+    """tests/test_halo.py's migration cloud: every particle given a
+    z-velocity that carries it ~0.6 cells in 8 steps."""
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(0.06, 1.3, size=(600, 3)).astype(np.float32)
+    vel = np.zeros_like(pts)
+    vel[:, 2] = 2.5
+    return T.init_fluid(pts, CFG, velocities=vel, device="cpu")
+
+
+def _fields(st, names=("pos", "vel", "vm", "dens", "iion", "w", "goal_pos",
+                       "pres", "inter_vm", "stim", "active", "orig_pos")):
+    return {n: getattr(st, n).numpy() for n in names}
+
+
+def _put(res, prefix, arrays):
+    for k, v in arrays.items():
+        res[f"{prefix}/{k}"] = np.asarray(v)
+
+
+def _comm_case(comm, res):
+    d, r = comm.size, comm.rank
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10.0 * r
+    ids = torch.tensor([r, (1 << 24) + 2 * r + 1], dtype=torch.int32)
+    per_rank = torch.cat([
+        torch.tensor([float(comm.axis_index())]),
+        comm.shift(x, +1).reshape(-1), comm.shift(x, -1).reshape(-1)])
+    _put(res, f"comm{d}", {
+        "all_gather": comm.all_gather(x),
+        "all_sum": comm.all_sum(x),
+        "all_sum_f64": comm.all_sum(x.to(torch.float64) / 3.0),
+        "per_rank": comm.all_gather(per_rank[None, :]),
+        "shift_ids": comm.all_gather(comm.shift(ids.view(torch.float32), +1)
+                                     .view(torch.int32)[None, :])})
+
+
+def _gather_cases(comm, res):
+    st = S.shard_state(blob_state(), comm)
+    step = S.make_sharded_step(comm, CFG, NBR)
+    ovf = []
+    for _ in range(GATHER_STEPS):
+        st, o = step(st)
+        ovf.append(int(o))
+    _put(res, "gather", {**_fields(S.gather_state(st, comm)),
+                         "overflow": ovf})
+
+    cfg, st = clustered_gather_state()
+    st = S.shard_state(st, comm)
+    step = S.make_sharded_step(comm, cfg, NBR)
+    for _ in range(GATHER_STEPS):
+        st, _ = step(st)
+    _put(res, "gather_clustered", _fields(S.gather_state(st, comm)))
+
+    sim = S.make_sharded_simulate(comm, CFG, NBR, num_steps=4,
+                                  stim_off_step=2)
+    st, o = sim(S.shard_state(blob_state(200, seed=9), comm),
+                {k: torch.tensor(v) for k, v in OVERRIDES.items()})
+    _put(res, "gather_sim", {**_fields(S.gather_state(st, comm)),
+                             "overflow": int(o)})
+
+
+def _fused_cases(comm, res):
+    st = S.shard_state(blob_state(400, 5, pad_to=512, seed=1), comm)
+    step = S.make_sharded_step_fused(comm, CFG, sub_q=FUSED_SUB_Q)
+    for _ in range(FUSED_STEPS):
+        st, _ = step(st)
+    _put(res, "fused", _fields(S.gather_state(st, comm)))
+
+    sim = S.make_sharded_simulate_fused(comm, CFG, num_steps=3,
+                                        stim_off_step=1, sub_q=FUSED_SUB_Q)
+    st, o = sim(S.shard_state(blob_state(300, 0, pad_to=512, seed=10),
+                              comm),
+                {k: torch.tensor(v) for k, v in OVERRIDES.items()})
+    _put(res, "fused_sim", {**_fields(S.gather_state(st, comm)),
+                            "overflow": int(o)})
+
+
+def window_misses(qm, feats, lo, hi, cfg, sub_q):
+    """Pairs of query rows qm (N_q, 16) and candidates feats (16, N_c) that
+    the exact v4 cell mask accepts but that lie outside the query's
+    sub-block windows (lo / hi, 4 a sub-block): the pairs a kernel would
+    miss. The plain sweeps read no windows, so this holds them on the
+    CPU."""
+    from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
+    mask = fst._window_mask(cfg, "xyz3", False)
+    idx = torch.arange(feats.shape[1])
+    misses = 0
+    for b in range(qm.shape[0] // sub_q):
+        inside = torch.zeros_like(idx, dtype=torch.bool)
+        for r in range(3):
+            inside |= (idx >= lo[4 * b + r]) & (idx < hi[4 * b + r])
+        m = mask(qm[b * sub_q:(b + 1) * sub_q], feats)
+        misses += int((m & ~inside[None, :]).sum())
+    return misses
+
+
+def _halo_cases(comm, res):
+    for name, (cfg, st0, steps) in halo_cases().items():
+        st, s_cap, mig, halo = H.shard_state_halo(st0, comm, cfg)
+        step = H.make_halo_step(comm, cfg, mig, halo, sub_q=HALO_SUB_Q)
+        misses = []
+        real = H.sweep_a3
+
+        def checked(qm, feats, lo, hi, cfg_, **kw):
+            misses.append(window_misses(qm, feats, lo, hi, cfg_,
+                                        kw["sub_q"]))
+            return real(qm, feats, lo, hi, cfg_, **kw)
+        ovf = []
+        with mock.patch.object(H, "sweep_a3", checked):
+            for _ in range(steps):
+                st, o = step(st)
+                ovf.append(int(o))
+        missed = comm.all_sum(torch.tensor(misses, dtype=torch.int64))
+        _put(res, f"halo_{name}", {**_fields(S.gather_state(st, comm)),
+                                   "overflow": ovf, "s_cap": s_cap,
+                                   "window_misses": missed})
+
+    st0 = migration_state()
+    st, s_cap, mig, halo = H.shard_state_halo(st0, comm, CFG)
+    sim = H.make_halo_simulate(comm, CFG, mig, halo, MIGRATION_STEPS,
+                               sub_q=HALO_SUB_Q)
+    st, o = sim(st)
+    _put(res, "halo_migration", {**_fields(S.gather_state(st, comm)),
+                                 "overflow": int(o), "s_cap": s_cap})
+
+    _, st0, _ = halo_cases()["uniform"]
+    st, s_cap, mig, halo = H.shard_state_halo(st0, comm, CFG)
+    dyn = H.make_halo_step(comm, CFG, mig, halo, sub_q=HALO_SUB_Q)
+    baked = H.make_halo_step(comm, CFG.replace(**OVERRIDES), mig, halo,
+                             sub_q=HALO_SUB_Q)
+    params = {k: torch.tensor(v) for k, v in OVERRIDES.items()}
+    a, b = st, st
+    for _ in range(HALO_STEPS):
+        a, _ = dyn(a, params)
+        b, _ = baked(b)
+    _put(res, "halo_dyn", _fields(S.gather_state(a, comm)))
+    _put(res, "halo_baked", _fields(S.gather_state(b, comm)))
+
+
+def run_world(comm, out_dir):
+    """Every case on this rank; rank 0 writes world<D>.npz."""
+    torch.set_num_threads(1)
+    out_dir = Path(out_dir)
+    (out_dir / f"modules{comm.rank}.txt").write_text(
+        "\n".join(sorted(sys.modules)))
+    res = {}
+    _comm_case(comm, res)
+    _gather_cases(comm, res)
+    _fused_cases(comm, res)
+    _halo_cases(comm, res)
+    if comm.rank == 0:
+        np.savez(out_dir / f"world{comm.size}.npz", **res)
+
+
+def run_card(comm, out_dir):
+    """The fused slab and halo paths on the rank's card (ranks sharing one
+    card talk gloo through host copies): rank 0 writes card<D>.npz with
+    the gathered results and the slab launches of K1 / K2 on each rank."""
+    from sph_sm_monodomain_tpu_torch.ops import fused_step as fst
+    dev, res = comm.device, {}
+    fst.sweep_a3.slab_launches = fst.sweep_b3.slab_launches = 0
+    st = S.shard_state(blob_state(400, 5, pad_to=512, seed=1).to(dev), comm)
+    step = S.make_sharded_step_fused(comm, CFG, sub_q=FUSED_SUB_Q)
+    for _ in range(FUSED_STEPS):
+        st, _ = step(st)
+    _put(res, "fused", {k: v for k, v in _fields(
+        S.gather_state(st, comm).to("cpu")).items()})
+    cfg, st0, steps = halo_cases()["uniform"]
+    st, _, mig, halo = H.shard_state_halo(st0.to(dev), comm, cfg)
+    step = H.make_halo_step(comm, cfg, mig, halo, sub_q=HALO_SUB_Q)
+    ovf = []
+    for _ in range(steps):
+        st, o = step(st)
+        ovf.append(int(o))
+    _put(res, "halo", {**_fields(S.gather_state(st, comm).to("cpu")),
+                       "overflow": ovf})
+    launches = comm.all_gather(torch.tensor(
+        [[fst.sweep_a3.slab_launches, fst.sweep_b3.slab_launches,
+          fst.sweep_a3.launches, fst.sweep_b3.launches]],
+        dtype=torch.int32, device=dev))
+    res["launches"] = launches.cpu().numpy()
+    res["transport"] = np.asarray(comm.transport)
+    if comm.rank == 0:
+        np.savez(Path(out_dir) / f"card{comm.size}.npz", **res)
+
+
+if __name__ == "__main__":
+    C.spawn(run_world, int(sys.argv[1]), (sys.argv[2],), device_type="cpu")
