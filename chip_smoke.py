@@ -153,6 +153,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               gather / fused / halo (20 steps), the halo checkpoint
               resumed on one device; ms/step of each path (two ranks on
               one card) and of one device
+ 31. graph    the compiled run loop (models/scan.py: simulate, the mode
+              drivers and run_protocol replay a captured CUDA graph):
+              biceps_full v4 run_protocol(500 steps, stim off at 250,
+              donated, graphed) against an eager Python loop of step_fused
+              over the same protocol, bit for bit (or within twice the
+              spread of two eager runs, with the stage that does not
+              repeat named), K1 / K2 launched exactly 500 times, one
+              capture, scene.state untouched; 20 steps each of v3, v5
+              (pack_cap forced low: a regrow and a recapture), v1, v2 and
+              the unfused step, then SM-only, SPH-only and the fused
+              monodomain mode (K3), each against its eager run the same
+              way with exact launch counts; biceps_full x56 coupled, 100
+              steps: counts, finite fields, peak memory, and the graph
+              pool's peak (tools/hbm_footprint --scan, donated); ms/step
+              graphed and eager (best of 3 calls ending in a host fetch)
+              on biceps_full, x7, x56, SM-only x56 and monodomain fused;
+              host launch calls a step, kernels a replay runs and the
+              device's idle share, from a profiled window; the command
+              line's rendered frames after a donated run differ from
+              chunk to chunk
+
+Earlier phases run the same drivers, now graphed: their exact launch
+counts come from replays (models/scan.py corrects the counters), and
+their timings warm the capture up first.
 
 The line before the last is a JSON object with one entry per kernel (K1 /
 K2's slab launches as rows of their own); the last line is {"ok": true,
@@ -187,6 +211,7 @@ from sph_sm_monodomain_tpu_torch.examples import fit_material_demo
 from sph_sm_monodomain_tpu_torch.examples import fit_material_flagship as fit
 from sph_sm_monodomain_tpu_torch.examples import fit_stimulus_demo
 from sph_sm_monodomain_tpu_torch.models import monodomain
+from sph_sm_monodomain_tpu_torch.models import scan
 from sph_sm_monodomain_tpu_torch.models import variants
 from sph_sm_monodomain_tpu_torch.ops import cuda_lib
 from sph_sm_monodomain_tpu_torch.ops import fused_adjoint as fad
@@ -203,9 +228,11 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
 from sph_sm_monodomain_tpu_torch.tools import (ablate_fused, bench_rows,
                                                hbm_footprint, profile_phases,
                                                roofline, sm_precision, sweep)
+from sph_sm_monodomain_tpu_torch.utils import render as render_mod
 from sph_sm_monodomain_tpu_torch.utils import report as report_mod
 from sph_sm_monodomain_tpu_torch.tools.roofline import (PEAK_BYTES,
                                                         PEAK_FLOPS)
+from sph_sm_monodomain_tpu_torch.state import FIELD_NAMES
 from sph_sm_monodomain_tpu_torch.utils.io import ASSETS_DIR
 
 # kernel vs plain version: |kernel - plain| <= KERNEL_TOL * max(1, max|plain
@@ -415,8 +442,9 @@ def laplacian_csr(qm, feats, cfg):
 
 def timed_run(run, steps: int):
     """(device ms per step of run(steps), its result), CUDA events, after a
-    one-step warm-up run."""
-    run(1)
+    two-step warm-up run (the first call of a driver runs one step eagerly,
+    the second captures its graph)."""
+    run(2)
     out = {}
     ms = cuda_ms(lambda: out.setdefault("r", run(steps)), 1) / steps
     return ms, out["r"]
@@ -684,20 +712,25 @@ def slice_card_vs_cpu(small, label):
 def counted_protocol(sc, names, **kw):
     """run_protocol(sc, **kw) with the launch counts of the kernels `names`
     set to 0 just before it and read just after, and each chunk's
-    simulate call recorded as (pack_cap, steps): a regrown chunk shows as a
-    call redone with a larger pack_cap. Returns (state, aux, traj,
+    simulate (or simulate_donated) call recorded as (pack_cap, steps): a
+    regrown chunk shows as a call redone with a larger pack_cap. Returns (state, aux, traj,
     launches, calls, wall seconds)."""
-    calls, real_simulate = [], monodomain.simulate
+    calls = []
 
-    def recording_simulate(*args, **skw):
-        calls.append((skw["pack_cap"], skw["num_steps"]))
-        return real_simulate(*args, **skw)
+    def recording(real):
+        def rec(*args, **skw):
+            calls.append((skw["pack_cap"], skw["num_steps"]))
+            return real(*args, **skw)
+        return rec
 
     for nm in names:
         getattr(KERNEL_MODULE[nm], nm).launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(monodomain, "simulate", recording_simulate):
+    with mock.patch.object(monodomain, "simulate",
+                           recording(monodomain.simulate)), \
+            mock.patch.object(monodomain, "simulate_donated",
+                              recording(monodomain.simulate_donated)):
         st, aux, traj = T.run_protocol(sc, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1067,8 +1100,8 @@ def phase_sm_only_big(big) -> dict:
 
 def best_ms_per_step(run, steps: int, reps: int = 3) -> float:
     """Best wall ms per step of `reps` calls run(steps), each ending in a
-    host fetch of its result, after a one-step warm-up."""
-    run(1)
+    host fetch of its result, after a two-step warm-up (which captures)."""
+    run(2)
     best = float("inf")
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -1141,10 +1174,10 @@ def form_times(sc, label: str) -> dict:
 
 def phase_multi_timing(dev, big, x7) -> dict:
     """Phase 27: ms/step of coupled x7, coupled x56 and SM-only x56 (best
-    of 3 calls ending in a host fetch), their peak memory, and the CUDA
-    launches per step of the coupled step: equal on x7 and x56 in the
-    contig form (x7 forced into it), and no more on x56 than on x7 in its
-    own blocked form."""
+    of 3 graphed calls ending in a host fetch), their peak memory, and the
+    CUDA launches per step of the eager coupled step: equal on x7 and x56
+    in the contig form (x7 forced into it), and no more on x56 than on x7
+    in its own blocked form."""
     runs = {
         "coupled_x7": lambda k: T.simulate(x7.state, x7.cfg, k),
         f"coupled_x{REPLICATE}": lambda k: T.simulate(big.state, big.cfg, k),
@@ -1163,11 +1196,15 @@ def phase_multi_timing(dev, big, x7) -> dict:
               f"steps), max_memory_allocated {peak / 2**30:.4f} GiB "
               f"({(peak - base) / 2**30:.4f} GiB above the "
               f"{base / 2**30:.4f} GiB held before)", flush=True)
-    counts = {"x7": launches_per_step(runs["coupled_x7"]),
-              f"x{REPLICATE}": launches_per_step(
-                  runs[f"coupled_x{REPLICATE}"])}
-    with mock.patch.object(tsm, "_BLOCKED_MAX_LANES", 0):
-        counts["x7 contig"] = launches_per_step(runs["coupled_x7"])
+    # the eager step's launches (a graph replay launches none from the
+    # host); eager also keeps the forced contig form from a cached capture
+    # of the blocked one
+    with eager_steps():
+        counts = {"x7": launches_per_step(runs["coupled_x7"]),
+                  f"x{REPLICATE}": launches_per_step(
+                      runs[f"coupled_x{REPLICATE}"])}
+        with mock.patch.object(tsm, "_BLOCKED_MAX_LANES", 0):
+            counts["x7 contig"] = launches_per_step(runs["coupled_x7"])
     print(f"coupled step, CUDA kernels run and kernel launch calls per "
           f"step: {counts}", flush=True)
     calls = {name: c["launch_calls"] for name, c in counts.items()}
@@ -2026,6 +2063,394 @@ def phase_parallel(dev, report, times, bounds, launches) -> dict:
             "phase_s": phase_s}
 
 
+# --- phase 31: the compiled run loop (captured CUDA graphs) -----------------
+
+# steps of each other generation's and mode's graphed-vs-eager run (chunks
+# and stim-off of the protocol runs, the frame spacing of the mode runs);
+# steps of the x56 run; steps of each timed call and of the profiled
+# window; the command line's rendered run (steps, render spacing)
+GEN_STEPS, GEN_CHUNK, GEN_STIM_OFF, GEN_FRAMES = 20, 10, 7, 5
+GRAPH_BIG_STEPS, GRAPH_TIMING_STEPS, PROFILE_STEPS = 100, 100, 50
+RENDER_STEPS, RENDER_EVERY = 300, 100
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """The drivers' steps run eagerly (models/scan.run_steps_eager, the
+    same blocks without capture): the reference the graphed runs are held
+    to, and the form whose host launches phase 27 counts."""
+    with mock.patch.object(monodomain, "run_steps", scan.run_steps_eager), \
+            mock.patch.object(variants, "run_steps", scan.run_steps_eager), \
+            mock.patch.object(report_mod, "run_steps",
+                              scan.run_steps_eager):
+        yield
+
+
+@contextlib.contextmanager
+def counting_captures(seen: list):
+    """Record the block length of every CUDA graph captured."""
+    real = scan._Capture._capture
+
+    def wrapped(self, step, length):
+        seen.append(length)
+        return real(self, step, length)
+    with mock.patch.object(scan._Capture, "_capture", wrapped):
+        yield
+
+
+def differing_fields(a, b) -> dict:
+    """{field: max abs difference} of the fields whose bits differ (bool
+    fields as 1.0 where any differs)."""
+    out = {}
+    for f in FIELD_NAMES:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.is_floating_point():
+            same = torch.equal(x.view(torch.int32), y.view(torch.int32))
+            if not same:
+                out[f] = float((x - y).abs().max())
+        elif not torch.equal(x, y):
+            out[f] = 1.0
+    return out
+
+
+def first_unrepeatable_stage(sc) -> str:
+    """The first stage of one fused v4 step from sc.state whose output
+    differs between two runs of it (the bookkeeping, shape matching, sweep
+    A, sweep B), or "none"."""
+    st, cfg, sq = sc.state, sc.cfg, sc.sub_block
+    inv = sm_invariants(st, cfg)
+
+    def stages():
+        order, _, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active,
+                                                       cfg, sq)
+        s2 = corrected_velocity(st, cfg, sm_inv=inv)
+        fs, fa = fst.build_qm_feats(s2, cx, cyz, order)
+        oa = fst.sweep_a3(fs, fa, lo, hi, cfg, sub_q=sq)
+        ob = fst.sweep_b3(oa, fst.feats_b(oa), lo, hi, cfg, sub_q=sq)
+        return {"sort + window bookkeeping": torch.cat(
+                    [order.double(), lo.double(), hi.double()]),
+                "shape matching (corrected_velocity)": s2.corrected_vel,
+                "sweep A (K1)": oa, "sweep B (K2)": ob}
+    a, b = stages(), stages()
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            return k
+    return "none"
+
+
+def hold_to_eager(what, graphed, eager1, eager2, stage=None) -> dict:
+    """The graphed run against two eager runs of the same protocol: bit
+    for bit where the two eager runs agree bit for bit, else within twice
+    their spread per field, naming the stage that does not repeat."""
+    spread = differing_fields(eager1, eager2)
+    got = differing_fields(graphed, eager1)
+    if not spread:
+        print(f"{what}: eager runs bit-equal; graphed vs eager "
+              f"{'bit-equal' if not got else got}", flush=True)
+        if got:
+            raise AssertionError(f"{what}: graphed run differs from the "
+                                 f"eager loop: {got}")
+        return {"bit_equal": True}
+    cause = stage() if stage is not None else "not traced"
+    print(f"{what}: two eager runs differ {spread} (first unrepeatable "
+          f"stage: {cause}); graphed vs eager {got}", flush=True)
+    bad = {f: v for f, v in got.items() if v > 2.0 * spread.get(f, 0.0)}
+    if bad:
+        raise AssertionError(f"{what}: graphed beyond twice the eager "
+                             f"spread: {bad}")
+    return {"bit_equal": False, "eager_spread": spread, "diff": got,
+            "unrepeatable": cause}
+
+
+def eager_v4_protocol(sc, steps: int, stim_off: int):
+    """The protocol as a plain Python loop of step_fused on the card."""
+    cfg = sc.cfg
+    st = scan.copy_state(sc.state)
+    inv = sm_invariants(st, cfg)
+    for i in range(steps):
+        if i == stim_off:
+            st = T.stim.turn_off_stim(st, cfg)
+        st = T.step_fused(st, cfg, sc.sub_block, sm_inv=inv)[0]
+    return st
+
+
+def graph_vs_eager_protocol(label, sc, names, **kw) -> dict:
+    """run_protocol(sc, **kw) graphed, then twice eagerly: exact launch
+    counts (the steps each run ran), captures, and the runs held to each
+    other."""
+    seen = []
+    with counting_captures(seen):
+        st_g, aux_g, _, got, calls, wall = counted_protocol(sc, names, **kw)
+    ran = sum(n for _, n in calls)
+    eager = []
+    for _ in range(2):
+        with eager_steps():
+            st_e, aux_e, _, got_e, calls_e, wall_e = counted_protocol(
+                sc, names, **kw)
+        eager.append(st_e)
+    print(f"{label}: graphed {ran} steps in {wall:.3f} s (simulate calls "
+          f"(pack_cap, steps) {calls}, captures of {seen} steps), launches "
+          f"{got}; eager {wall_e:.3f} s, launches {got_e}", flush=True)
+    if calls != calls_e or got != got_e \
+            or any(n != ran for n in got.values()):
+        raise AssertionError(f"{label}: launches {got} / eager {got_e} for "
+                             f"{ran} steps, calls {calls} / {calls_e}")
+    if int(aux_g.overflow) != int(aux_e.overflow):
+        raise AssertionError(f"{label}: overflow differs")
+    check_fields_finite(st_g, sc.cfg, f"{label} graphed")
+    return {"steps_run": ran, "simulate_calls": calls, "captures": seen,
+            "launches": got, "graphed_s": wall, "eager_s": wall_e,
+            **hold_to_eager(label, st_g, *eager)}
+
+
+def graph_vs_eager_mode(label, run, names) -> dict:
+    """A mode driver `run()` -> (state, frames) graphed, then twice
+    eagerly; exact launch counts (equal in both forms), frames bit for bit
+    beside the state."""
+    def counted():
+        for nm in names:
+            getattr(KERNEL_MODULE[nm], nm).launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, frames = run()
+        torch.cuda.synchronize()
+        return (st, frames, {nm: getattr(KERNEL_MODULE[nm], nm).launches
+                             for nm in names}, time.perf_counter() - t0)
+
+    seen = []
+    with counting_captures(seen):
+        st_g, fr_g, got, wall = counted()
+    with eager_steps():
+        (st_1, fr_1, got_e, wall_e), (st_2, _, _, _) = counted(), counted()
+    print(f"{label}: graphed {wall:.3f} s (captures of {seen} steps), "
+          f"launches {got}; eager {wall_e:.3f} s, launches {got_e}",
+          flush=True)
+    if got != got_e:
+        raise AssertionError(f"{label}: launches {got}, eager {got_e}")
+    if not all(torch.equal(a, b) for a, b in zip(fr_g, fr_1)) \
+            or len(fr_g) != len(fr_1):
+        raise AssertionError(f"{label}: graphed frames differ from eager")
+    return {"captures": seen, "launches": got, "graphed_s": wall,
+            "eager_s": wall_e, **hold_to_eager(label, st_g, st_1, st_2)}
+
+
+def profile_window(run, steps: int) -> dict:
+    """Per step of run(steps) under torch.profiler, after a warm call: the
+    host's kernel launch calls and graph launches, the kernels the device
+    ran, the union of their intervals (busy), the span from the first
+    kernel's start to the last one's end, the device's idle share of that
+    span, and the profiled window's host wall (the profiler's cost
+    included)."""
+    run(steps)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    ev = prof.key_averages()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = end - spans[0][0] if spans else 0.0
+    return {"launch_calls": sum(e.count for e in ev
+                                if e.key in LAUNCH_CALLS) / steps,
+            "graph_launches": sum(e.count for e in ev
+                                  if e.key == "cudaGraphLaunch") / steps,
+            "kernels": len(spans) / steps,
+            "busy_ms": busy / 1e3 / steps, "span_ms": span / 1e3 / steps,
+            "idle_share": 1.0 - busy / span if span > 0 else None,
+            "window_ms": window * 1e3 / steps}
+
+
+def cli_render_frames(tmp: Path) -> dict:
+    """The command line on biceps_full with --render-every: run_protocol
+    donates on the card, and the frames it renders differ chunk to chunk
+    (the render hook keeps copies)."""
+    kept = []
+
+    def keep(states, *a, **kw):
+        kept.extend(states)
+        return []
+    with mock.patch.object(render_mod, "render_frames", keep):
+        rc, _, _, wall = run_cli(
+            ["--scene", "biceps_full", "--steps", str(RENDER_STEPS),
+             "--chunk", str(RENDER_EVERY), "--render-every",
+             str(RENDER_EVERY), "--render-dir", str(tmp / "frames")])
+    moved = [float((b.pos - a.pos).abs().max())
+             for a, b in zip(kept, kept[1:])]
+    print(f"cli --render-every {RENDER_EVERY}: rc {rc}, {len(kept)} frames "
+          f"kept (device {kept[0].pos.device if kept else None}), largest "
+          f"move between consecutive frames {moved}", flush=True)
+    if rc != 0 or len(kept) != RENDER_STEPS // RENDER_EVERY \
+            or not all(m > 0 for m in moved):
+        raise AssertionError("cli rendered frames do not differ chunk to "
+                             "chunk")
+    return {"frames": len(kept), "moved": moved, "wall_s": wall}
+
+
+def phase_graph(dev, scene, x7, big) -> dict:
+    """Phase 31: the compiled run loop, graphed against eager."""
+    out = {}
+    cfg, sq = scene.cfg, scene.sub_block
+    # A. the main path: 500 biceps_full v4 steps, graphed and donated,
+    # against the eager loop of step_fused
+    before = scan.copy_state(scene.state)
+    seen = []
+    with counting_captures(seen):
+        st_g, aux_g, _, got, calls, wall = counted_protocol(
+            scene, ("sweep_a3", "sweep_b3"), num_steps=STEPS, chunk=CHUNK)
+    print(f"v4 run_protocol({STEPS}, chunk {CHUNK}) graphed: {wall:.3f} s "
+          f"wall, launches {got}, simulate calls {calls}, captures of {seen} "
+          "steps", flush=True)
+    if got != {"sweep_a3": STEPS, "sweep_b3": STEPS} or seen != [1]:
+        raise AssertionError(f"v4 graphed run: launches {got}, captures "
+                             f"{seen}")
+    check_protocol_run(st_g, aux_g, cfg, "graphed run_protocol")
+    if differing_fields(scene.state, before):
+        raise AssertionError("run_protocol changed scene.state")
+    mem = {t.untyped_storage().data_ptr() for t in scan._leaves(scene.state)}
+    if mem & {t.untyped_storage().data_ptr() for t in scan._leaves(st_g)}:
+        raise AssertionError("the donated run shares memory with "
+                             "scene.state")
+    t0 = time.perf_counter()
+    eager = [eager_v4_protocol(scene, STEPS, STEPS // 2) for _ in range(2)]
+    torch.cuda.synchronize()
+    eager_wall = (time.perf_counter() - t0) / 2
+    out["v4_protocol"] = {
+        "graphed_s": wall, "eager_s": eager_wall, "launches": got,
+        "captures": seen, **hold_to_eager(
+            f"v4 {STEPS} steps", st_g, *eager,
+            stage=lambda: first_unrepeatable_stage(scene))}
+    del st_g, eager
+
+    # B. the other generations, GEN_STEPS each in chunks of GEN_CHUNK
+    kw = dict(num_steps=GEN_STEPS, chunk=GEN_CHUNK,
+              stim_off_step=GEN_STIM_OFF)
+    sc5 = T.build_scene("biceps_full", fused_impl="v5", device=dev)
+    low = max(128, sc5.pack_cap // 2 // 128 * 128)
+    gens = {"v3": (T.build_scene("biceps_full", fused_impl="v3",
+                                 device=dev),
+                   ("sweep_a3_hash9", "sweep_b3_hash9"), {}),
+            "v5_regrow": (sc5._replace(pack_cap=low),
+                          ("sweep_a5", "sweep_b5"), {}),
+            "v1": (T.build_scene("biceps_full", fused_impl="v1", device=dev),
+                   ("sweep_a", "sweep_b"), {}),
+            "v2": (T.build_scene("biceps_full", fused_impl="v2", device=dev),
+                   ("sweep_a2", "sweep_b2"), {}),
+            "unfused": (scene, (), {"fused": False})}
+    out["generations"] = {}
+    for label, (sc, names, extra) in gens.items():
+        r = graph_vs_eager_protocol(label, sc, names, **kw, **extra)
+        if label == "v5_regrow" and not (r["simulate_calls"][0][0] == low
+                                         < r["simulate_calls"][-1][0]
+                                         and len(r["captures"]) >= 2):
+            raise AssertionError(f"v5 from pack_cap {low} did not regrow "
+                                 "and recapture")
+        out["generations"][label] = r
+
+    # C. the modes
+    sph_cfg = variants.sph_only_config(cfg)
+    mtab = variants.monodomain_prepare_fused(scene.state, cfg, sub_q=sq)
+    modes = {
+        "sm_only": (lambda: (lambda r: (r[0], r[2]))(
+            variants.simulate_sm_only(scene.state, cfg, GEN_STEPS,
+                                      record_every=GEN_FRAMES)),
+            ("sweep_a3",)),
+        "sph_only_fused": (lambda: (lambda r: (r[0], r[2]))(
+            variants.simulate_sph_only(
+                scene.state, sph_cfg, scene.neighbor_capacity, GEN_STEPS,
+                record_every=GEN_FRAMES, fused=True, sub_q=sq)),
+            ("sweep_a3", "sweep_b3")),
+        "monodomain_fused": (lambda: (lambda r: (r[0], (r[1],)))(
+            variants.simulate_monodomain_only_fused(
+                scene.state, mtab, cfg, GEN_STEPS, record_every=GEN_FRAMES,
+                sub_q=sq)), ("sweep_lap3",))}
+    want = {"sm_only": {"sweep_a3": 0},
+            "sph_only_fused": {"sweep_a3": GEN_STEPS, "sweep_b3": GEN_STEPS},
+            "monodomain_fused": {"sweep_lap3": GEN_STEPS}}
+    out["modes"] = {}
+    for label, (run, names) in modes.items():
+        r = graph_vs_eager_mode(label, run, names)
+        if r["launches"] != want[label]:
+            raise AssertionError(f"{label}: launches {r['launches']}, want "
+                                 f"{want[label]}")
+        out["modes"][label] = r
+
+    # D. biceps_full x56 coupled, with the peak memory of the graphed run
+    # and the graph pool's peak as hbm_footprint --scan measures it
+    scan.clear_cache()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st_b, aux_b, _, got, calls, wall = counted_protocol(
+        big, ("sweep_a3", "sweep_b3"), num_steps=GRAPH_BIG_STEPS,
+        chunk=GRAPH_BIG_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"x{REPLICATE}: run_protocol({GRAPH_BIG_STEPS}) graphed in "
+          f"{wall:.3f} s, launches {got}, overflow {int(aux_b.overflow)}, "
+          f"peak {(peak - base) / 2**30:.4f} GiB above the "
+          f"{base / 2**30:.4f} GiB held", flush=True)
+    if got != {"sweep_a3": GRAPH_BIG_STEPS, "sweep_b3": GRAPH_BIG_STEPS} \
+            or int(aux_b.overflow):
+        raise AssertionError(f"x{REPLICATE} graphed: launches {got}")
+    check_fields_finite(st_b, big.cfg, f"x{REPLICATE} graphed")
+    del st_b
+    scan.clear_cache()
+    pools = {}
+    for label, sc in (("biceps_full", scene), (f"x{REPLICATE}", big)):
+        held = torch.cuda.memory_allocated(dev)
+        res, pk = hbm_footprint.footprint(sc, scan=GRAPH_BIG_STEPS,
+                                          donate=True)
+        pools[label] = {"resident": res - held, "peak": pk - held,
+                        "bytes_per_particle": (pk - held) / sc.num_particles}
+    print(f"hbm_footprint --scan {GRAPH_BIG_STEPS} --donate: {pools}",
+          flush=True)
+    out["x56"] = {"wall_s": wall, "launches": got,
+                  "peak_above_held": peak - base, "footprint_scan": pools}
+
+    # E. ms/step graphed and eager, in turns, and a profiled window each
+    runs = {
+        "biceps_full": lambda k: T.simulate(scene.state, cfg, k, sub_q=sq),
+        "x7": lambda k: T.simulate(x7.state, x7.cfg, k),
+        f"x{REPLICATE}": lambda k: T.simulate(big.state, big.cfg, k),
+        f"sm_only_x{REPLICATE}": lambda k: variants.simulate_sm_only(
+            big.state, big.cfg, k),
+        "monodomain_fused": lambda k: (
+            variants.simulate_monodomain_only_fused(scene.state, mtab, cfg,
+                                                    k, sub_q=sq),)}
+    timing = {}
+    for label, run in runs.items():
+        g1 = best_ms_per_step(run, GRAPH_TIMING_STEPS)
+        with eager_steps():
+            e1 = best_ms_per_step(run, GRAPH_TIMING_STEPS)
+        g2 = best_ms_per_step(run, GRAPH_TIMING_STEPS)
+        timing[label] = {"graphed_ms": [g1, g2], "eager_ms": e1}
+        print(f"{label}: ms/step graphed {g1:.4f} / {g2:.4f}, eager "
+              f"{e1:.4f} (best of 3 x {GRAPH_TIMING_STEPS} steps, each "
+              "call ending in a host fetch)", flush=True)
+        scan.clear_cache()
+    prof = {"graphed": profile_window(runs["biceps_full"], PROFILE_STEPS)}
+    with eager_steps():
+        prof["eager"] = profile_window(runs["biceps_full"], PROFILE_STEPS)
+    print(f"biceps_full v4, per step over a profiled {PROFILE_STEPS}-step "
+          f"window: {prof}", flush=True)
+    out["timing"] = {"card": roofline.card_line(), "ms_per_step": timing,
+                     "profile": prof}
+
+    # F. the command line's rendered frames after a donated run
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli_frames"] = cli_render_frames(Path(tmp))
+    scan.clear_cache()
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2779,6 +3204,12 @@ def main() -> int:
           f"gather and halo paths with {PAR_RANKS} ranks on the card, NCCL "
           "at world size 1, the command line with --devices")
     par = phase_parallel(dev, report, times, bounds, launches)
+    phase("31 graph: the compiled run loop (captured CUDA graphs) against "
+          "eager runs; launch counts from replays; timing and idle share")
+    t0 = time.perf_counter()
+    graph = phase_graph(dev, scene, x7, big)
+    graph["phase_s"] = time.perf_counter() - t0
+    print(f"phase 31 took {graph['phase_s']:.3f} s", flush=True)
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
@@ -2812,7 +3243,8 @@ def main() -> int:
                       "peak_gib": big_peak / 2**30},
         "multi_muscle": {**multi, "sm_only": sm_big,
                          "timing": multi_timing},
-        "demos": demos, "cli": cli_out, "parallel": par}), flush=True)
+        "demos": demos, "cli": cli_out, "parallel": par,
+        "graph": graph}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -296,7 +296,8 @@ def _run(args, comm) -> int:
     import numpy as np
     import torch
     from .config import SimConfig
-    from .state import resolve_device, save_checkpoint, load_checkpoint
+    from .state import (FIELD_NAMES, load_checkpoint, resolve_device,
+                        save_checkpoint)
     from .utils.io import build_scene
     from .utils import render as render_mod
     from .utils.report import (profile_phases, profile_phases_fused,
@@ -649,7 +650,11 @@ def _run(args, comm) -> int:
         def cb(done, st):
             executed["steps"] = done
             if render_every:
-                frames.append((done, st))
+                # on the card run_protocol donates: the next chunk
+                # overwrites `st`, so the frame keeps a host copy
+                frames.append((done, st.replace(**{
+                    f: getattr(st, f).to("cpu", copy=True)
+                    for f in FIELD_NAMES})))
             stream_frame(done, st)
             if controller is not None:
                 return controller(done, st)

@@ -12,14 +12,19 @@ The v1 / v2 ablation baselines (ablation/legacy_steps.py) run the
 pointwise phases between raw-sum sweeps in PyTorch. `step` is the unfused
 reference form of the same phases over a neighbor table (ops/grid.py, ops/sph.py):
 plain PyTorch everywhere, and the in-package cross-check of the fused step.
-`simulate` is a Python loop over steps; `run_protocol` replays the
-reference app's experiment protocol in chunks. `step_fused_diff` is the
+`simulate` runs N steps through models/scan.py, the counterpart of the
+JAX package's `lax.scan`: on the card, replays of one captured CUDA graph
+of `unroll` steps (no host launch per kernel, no host sync per step);
+`simulate_donated` does so in the input state's own tensors;
+`run_protocol` replays the reference app's experiment protocol in
+chunks, donating on the fused v1-v4 paths. `step_fused_diff` is the
 fused step under autograd: it swaps in the differentiable sweeps of
 ops/fused_adjoint.py, whose backward passes are hand-written kernels.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -41,6 +46,7 @@ from ..ops.sph import (density_pressure, force_and_diffusion,
                        xsph_intermediate_velocity)
 from ..ops.sweeps import (sweep_bookkeeping2, sweep_bookkeeping3,
                           sweep_bookkeeping5)
+from .scan import copy_state, run_steps
 
 
 class StepAux(NamedTuple):
@@ -190,15 +196,25 @@ def step(state: ParticleState, cfg: SimConfig, neighbor_capacity: int,
     return state, StepAux(overflow=nbr.overflow)
 
 
-def simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
-             stim_off_step: int = -1, record_every: int = 0,
-             sub_q: int | None = None, impl: str = "v4", params=None,
-             fused: bool = True, neighbor_capacity: int = 0,
-             pack_cap: int = 0, w_chunk: int = 128):
+def _simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
+              stim_off_step: int = -1, record_every: int = 0,
+              sub_q: int | None = None, impl: str = "v4", params=None,
+              fused: bool = True, neighbor_capacity: int = 0,
+              pack_cap: int = 0, w_chunk: int = 128, unroll: int = 1, *,
+              donate: bool):
     """Run `num_steps` coupled steps: fused (the `impl` generation's sweep
     kernels; `sub_q`, `pack_cap`, `w_chunk` as in step_fused), or with
     `fused=False` the unfused reference step over a neighbor table of width
     `neighbor_capacity` (which must then be given).
+
+    The steps run through models/scan.run_steps, the counterpart of the JAX
+    package's jitted lax.scan: on the card, replays of one captured CUDA
+    graph of `unroll` steps, cached under the static arguments (the JAX
+    package's _SIM_STATIC) and the shapes; on the CPU, or where a tensor of
+    the state or `params` requires grad, the same blocks eagerly. Without
+    `donate` the result never shares memory with the cached graph's
+    buffers; with it (simulate_donated) the result is the input state's
+    own tensors.
 
     `stim_off_step`: turnOffStim fires BEFORE that step index
     (main.cpp:329-334); -1 disables. If `record_every` > 0, returns (state,
@@ -211,37 +227,52 @@ def simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
     ensure_fp32()
     # rest-shape SM moments are run constants: hoisted out of the loop
     sm_inv = sm_invariants(state, cfg)
-    overflow = torch.zeros((), dtype=torch.int32, device=state.device)
-    pos_t, vm_t = [], []
-    for i in range(num_steps):
-        if i == stim_off_step:
-            state = turn_off_stim(state, cfg)
+
+    def one(st, ops):
+        inv, prm = ops
         if fused:
-            state, aux = step_fused(state, cfg, sub_q, impl=impl,
-                                    sm_inv=sm_inv, params=params,
-                                    pack_cap=pack_cap, w_chunk=w_chunk)
-        else:
-            state, aux = step(state, cfg, neighbor_capacity, sm_inv=sm_inv,
-                              params=params)
-        overflow = torch.maximum(overflow, aux.overflow)
-        if record_every and (i + 1) % record_every == 0:
-            pos_t.append(state.pos.clone())
-            vm_t.append(state.vm.clone())
+            return step_fused(st, cfg, sub_q, impl=impl, sm_inv=inv,
+                              params=prm, pack_cap=pack_cap, w_chunk=w_chunk)
+        return step(st, cfg, neighbor_capacity, sm_inv=inv, params=prm)
+
+    state, overflow, frames = run_steps(
+        one, state, num_steps, operands=(sm_inv, params),
+        key=("coupled", cfg, fused, impl, sub_q, pack_cap, w_chunk,
+             neighbor_capacity),
+        unroll=unroll, stim_off_step=stim_off_step,
+        stim_off=lambda st: turn_off_stim(st, cfg),
+        record_every=record_every, extract=lambda st: (st.pos, st.vm),
+        donate=donate)
     aux = StepAux(overflow=overflow)
     if not record_every:
         return state, aux
     n = state.capacity
-    traj = {"pos": (torch.stack(pos_t) if pos_t
+    traj = {"pos": (torch.stack([f[0] for f in frames]) if frames
                     else state.pos.new_zeros((0, n, 3))),
-            "vm": (torch.stack(vm_t) if vm_t
+            "vm": (torch.stack([f[1] for f in frames]) if frames
                    else state.vm.new_zeros((0, n)))}
     return state, aux, traj
+
+
+simulate = functools.partial(_simulate, donate=False)
+
+# `simulate` with the state DONATED: the input state's own tensors hold the
+# steps' state (on the card, the captured graph's buffers) and the result
+# is written into them; the input is dead after the call, as under the JAX
+# package's donate_argnums (run_protocol copies the caller's state once).
+simulate_donated = functools.partial(_simulate, donate=True)
+
+# The JAX package's threshold above which run_protocol unrolls its
+# donated chunk scan by 4 (a TPU memory ceiling); the port takes the same
+# dispatch rule so the two packages run the same blocks, and its own
+# graph-pool peak is measured by tools/hbm_footprint.py --scan.
+VERY_LARGE_CAP = 4_200_000
 
 
 def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
                  chunk: int = 100, record_every: int = 0, callback=None,
                  fused: bool | None = None, impl: str | None = None,
-                 params=None):
+                 params=None, unroll: int | None = None):
     """Chunked run loop replaying the reference app's experiment protocol
     (main.cpp:73, 329-334): `num_steps` total, turnOffStim before the step
     at `stim_off_step` (default num_steps // 2), `chunk` steps per
@@ -255,6 +286,16 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
     (rounded up to a multiple of 9), on the v5 / v5s path `pack_cap`
     (rounded up to a multiple of 128). The overflow is read once per chunk.
 
+    `unroll`: steps a captured graph holds (None: 4 on a donated run of
+    more than VERY_LARGE_CAP rows, else 1, the JAX package's rule).
+
+    Memory: on the card the fused v1-v4 paths (whose windows cannot
+    overflow, so a chunk is never redone) donate each chunk's input state
+    (simulate_donated), as the JAX package's do on the TPU. The caller's
+    `scene.state` is copied once up front and stays valid; a `callback`
+    must not keep the state it is given past its return (the next chunk
+    overwrites those tensors): it copies what it keeps.
+
     `callback(step_idx, state)` runs between chunks and may return
     {"stim_off": True} (turnOffStim now, key 'q') or {"stop": True} (end
     the run, ESC). Returns (state, StepAux, traj|None)."""
@@ -266,6 +307,13 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
     if record_every:
         # each chunk holds a whole number of record blocks
         chunk = max(record_every, chunk - chunk % record_every)
+    donate = (fused and run_impl in ("v1", "v2", "v3", "v4")
+              and state.device.type == "cuda")
+    if donate:
+        state = copy_state(state)
+    if unroll is None:
+        unroll = 4 if donate and state.capacity > VERY_LARGE_CAP else 1
+    sim_fn = simulate_donated if donate else simulate
     trajs = []
     max_overflow = 0
     regrow = 0
@@ -273,13 +321,13 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
     while done < num_steps:
         n = min(chunk, num_steps - done)
         off = stim_off_step - done if done <= stim_off_step < done + n else -1
-        out = simulate(state, cfg, num_steps=n, stim_off_step=off,
-                       record_every=record_every,
-                       sub_q=scene.sub_block or None, impl=run_impl,
-                       params=params, fused=fused,
-                       neighbor_capacity=scene.neighbor_capacity,
-                       pack_cap=getattr(scene, "pack_cap", 0),
-                       w_chunk=scene.block_window)
+        out = sim_fn(state, cfg, num_steps=n, stim_off_step=off,
+                     record_every=record_every,
+                     sub_q=scene.sub_block or None, impl=run_impl,
+                     params=params, fused=fused,
+                     neighbor_capacity=scene.neighbor_capacity,
+                     pack_cap=getattr(scene, "pack_cap", 0),
+                     w_chunk=scene.block_window, unroll=unroll)
         step_overflow = int(out[1].overflow)
         if step_overflow and regrow < 3 and \
                 (not fused or run_impl in ("v5", "v5s")):

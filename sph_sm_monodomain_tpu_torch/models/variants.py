@@ -16,7 +16,10 @@ Laplacian-only sweep (ops/fused_step.sweep_lap3) once per step forward and
 once per step backward (`LapVmFn`), over geometry computed once
 (`monodomain_prepare_fused`). The JAX package's TPU tiling arguments
 (q_block, w_chunk, w_window) have no counterpart; `sub_q` is the rows per
-bookkeeping sub-block, one thread block of the kernels.
+bookkeeping sub-block, one thread block of the kernels. Every driver runs
+its steps through models/scan.run_steps, the counterpart of the JAX
+package's jitted lax.scan: on the card, replays of a captured CUDA graph
+unless a tensor of the state or the operands requires grad.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..ops.sph import (density_pressure, force_and_diffusion,
                        xsph_intermediate_velocity)
 from ..ops.sweeps import sweep_bookkeeping3
 from .monodomain import StepAux
+from .scan import run_steps
 
 
 def _zero_overflow(device) -> torch.Tensor:
@@ -107,13 +111,15 @@ def simulate_sph_only(state: ParticleState, cfg: SimConfig,
                       sub_q: int = 128):
     """Run `num_steps` pure-SPH steps (fused or unfused), recording (pos,)
     frames after each block of `record_every` steps."""
-    def one(st):
+    def one(st, _ops):
         if fused:
             return step_sph_only_fused(st, cfg, sub_q)
         return step_sph_only(st, cfg, neighbor_capacity)
 
     return _scan_with_frames(one, state, num_steps, record_every,
-                             lambda st: (st.pos,))
+                             lambda st: (st.pos,),
+                             ("sph_only", cfg, fused, sub_q,
+                              neighbor_capacity))
 
 
 # --- SM-only --------------------------------------------------------------------
@@ -135,24 +141,24 @@ def simulate_sm_only(state: ParticleState, cfg: SimConfig, num_steps: int,
                      record_every: int = 0):
     """Run `num_steps` SM-only steps with the rest-shape moments hoisted."""
     sm_inv = sm_invariants(state, cfg)
-    return _scan_with_frames(lambda st: step_sm_only(st, cfg, sm_inv), state,
-                             num_steps, record_every, lambda st: (st.pos,))
+    return _scan_with_frames(
+        lambda st, ops: step_sm_only(st, cfg, ops[0]), state, num_steps,
+        record_every, lambda st: (st.pos,), ("sm_only", cfg), (sm_inv,))
 
 
 def _scan_with_frames(one_step, state, num_steps: int, record_every: int,
-                      extract):
-    """Run `num_steps` steps of `one_step` (state -> (state, StepAux)),
-    recording `extract(state)` after each full block of `record_every`
-    steps; leftover steps run unrecorded. Returns (state, StepAux) or, with
-    `record_every`, (state, StepAux, frames): a tuple of (blocks, ...)
-    stacks, one per extracted field."""
-    ovfs, frames = [], []
-    for i in range(num_steps):
-        state, aux = one_step(state)
-        ovfs.append(aux.overflow)
-        if record_every and (i + 1) % record_every == 0:
-            frames.append(tuple(x.clone() for x in extract(state)))
-    ovf = torch.stack(ovfs).amax() if ovfs else _zero_overflow(state.device)
+                      extract, key, operands=()):
+    """Run `num_steps` steps of `one_step` ((state, operands) -> (state,
+    StepAux)) through models/scan.run_steps (on the card, replays of a
+    captured graph cached under `key`), recording `extract(state)` after
+    each full block of `record_every` steps; leftover steps run
+    unrecorded. Returns (state, StepAux) or, with `record_every`, (state,
+    StepAux, frames): a tuple of (blocks, ...) stacks, one per extracted
+    field."""
+    state, ovf, frames = run_steps(one_step, state, num_steps, key=key,
+                                   operands=operands,
+                                   record_every=record_every,
+                                   extract=extract)
     if not record_every:
         return state, StepAux(overflow=ovf)
     if frames:
@@ -195,14 +201,15 @@ def step_monodomain_only(state: ParticleState, tables: MonodomainTables,
     return state.replace(vm=torch.where(state.active, vm, state.vm))
 
 
-def _vm_frames(body, state, num_steps: int, record_every: int):
+def _vm_frames(body, state, num_steps: int, record_every: int, key,
+               operands):
     """The monodomain drivers' return convention over `_scan_with_frames`
     (these modes have no neighbor table to overflow): `state` after
-    `num_steps` steps of `body`, or with `record_every` (state, (blocks, N)
-    vm frames)."""
-    no_ovf = StepAux(overflow=_zero_overflow(state.device))
-    out = _scan_with_frames(lambda st: (body(st), no_ovf), state, num_steps,
-                            record_every, lambda st: (st.vm,))
+    `num_steps` steps of `body` ((state, operands) -> state), or with
+    `record_every` (state, (blocks, N) vm frames)."""
+    out = _scan_with_frames(lambda st, ops: (body(st, ops), None), state,
+                            num_steps, record_every, lambda st: (st.vm,),
+                            key, operands)
     return (out[0], out[2][0]) if record_every else out[0]
 
 
@@ -213,9 +220,11 @@ def simulate_monodomain_only(state: ParticleState, tables: MonodomainTables,
     (config.PARAM_FIELDS): EP-constant overrides, floats or 0-dim tensors
     (differentiable); the frozen density table ignores stand_density by
     definition of the mode."""
-    cfg = resolve_params(cfg, params)
-    return _vm_frames(lambda st: step_monodomain_only(st, tables, cfg),
-                      state, num_steps, record_every)
+    def body(st, ops):
+        return step_monodomain_only(st, ops[0], resolve_params(cfg, ops[1]))
+
+    return _vm_frames(body, state, num_steps, record_every,
+                      ("monodomain", cfg), (tables, params))
 
 
 # --- monodomain-only, fused: the Laplacian kernel ------------------------------
@@ -332,20 +341,18 @@ def simulate_monodomain_only_fused(state: ParticleState,
     kernel is geometry only: every EP constant lives in the PyTorch part of
     the step, so gradients w.r.t. them flow here. Returns the state, or with
     `record_every` (state, vm frames) as `simulate_monodomain_only`."""
-    lap_cfg = cfg
-    cfg = resolve_params(cfg, params)
-    dt = cfg.time_delta
-
-    def body(st):
-        st = fhn_cell_model(st, cfg)
-        lap = LapVmFn.apply(st.vm[tables.order], tables, lap_cfg,
-                            sub_q)[tables.inv]
-        scale = cfg.sigma / (cfg.beta_sv_ratio * cfg.cm_capacitance)
+    def body(st, ops):
+        tabs, c = ops[0], resolve_params(cfg, ops[1])
+        dt = c.time_delta
+        st = fhn_cell_model(st, c)
+        lap = LapVmFn.apply(st.vm[tabs.order], tabs, cfg, sub_q)[tabs.inv]
+        scale = c.sigma / (c.beta_sv_ratio * c.cm_capacitance)
         inter_vm = lap + scale * lap - (st.iion - st.stim * dt / st.mass) \
-            / cfg.cm_capacitance
-        vm = torch.clamp(st.vm + inter_vm * dt / st.mass, -cfg.max_voltage,
-                         cfg.max_voltage)
+            / c.cm_capacitance
+        vm = torch.clamp(st.vm + inter_vm * dt / st.mass, -c.max_voltage,
+                         c.max_voltage)
         return st.replace(vm=torch.where(st.active, vm, st.vm),
-                          inter_vm=inter_vm, dens=tables.dens)
+                          inter_vm=inter_vm, dens=tabs.dens)
 
-    return _vm_frames(body, state, num_steps, record_every)
+    return _vm_frames(body, state, num_steps, record_every,
+                      ("monodomain_fused", cfg, sub_q), (tables, params))

@@ -142,3 +142,35 @@ def load() -> ctypes.CDLL:
 
 def error_string(code: int) -> str:
     return load().sph_cuda_error_string(code).decode()
+
+
+def launch_counters() -> tuple:
+    """(wrapper, attribute) of every kernel launch counter of the port: a
+    wrapper adds one to its counter where it launches its kernel. A
+    captured CUDA graph launches its kernels without running the wrappers,
+    so models/scan.py removes what a capture counted (nothing ran) and
+    adds the captured counts after each replay (`read_counters`,
+    `add_counters`)."""
+    from ..ablation import legacy_sweeps as ls
+    from ..tools import roofline
+    from . import fused_adjoint as fa
+    from . import fused_step as fs
+    return ((fs.sweep_a3, "launches"), (fs.sweep_a3, "slab_launches"),
+            (fs.sweep_b3, "launches"), (fs.sweep_b3, "slab_launches"),
+            (fs.sweep_lap3, "launches"), (fs.sweep_a3_hash9, "launches"),
+            (fs.sweep_b3_hash9, "launches"), (fs.sweep_a5, "launches"),
+            (fs.sweep_b5, "launches"), (ls.sweep_a, "launches"),
+            (ls.sweep_b, "launches"), (ls.sweep_a2, "launches"),
+            (ls.sweep_b2, "launches"), (fa.sweep_bwd_a, "launches"),
+            (fa.sweep_bwd_b, "launches"), (roofline.fma_chains, "launches"))
+
+
+def read_counters() -> tuple:
+    """The values of `launch_counters()`, in its order."""
+    return tuple(getattr(fn, attr) for fn, attr in launch_counters())
+
+
+def add_counters(delta) -> None:
+    """Add `delta` (one int per counter of `launch_counters()`)."""
+    for (fn, attr), d in zip(launch_counters(), delta):
+        setattr(fn, attr, getattr(fn, attr) + d)

@@ -3,10 +3,10 @@ JAX repository's tools/ablate_fused.py, its configs `full book sort gath
 swpa swpb sm`).
 
 Each config is STEPS chained calls of one body, every call's input the
-previous call's output (so each depends on the last), after one warm-up
-call, timed between CUDA events on the card (utils/report._chain_time)
-and with time.perf_counter on the CPU; the best of REPS chains, in ms per
-call:
+previous call's output (so each depends on the last), run as one scan
+after one warm-up run (utils/report._chain_time): on the card replays of
+a captured CUDA graph timed between CUDA events, on the CPU eager calls
+under time.perf_counter; the best of REPS chains, in ms per call:
 
   full  the v4 fused step (sweeps K1 / K2)
   book  the v1 per-query run bookkeeping (ablation.legacy_sweeps)

@@ -36,7 +36,7 @@ import sys
 import time
 
 from ..config import SimConfig
-from ..models.monodomain import run_protocol, step_fused
+from ..models.monodomain import VERY_LARGE_CAP, run_protocol, step_fused
 from ..ops.shape_matching import sm_invariants
 from ..utils.io import build_scene
 from ..utils.report import (REPORT_HEADER, _chain_time, profile_phases_fused,
@@ -68,7 +68,10 @@ def _row_name(name, replicate):
 
 
 def _chunk_wall(scene, reps=6, length=10):
-    """Best seconds per step of `length` chained fused steps."""
+    """Best seconds per step of `length` chained fused steps, as one scan.
+
+    Very large scenes (> models.monodomain.VERY_LARGE_CAP) time the same
+    donated, unrolled dispatch run_protocol takes there."""
     state, cfg = scene.state, scene.cfg
     sm_inv = sm_invariants(state, cfg)
 
@@ -78,7 +81,9 @@ def _chunk_wall(scene, reps=6, length=10):
                           pack_cap=scene.pack_cap,
                           w_chunk=scene.block_window)[0]
 
-    return _chain_time(body, state, length=length, reps=reps)
+    donate = state.pos.is_cuda and state.capacity > VERY_LARGE_CAP
+    return _chain_time(body, state, length=length, reps=reps, donate=donate,
+                       unroll=4 if donate else 1)
 
 
 def _variant_row(sc, mode, steps, pk):

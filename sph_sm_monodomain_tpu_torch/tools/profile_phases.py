@@ -3,10 +3,11 @@ JAX repository's tools/profile_phases.py; reference per-phase timing:
 SPH_SM_monodomain.cpp:794-824).
 
 Times the four incremental pipelines (bookkeeping -> +SM -> +sweep A ->
-full step) over chained calls, with CUDA events on the card
-(utils/report.profile_phases_fused), and prints the RAW pipeline times
-beside the clamped-difference attribution, so a negative stage difference
-is visible instead of vanishing into a zeroed column.
+full step) over chained calls, on the card as replays of a captured
+CUDA graph between CUDA events (utils/report.profile_phases_fused), and
+prints the RAW pipeline times beside the clamped-difference attribution,
+so a negative stage difference is visible instead of vanishing into a
+zeroed column.
 
 Usage:
   python -m sph_sm_monodomain_tpu_torch.tools.profile_phases \\

@@ -4,12 +4,13 @@ SPH_SM_monodomain.cpp:785-824, schema at cpp:787).
 
 The reference wraps each of the 7 step phases in chrono timers and prints
 one semicolon-separated row. Here each phase (or each incremental pipeline
-of the fused step) is timed over a chain of eager calls, each call's input
-the previous call's output, so no call can be skipped:
-  - on the card, between two CUDA events recorded around the chain (the
-    kernels are launched through ctypes, and torch.profiler may drop their
-    events, so it is not used for timing);
-  - on the CPU, with time.perf_counter around the loop, whose ops run
+of the fused step) is timed over a chain of calls, each call's input the
+previous call's output, so no call can be skipped, run as one scan
+(models/scan.run_steps, the counterpart of the JAX package's `_scan_time`
+over a jitted lax.scan):
+  - on the card, replays of a captured CUDA graph of the chain's body,
+    between two CUDA events (the card's time, not the host's launches);
+  - on the CPU, eager calls under time.perf_counter, whose ops run
     synchronously.
 The per-iteration cost of a pipeline is the best of `reps` chains. Where a
 length is picked from the scene's own cost (`length=None`), it comes from
@@ -30,6 +31,7 @@ from ..ops import grid, sph
 from ..ops.shape_matching import corrected_velocity, sm_invariants
 from ..ops.electrophysiology import fhn_cell_model
 from ..ops.integrate import update_properties
+from ..models.scan import copy_state, run_steps
 
 REPORT_HEADER = ("Avg FPS;Avg Step Duration;Time Steps;Find neighbors;"
                  "Corrected Velocity;Intermediate Velocity;Density-Pressure;"
@@ -41,31 +43,43 @@ def _leaf(x) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _chain_time(body: Callable, init, length: int = 20,
-                reps: int = 3) -> float:
-    """Best seconds per iteration of `length` chained calls of `body`
-    (after one warm-up call), over `reps` chains from `init`."""
+def _chain_time(body: Callable, init, length: int = 20, reps: int = 3,
+                donate: bool = False, unroll: int = 1) -> float:
+    """Best seconds per iteration of `body` run `length` times as one scan
+    from `init` (models/scan.run_steps, each call's input the previous
+    call's output), over `reps` runs after one warm-up run: on the card,
+    replays of a captured graph of `unroll` bodies between two CUDA
+    events; on the CPU, eager calls under time.perf_counter.
+
+    `donate` / `unroll` reproduce run_protocol's very-large-scene dispatch
+    (models.monodomain.VERY_LARGE_CAP): the runs then chain, each donating
+    the previous run's output, as production's chunks do; the caller's
+    `init` survives (it is copied once up front)."""
     leaf = _leaf(init)
     cuda = leaf.is_cuda
-    body(init)
+
+    def run(x):
+        return run_steps(lambda s, _ops: (body(s), None), x, length,
+                         key=("chain", body), unroll=unroll,
+                         donate=donate)[0]
+
+    out = run(copy_state(init) if donate else init)
     if cuda:
         torch.cuda.synchronize(leaf.device)
     best = float("inf")
     for _ in range(reps):
-        x = init
+        src = out if donate else init
         if cuda:
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
-            for _ in range(length):
-                x = body(x)
+            out = run(src)
             t1.record()
             t1.synchronize()
             dt = t0.elapsed_time(t1) * 1e-3
         else:
             c0 = time.perf_counter()
-            for _ in range(length):
-                x = body(x)
+            out = run(src)
             dt = time.perf_counter() - c0
         best = min(best, dt / length)
     return best
@@ -109,21 +123,25 @@ def profile_phases(state: ParticleState, cfg: SimConfig,
     return out
 
 
-def _iter_cost(body: Callable, init, l0: int = 2, l1: int = 8) -> float:
+def _iter_cost(body: Callable, init, l0: int = 2, l1: int = 8,
+               donate: bool = False, unroll: int = 1) -> float:
     """Per-iteration cost of `body` from the difference of two chain
     lengths (the fixed cost of starting a chain cancels)."""
-    w0 = _chain_time(body, init, length=l0, reps=2) * l0
-    w1 = _chain_time(body, init, length=l1, reps=2) * l1
+    w0 = _chain_time(body, init, length=l0, reps=2, donate=donate,
+                     unroll=unroll) * l0
+    w1 = _chain_time(body, init, length=l1, reps=2, donate=donate,
+                     unroll=unroll) * l1
     return max((w1 - w0) / (l1 - l0), 1e-7)
 
 
-def _auto_length(cheap_body: Callable, full_body: Callable, init) -> int:
+def _auto_length(cheap_body: Callable, full_body: Callable, init,
+                 donate: bool = False, unroll: int = 1) -> int:
     """Chain length sized from the scene's own measured cost: long enough
     that the CHEAPEST pipeline accumulates ~50 ms per chain (stage deltas
     then dominate timer jitter), short enough that the full-step pipeline
     stays a few seconds per rep."""
-    t_cheap = _iter_cost(cheap_body, init)
-    t_full = _iter_cost(full_body, init)
+    t_cheap = _iter_cost(cheap_body, init, donate=donate, unroll=unroll)
+    t_full = _iter_cost(full_body, init, donate=donate, unroll=unroll)
     return max(4, int(min(250.0, max(4.0, 0.05 / t_cheap), 3.0 / t_full)))
 
 
@@ -151,7 +169,7 @@ def profile_phases_fused(scene, length: int | None = None) -> dict:
     stage difference shows instead of vanishing into a zeroed column.
     `length=None` (the default) sizes the chains from the scene's own cost
     (`_auto_length`)."""
-    from ..models.monodomain import step_fused
+    from ..models.monodomain import VERY_LARGE_CAP, step_fused
     from ..ops.fused_step import (build_qm_feats, build_qm_feats5,
                                   pack_feats_a5, sweep_a3, sweep_a5)
     from ..ops.sweeps import sweep_bookkeeping3, sweep_bookkeeping5
@@ -208,12 +226,16 @@ def profile_phases_fused(scene, length: int | None = None) -> dict:
                             pack_cap=pack_cap, w_chunk=wc)
         return out
 
+    # very large scenes: time the donated, unrolled dispatch run_protocol
+    # takes there (models.monodomain.VERY_LARGE_CAP)
+    donate = state.pos.is_cuda and state.capacity > VERY_LARGE_CAP
+    dk = {"donate": donate, "unroll": 4 if donate else 1}
     if length is None:
-        length = _auto_length(stage1, stage4, state)
-    t1 = _chain_time(stage1, state, length=length)
-    t2 = _chain_time(stage2, state, length=length)
-    t3 = _chain_time(stage3, state, length=length)
-    t4 = _chain_time(stage4, state, length=length)
+        length = _auto_length(stage1, stage4, state, **dk)
+    t1 = _chain_time(stage1, state, length=length, **dk)
+    t2 = _chain_time(stage2, state, length=length, **dk)
+    t3 = _chain_time(stage3, state, length=length, **dk)
+    t4 = _chain_time(stage4, state, length=length, **dk)
     return {
         "find_neighbors": t1,
         "corrected_velocity": max(t2 - t1, 0.0),

@@ -4,8 +4,9 @@ roofline tool's FMA-chain probe, its fused steps, its differentiable step,
 the monodomain mode's gradient, the clustered shape matching of the
 multi-muscle scenes and the demos on the card, K1 / K2 on a slab of query
 rows and the multi-device fused slab and halo paths with two ranks on the
-card, against their plain PyTorch versions and the CPU path (marker
-`cuda`; skipped where torch sees no GPU).
+card, against their plain PyTorch versions and the CPU path, and the
+graphed run loop (models/scan.py) against the same drivers run eagerly
+(marker `cuda`; skipped where torch sees no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -978,3 +979,157 @@ def test_two_ranks_on_the_card_match_one_device(device, tmp_path):
             res[f"halo/{name}"][act][key],
             getattr(st, name).cpu().numpy()[:900][rkey], atol=tol,
             err_msg=f"halo {name}")
+
+
+# --- the compiled run loop (models/scan.py): captured graphs vs eager -------
+
+def _eager_steps():
+    """The drivers' steps eagerly (scan.run_steps_eager): the reference
+    the graphed runs are held to."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.models import monodomain, scan
+    eager = scan.run_steps_eager
+    return mock.patch.multiple(monodomain, run_steps=eager), \
+        mock.patch.multiple(variants, run_steps=eager)
+
+
+def _bits_equal(a, b):
+    from sph_sm_monodomain_tpu_torch.state import FIELD_NAMES
+    for name in FIELD_NAMES:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), name
+
+
+def _graph_cases(device):
+    """{case: run() -> (state, launches of the case's kernels)} on susane:
+    the v4 protocol (donated), v5 from a pack_cap that regrows, SM-only and
+    the fused monodomain mode, each with frames."""
+    sc = T.build_scene("susane", device=device)
+    sc5 = T.build_scene("susane", fused_impl="v5", device=device)._replace(
+        sub_block=32, pack_cap=128)
+    mtab = variants.monodomain_prepare_fused(sc.state, sc.cfg, sub_q=128)
+
+    def counted(kernels, fn):
+        def run():
+            for k in kernels:
+                k.launches = 0
+            out = fn()
+            return out, [k.launches for k in kernels]
+        return run
+    return {
+        "v4": counted((fst.sweep_a3, fst.sweep_b3), lambda: T.run_protocol(
+            sc, num_steps=9, chunk=4, stim_off_step=5, record_every=2)),
+        "v5_regrow": counted((fst.sweep_a5, fst.sweep_b5),
+                             lambda: T.run_protocol(sc5, num_steps=8,
+                                                    chunk=4,
+                                                    stim_off_step=3)),
+        "sm_only": counted((), lambda: variants.simulate_sm_only(
+            sc.state, sc.cfg, 7, record_every=3)),
+        "monodomain_fused": counted(
+            (fst.sweep_lap3,), lambda: variants.simulate_monodomain_only_fused(
+                sc.state, mtab, sc.cfg, 7, record_every=3, sub_q=128))}
+
+
+@pytest.mark.parametrize("case", ["v4", "v5_regrow", "sm_only",
+                                  "monodomain_fused"])
+def test_graphed_run_matches_eager_on_card(device, case):
+    """A driver's graphed run (captured CUDA graphs, replayed) against the
+    same driver with its steps eager: state and frames bit for bit, the
+    same launch counts."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+    run = _graph_cases(device)[case]
+    scan.clear_cache()
+    got, got_n = run()
+    again, again_n = run()                     # a second graphed run
+    p1, p2 = _eager_steps()
+    with p1, p2:
+        want, want_n = run()
+    assert got_n == again_n == want_n
+    for g in (got, again):
+        g_st = g if isinstance(g, T.ParticleState) else g[0]
+        w_st = want if isinstance(want, T.ParticleState) else want[0]
+        _bits_equal(g_st, w_st)
+        if isinstance(g, tuple) and len(g) > 2 and g[2] is not None:
+            frames_g = g[2].values() if isinstance(g[2], dict) else g[2]
+            frames_w = want[2].values() if isinstance(want[2], dict) \
+                else want[2]
+            for a, b in zip(frames_g, frames_w):
+                assert torch.equal(a, b)
+
+
+def test_replays_count_their_launches(device):
+    """Launch counters count what the replays launched: 7 steps in blocks
+    of 3 (a leftover block of 1) launch K1 / K2 7 times on the call that
+    captures and on the call that replays the cached capture."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+    sc = T.build_scene("susane", device=device)
+    scan.clear_cache()
+    for _ in range(2):
+        fst.sweep_a3.launches = fst.sweep_b3.launches = 0
+        T.simulate(sc.state, sc.cfg, 7, stim_off_step=2, unroll=3)
+        assert (fst.sweep_a3.launches, fst.sweep_b3.launches) == (7, 7)
+
+
+def test_simulate_donated_chains_in_place_on_card(device):
+    """Chained simulate_donated calls run in the input state's own tensors
+    (the captured graph's buffers: one capture for the chain) and equal
+    simulate bit for bit; the non-donated result is a copy."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.models import monodomain, scan
+    sc = T.build_scene("susane", device=device)
+    scan.clear_cache()
+    want = T.simulate(sc.state, sc.cfg, 6)[0]
+    st = scan.copy_state(sc.state)
+    ptrs = [t.data_ptr() for t in scan._leaves(st)]
+    seen = []
+    real = scan._Capture._capture
+
+    def counting(self, step, length):
+        seen.append(length)
+        return real(self, step, length)
+    with mock.patch.object(scan._Capture, "_capture", counting):
+        for _ in range(3):
+            st = monodomain.simulate_donated(st, sc.cfg, 2)[0]
+    assert seen == [1]
+    assert [t.data_ptr() for t in scan._leaves(st)] == ptrs
+    _bits_equal(st, want)
+    again = T.simulate(sc.state, sc.cfg, 6)[0]
+    _bits_equal(again, want)
+    assert again.pos.data_ptr() != want.pos.data_ptr()
+
+
+def test_a_capture_that_meets_a_host_sync_raises(device):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises (no eager fallback) and leaves nothing cached."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+
+    def step(st, _ops):
+        if float(st.sum()) > 1e30:           # a host sync
+            st = st * 0.0
+        return st + 1.0, None
+    scan.clear_cache()
+    x = torch.zeros(8, device=device)
+    with pytest.raises(RuntimeError):
+        scan.run_steps(step, x, 3, key=("host sync",))
+    assert not scan._captures
+
+
+def test_cli_render_frames_differ_after_donated_run(device, tmp_path):
+    """The command line's render hook keeps copies: after a donated
+    run_protocol on the card the frames differ from chunk to chunk."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch import cli
+    from sph_sm_monodomain_tpu_torch.utils import render
+    kept = []
+
+    def keep(states, *a, **kw):
+        kept.extend(states)
+        return []
+    with mock.patch.object(render, "render_frames", keep):
+        rc = cli.main(["--scene", "susane", "--steps", "6", "--chunk", "2",
+                       "--render-every", "2", "--render-dir",
+                       str(tmp_path)])
+    assert rc == 0 and len(kept) == 3
+    assert all(not torch.equal(a.pos, b.pos) for a, b in zip(kept, kept[1:]))
