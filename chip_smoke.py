@@ -174,9 +174,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               line's rendered frames after a donated run differ from
               chunk to chunk
 
+ 32. grad     the compiled gradient paths (models/scan.py's checkpointed
+              adjoint scan: forward and backward steps replay captured
+              graphs) on biceps_full: the flagship --fused value-and-grad
+              at the JAX example's defaults (250 steps, 5 snapshots, from
+              (0.3, 150)), graphed against the eager adjoint (scan.eager())
+              bit for bit or within twice the spread of two eager runs, and
+              both within GRAD_RTOL of the torch.utils.checkpoint loop,
+              exact K1 / K2 / K4 / K5 counts, ms/step graphed (best of 3)
+              and eager, peak memory, capture time; the flagship's unfused
+              path (4 steps, 2 snapshots) the same way; a graphed 250-step
+              fit (FIT_ITERS Adam iterations, the loss must fall); the
+              stimulus, material and fhn demos; simulate(..., params)
+              under grad, unfused, 3 steps, graphed against eager; one
+              gather's backward through the unfused table with its own
+              indices and with ops/sph.gather_index's
+
 Earlier phases run the same drivers, now graphed: their exact launch
 counts come from replays (models/scan.py corrects the counters), and
-their timings warm the capture up first.
+their timings warm the capture up first. Phases 8-10, 13 and 28 run their
+gradients through the adjoint scan's graphs.
 
 The line before the last is a JSON object with one entry per kernel (K1 /
 K2's slab launches as rows of their own); the last line is {"ok": true,
@@ -250,6 +267,13 @@ SLICE_DENS_RTOL = 5e-5
 GRAD_STEPS, GRAD_RTOL = 3, 1e-3
 # the fit at full width: rollout steps, snapshots, Adam iterations
 FIT_STEPS, FIT_SNAPS, FIT_ITERS = 20, 4, 6
+# phase 32: the flagship value-and-grad at the JAX example's defaults
+# (steps, snapshots), its unfused path's steps and snapshots (the unfused
+# step streams (N, neighbor_capacity) tensors, 18,560 x 4,464 here), and
+# the steps of simulate under grad
+FLAG_STEPS, FLAG_SNAPS = 250, 5
+FLAG_UNFUSED_STEPS, FLAG_UNFUSED_SNAPS = 4, 2
+SIM_GRAD_STEPS = 3
 # the monodomain mode: steps of its main run; slice steps card vs CPU at
 # the JAX suite's 30-step fused-mode bound (tests/test_variants.py:173-175);
 # the gradient check's steps; the demo's steps and Newton iterations; the
@@ -2234,13 +2258,14 @@ def graph_vs_eager_mode(label, run, names) -> dict:
             "eager_s": wall_e, **hold_to_eager(label, st_g, st_1, st_2)}
 
 
-def profile_window(run, steps: int) -> dict:
+def profile_window(run, steps: int, top: int = 0) -> dict:
     """Per step of run(steps) under torch.profiler, after a warm call: the
     host's kernel launch calls and graph launches, the kernels the device
     ran, the union of their intervals (busy), the span from the first
     kernel's start to the last one's end, the device's idle share of that
-    span, and the profiled window's host wall (the profiler's cost
-    included)."""
+    span, the profiled window's host wall (the profiler's cost
+    included), and the `top` kernels by device time (name, ms a step,
+    launches a step)."""
     run(steps)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -2266,7 +2291,14 @@ def profile_window(run, steps: int) -> dict:
             "kernels": len(spans) / steps,
             "busy_ms": busy / 1e3 / steps, "span_ms": span / 1e3 / steps,
             "idle_share": 1.0 - busy / span if span > 0 else None,
-            "window_ms": window * 1e3 / steps}
+            "window_ms": window * 1e3 / steps,
+            "top_kernels": [
+                (e.key[:70], e.self_device_time_total / 1e3 / steps,
+                 e.count / steps)
+                for e in sorted((e for e in ev if e.device_type
+                                 == torch.autograd.DeviceType.CUDA),
+                                key=lambda e: -e.self_device_time_total)[
+                                    :top]]}
 
 
 def cli_render_frames(tmp: Path) -> dict:
@@ -2447,6 +2479,287 @@ def phase_graph(dev, scene, x7, big) -> dict:
     # F. the command line's rendered frames after a donated run
     with tempfile.TemporaryDirectory() as tmp:
         out["cli_frames"] = cli_render_frames(Path(tmp))
+    scan.clear_cache()
+    return out
+
+
+@contextlib.contextmanager
+def counting_all_captures(seen: list):
+    """Record every CUDA graph models/scan.py captures, forward block or
+    backward step."""
+    real = scan._capture
+
+    def wrapped(body, pool):
+        seen.append(body)
+        return real(body, pool)
+    with mock.patch.object(scan, "_capture", wrapped):
+        yield
+
+
+def checkpoint_rollout(scene, sm_inv, log_theta, steps: int, snaps: int,
+                       fused: bool):
+    """The flagship's displacement snapshots from a Python loop of its step
+    under torch.utils.checkpoint (the fit's rollout before the adjoint
+    scan): the reference phase 32 holds the adjoint scan to."""
+    from torch.utils.checkpoint import checkpoint
+    params = {"k_stiffness": torch.exp(log_theta[0]),
+              "mu_viscosity": torch.exp(log_theta[1])}
+    cfg = scene.cfg
+
+    def body(s):
+        if fused:
+            return T.step_fused_diff(s, cfg, scene.sub_block, sm_inv=sm_inv,
+                                     params=params)
+        return T.step(s, cfg, scene.neighbor_capacity, sm_inv=sm_inv,
+                      params=params)[0]
+
+    s, disp = scene.state, []
+    for _ in range(snaps):
+        for _ in range(steps // snaps):
+            s = checkpoint(body, s, use_reentrant=False,
+                           preserve_rng_state=False)
+        disp.append(fit.displacement(s))
+    return torch.stack(disp)
+
+
+def hold_grads(what, graphed: list, eager_run, ref=None) -> dict:
+    """Value-and-grad results ([value, grad, ...] each) of the graphed
+    adjoint against eager ones (`eager_run()` under scan.eager()): two
+    eager runs, and where they differ in any bit two more. Each graphed
+    result must lie within twice the eager runs' spread (their largest
+    pairwise difference, per output) of their mean: bit for bit where they
+    agree. The first eager run is held to `ref` within GRAD_RTOL
+    (relative, per element)."""
+    with scan.eager():
+        eager = [eager_run(), eager_run()]
+        if any(not torch.equal(a, b) for a, b in zip(*eager)):
+            eager += [eager_run(), eager_run()]
+    outs = list(zip(*eager))
+    spread = [max(float((a - b).abs().max()) for a in xs for b in xs)
+              for xs in outs]
+    center = [xs[0] + torch.stack([x - xs[0] for x in xs]).mean(0)
+              for xs in outs]
+    diffs = [[float((a - c).abs().max()) for a, c in zip(g, center)]
+             for g in graphed]
+    rel = None
+    if ref is not None:
+        rel = max(float(((a - b).abs() / b.abs()).max())
+                  for a, b in zip(eager[0], ref))
+    print(f"{what}: {len(eager)} eager adjoint runs, spread {spread} (max "
+          f"abs per output); graphed calls vs their mean {diffs}"
+          + ("" if rel is None else f"; eager adjoint vs the "
+             f"torch.utils.checkpoint loop max rel {rel:.3g} (tolerance "
+             f"{GRAD_RTOL:g})"), flush=True)
+    for d in diffs:
+        if any(x > 2.0 * sp for x, sp in zip(d, spread)):
+            raise AssertionError(f"{what}: graphed adjoint beyond twice the "
+                                 f"eager spread: {d} vs {spread}")
+    if rel is not None and not rel <= GRAD_RTOL:
+        raise AssertionError(f"{what}: adjoint vs checkpoint loop {rel}")
+    if not all(bool(torch.isfinite(x).all()) for x in eager[0]):
+        raise AssertionError(f"{what}: non-finite value or gradient")
+    return {"eager_runs": len(eager), "eager_spread": spread,
+            "graphed_vs_eager": diffs, "bit_equal": not any(spread)
+            and not any(map(any, diffs)), "vs_checkpoint_loop_rel": rel}
+
+
+def grad_profile(scene, inv, th0, steps: int = 20) -> dict:
+    """profile_window over one graphed value-and-grad of a `steps`-step
+    fused flagship rollout (one snapshot): per step, what the device ran
+    in the forward and the backward graphs, and the largest kernels."""
+    target = torch.zeros((1,) + tuple(scene.state.pos.shape),
+                         device=scene.state.pos.device)
+    loss = fit.make_loss(scene, inv, target, steps, 1)
+    res = profile_window(lambda n: fit.value_and_grad(loss, th0), steps,
+                         top=8)
+    print(f"value-and-grad of {steps} fused steps under torch.profiler, per "
+          f"step: {res['kernels']:.1f} kernels, {res['busy_ms']:.4f} ms "
+          f"busy in a {res['span_ms']:.4f} ms span (idle share "
+          f"{res['idle_share']}), {res['launch_calls']:.1f} launch "
+          f"calls and {res['graph_launches']:.2f} graph launches; largest "
+          f"kernels (name, ms a step, launches a step) "
+          f"{res['top_kernels']}", flush=True)
+    return res
+
+
+def gather_backward_s(scene) -> dict:
+    """Wall seconds of one gather of a field through the unfused step's
+    neighbor table on `scene` and its backward (an index_put with
+    accumulation): with the table's own indices, every masked slot on
+    particle 0, and with ops/sph.gather_index's, whose masked slots read
+    their query's row."""
+    from sph_sm_monodomain_tpu_torch.ops.grid import build_neighbor_table
+    from sph_sm_monodomain_tpu_torch.ops.sph import gather_index
+    st = scene.state
+    nbr = build_neighbor_table(st.pos, st.pos, st.active, scene.cfg,
+                               scene.neighbor_capacity)
+    src = st.vm.detach().clone().requires_grad_()
+    spread = gather_index(nbr)
+    cot = torch.ones(spread.shape, device=src.device)
+    torch.autograd.grad(src[spread], src, cot)          # warm-up
+    out = {}
+    for name, idx in (("gather_index", spread),
+                      ("table_index", nbr.idx.long())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (g,) = torch.autograd.grad(src[idx], src, cot)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        out[f"{name}_grad_sum"] = float(g.sum())
+    print(f"one gather through the unfused table, forward and backward: "
+          f"{out['gather_index']:.4f} s with gather_index, "
+          f"{out['table_index']:.4f} s with the table's own indices "
+          f"({int((~nbr.mask).sum())} of {nbr.mask.numel()} slots masked)",
+          flush=True)
+    return out
+
+
+def phase_grad(dev, scene) -> dict:
+    """Phase 32: the compiled gradient paths on biceps_full."""
+    cfg = scene.cfg
+    inv = sm_invariants(scene.state, cfg)
+    th_true = fit.theta_of(fit.TRUE_K, fit.TRUE_MU, dev)
+    th0 = fit.theta_of(*fit.THETA0, dev)
+    out = {}
+    for label, fused, steps, snaps in (
+            ("flagship_fused", True, FLAG_STEPS, FLAG_SNAPS),
+            ("flagship_unfused", False, FLAG_UNFUSED_STEPS,
+             FLAG_UNFUSED_SNAPS)):
+        scan.clear_cache()
+        with torch.no_grad():
+            target = fit.rollout_disp(scene, inv, th_true, steps, snaps,
+                                      fused)
+        loss = fit.make_loss(scene, inv, target, steps, snaps, fused)
+
+        def vg():
+            return list(fit.value_and_grad(loss, th0))
+
+        for name, _, _, mod in KERNELS:
+            getattr(mod, name).launches = 0
+        seen = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with counting_all_captures(seen):
+            first = vg()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            # the first call's peak: its eager warm-up step and the
+            # capture, whose graph pool the cache then holds
+            first_peak = torch.cuda.max_memory_allocated(dev)
+            held = torch.cuda.memory_allocated(dev)
+            got = {name: getattr(mod, name).launches
+                   for name, _, _, mod in KERNELS}
+            want = {name: 0 for name, _, _, _ in KERNELS}
+            if fused:
+                want.update(sweep_a3=2 * steps, sweep_b3=2 * steps,
+                            sweep_bwd_a=steps, sweep_bwd_b=steps)
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, want {want}")
+            captures = len(seen)
+            torch.cuda.reset_peak_memory_stats(dev)
+            best = float("inf")
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = vg()
+                float(again[0])
+                best = min(best, time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev)
+        if len(seen) != captures:
+            raise AssertionError(f"{label}: a replayed call captured anew")
+        eager_s = []
+
+        def timed_eager():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = vg()
+            float(res[0])
+            eager_s.append(time.perf_counter() - t0)
+            return res
+        ref = fit.value_and_grad(
+            lambda lt: fit.misfit(checkpoint_rollout(scene, inv, lt, steps,
+                                                     snaps, fused), target),
+            th0)
+        out[label] = {
+            "steps": steps, "snapshots": snaps, "captures": captures,
+            "first_call_s": first_s, "launches": {k: v for k, v in
+                                                  got.items() if v},
+            "graphed_ms_per_step": best / steps * 1e3,
+            "peak_gib": peak / 2**30, "held_before_gib": base / 2**30,
+            "first_call_peak_gib": first_peak / 2**30,
+            "held_after_first_gib": held / 2**30,
+            "loss": float(first[0]), "grad": first[1].tolist(),
+            **hold_grads(label, [first, again], timed_eager, list(ref))}
+        out[label]["eager_ms_per_step"] = eager_s[0] / steps * 1e3
+        print(f"{label}: {steps} steps, value-and-grad graphed "
+              f"{out[label]['graphed_ms_per_step']:.4f} ms/step (best of 3; "
+              f"first call {first_s:.3f} s with {captures} captures), eager "
+              f"{out[label]['eager_ms_per_step']:.4f} ms/step; peak "
+              f"allocated {peak / 2**30:.4f} GiB over a replayed call, "
+              f"{first_peak / 2**30:.4f} over the first ({base / 2**30:.4f}"
+              f" GiB held before it, {held / 2**30:.4f} after it); "
+              f"launches {out[label]['launches']}; loss "
+              f"{out[label]['loss']:.9g}, grad {out[label]['grad']}",
+              flush=True)
+        if fused:
+            out["profile"] = grad_profile(scene, inv, th0)
+    scan.clear_cache()
+    out["gather_backward_s"] = gather_backward_s(scene)
+
+    with torch.no_grad():
+        target = fit.rollout_disp(scene, inv, th_true, FLAG_STEPS, FLAG_SNAPS)
+    loss = fit.make_loss(scene, inv, target, FLAG_STEPS, FLAG_SNAPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log_theta, losses, _ = fit.adam_fit(loss, th0, FIT_ITERS,
+                                        log=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    k_fit, mu_fit = torch.exp(log_theta).tolist()
+    losses = [float(v) for v in losses]
+    out["fit"] = {"steps": FLAG_STEPS, "iters": FIT_ITERS, "losses": losses,
+                  "k": k_fit, "mu": mu_fit,
+                  "wall_s": time.perf_counter() - t0}
+    print(f"graphed fit, {FLAG_STEPS} steps, {FIT_ITERS} Adam iterations: "
+          f"losses {losses}, K {k_fit:.6g}, mu {mu_fit:.6g}, "
+          f"{out['fit']['wall_s']:.3f} s", flush=True)
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("graphed fit: the loss did not fall")
+    scan.clear_cache()
+
+    t0 = time.perf_counter()
+    stim = fit_stimulus_demo.main(["4", "3"])
+    mat = fit_material_demo.main(["6", "100"])
+    fst.sweep_lap3.launches = 0
+    demo = fhn.main(["biceps_full", str(FHN_STEPS), str(FHN_ITERS),
+                     "--device", str(dev)])
+    lap = fst.sweep_lap3.launches
+    out["demos"] = {"stimulus_err": stim["err"],
+                    "material_err_k": mat["err_k"],
+                    "material_err_mu": mat["err_mu"], "fhn_err": demo["err"],
+                    "fhn_lap_launches": lap,
+                    "wall_s": time.perf_counter() - t0}
+    print(f"demos through the graphed adjoint: {out['demos']}", flush=True)
+    if not (stim["err"] < 0.01 and max(mat["err_k"], mat["err_mu"]) < 0.2
+            and demo["err"] <= 0.01
+            and lap == 1 + FHN_STEPS + FHN_ITERS * 3 * FHN_STEPS):
+        raise AssertionError(f"demos: {out['demos']}")
+    scan.clear_cache()
+
+    def sim_vg():
+        th = fit.theta_of(0.6, 80.0, dev).requires_grad_()
+        st = T.simulate(scene.state, cfg, SIM_GRAD_STEPS, fused=False,
+                        neighbor_capacity=scene.neighbor_capacity,
+                        params={"k_stiffness": torch.exp(th[0]),
+                                "mu_viscosity": torch.exp(th[1])})[0]
+        val = (fit.displacement(st) ** 2).sum() * 1e6
+        return [val.detach(), *torch.autograd.grad(val, th)]
+
+    graphed = [sim_vg(), sim_vg()]
+    out["simulate_unfused"] = {"steps": SIM_GRAD_STEPS,
+                               **hold_grads("simulate(fused=False) under "
+                                            "grad", graphed, sim_vg)}
     scan.clear_cache()
     return out
 
@@ -2819,10 +3132,12 @@ def main() -> int:
           f"{demo['amp']:.6g} ({demo['err'] * 100:.4f}% off), launches "
           f"{demo_launches}", flush=True)
     # the prepare's sweep A and row sum; the target rollout; per
-    # value-and-grad one forward sweep per step and one backward sweep per
-    # step but the first, whose input vm does not depend on the amplitude
+    # value-and-grad (the checkpointed adjoint scan) one forward sweep per
+    # step, and per step of its backward pass one recomputed forward and
+    # one backward sweep (the backward step is one graph for every step,
+    # the first one's too)
     want = {"sweep_a3": 1,
-            "sweep_lap3": 1 + FHN_STEPS + FHN_ITERS * (2 * FHN_STEPS - 1)}
+            "sweep_lap3": 1 + FHN_STEPS + FHN_ITERS * 3 * FHN_STEPS}
     if demo_launches != want or not demo["err"] <= 0.01:
         raise AssertionError(f"fhn demo: launches {demo_launches} (want "
                              f"{want}), amplitude error {demo['err']}")
@@ -3210,6 +3525,12 @@ def main() -> int:
     graph = phase_graph(dev, scene, x7, big)
     graph["phase_s"] = time.perf_counter() - t0
     print(f"phase 31 took {graph['phase_s']:.3f} s", flush=True)
+    phase("32 grad: the compiled gradient paths (the checkpointed adjoint "
+          "scan's captured graphs) on biceps_full")
+    t0 = time.perf_counter()
+    grad = phase_grad(dev, scene)
+    grad["phase_s"] = time.perf_counter() - t0
+    print(f"phase 32 took {grad['phase_s']:.3f} s", flush=True)
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [
@@ -3244,7 +3565,7 @@ def main() -> int:
         "multi_muscle": {**multi, "sm_only": sm_big,
                          "timing": multi_timing},
         "demos": demos, "cli": cli_out, "parallel": par,
-        "graph": graph}), flush=True)
+        "graph": graph, "grad": grad}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

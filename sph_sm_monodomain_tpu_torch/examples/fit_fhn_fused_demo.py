@@ -5,9 +5,13 @@ examples/fit_fhn_fused_demo.py).
 The frozen-cloud monodomain mode (models/variants.py) runs one hand-written
 Laplacian sweep per step. The kernel is opaque to autograd; the gradient
 flows through `variants.LapVmFn`, whose backward pass is one more sweep of
-the same kernel (the Laplacian is linear in vm). One value-and-grad of an
-S-step rollout launches the kernel 2S - 1 times: the first step's input
-voltage does not depend on the amplitude, so its sweep needs no backward.
+the same kernel (the Laplacian is linear in vm). The rollout runs as the
+checkpointed adjoint scan of models/scan.py (replays of captured graphs
+on the card), so one value-and-grad of an S-step rollout launches the
+kernel 3S times: S forward, and in the backward pass per step one
+recomputed forward and one backward sweep (the backward step is one graph
+for every step, the first one's too, though its input voltage does not
+depend on the amplitude).
 
 The observable (mean voltage after S reaction-diffusion steps) is close to
 linear in the stimulus amplitude, so Newton's method on the scalar inverse

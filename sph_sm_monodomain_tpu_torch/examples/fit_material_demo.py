@@ -9,6 +9,9 @@ The reference hard-codes every constant in its constructor
 (`models.monodomain.step`, plain PyTorch), autograd differentiates the
 whole rollout with respect to them, and the inverse problem "what material
 produced this motion?" becomes a few Adam iterations in log space. The
+rollout is `models.monodomain.simulate(..., fused=False)`, the counterpart
+of the JAX demo's jitted scan: under autograd the checkpointed adjoint
+scan of models/scan.py, replays of captured graphs on the card. The
 observable is the active displacement field after a short stimulated
 rollout.
 
@@ -25,9 +28,8 @@ import argparse
 
 import torch
 
-from ..models.monodomain import step
+from ..models.monodomain import simulate
 from ..ops.numerics import ensure_fp32
-from ..ops.shape_matching import sm_invariants
 from ..utils.io import build_scene
 
 TRUE_K, TRUE_MU = 0.9, 40.0     # hidden material
@@ -38,15 +40,12 @@ def make_rollout(scene, steps: int):
     """log (K, mu) -> the active displacement field after `steps` unfused
     coupled steps with those constants."""
     st0, cfg = scene.state, scene.cfg
-    sm_inv = sm_invariants(st0, cfg)
 
     def rollout_disp(log_theta):
         theta = torch.exp(log_theta)
         params = {"k_stiffness": theta[0], "mu_viscosity": theta[1]}
-        s = st0
-        for _ in range(steps):
-            s, _aux = step(s, cfg, scene.neighbor_capacity, sm_inv=sm_inv,
-                           params=params)
+        s = simulate(st0, cfg, steps, params=params, fused=False,
+                     neighbor_capacity=scene.neighbor_capacity)[0]
         return torch.where(s.active[:, None], s.pos - s.orig_pos,
                            torch.zeros_like(s.pos))
     return rollout_disp

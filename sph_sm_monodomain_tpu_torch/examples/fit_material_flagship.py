@@ -1,20 +1,27 @@
 """Flagship-scale differentiable simulation on the GPU: recover the material
 constants (EOS stiffness K and viscosity mu) of the full biceps cloud
 (18,475 particles) by gradient descent through a long stimulated coupled
-rollout (the port of examples/fit_material_flagship.py, `--fused` path).
+rollout (the port of examples/fit_material_flagship.py, both its paths).
 
 The reference searches constants by hand, one compile and run per value
 (its 242-run results_171114.csv); here the constants are tensor inputs
 (config.PARAM_FIELDS, resolve_params) and autograd differentiates the whole
-rollout w.r.t. them, through the differentiable fused step
-(models/monodomain.step_fused_diff): the production sweep kernels forward,
-one hand-written backward sweep per kernel.
+rollout w.r.t. them. With `--fused` the step is the differentiable fused
+step (models/monodomain.step_fused_diff: the production sweep kernels
+forward, one hand-written backward sweep per kernel; `grad_path`
+fused-hand-adjoint); without it, as in the JAX example, the unfused
+reference step (models/monodomain.step) under autograd (`grad_path`
+torch-autodiff).
 
-Each step runs under torch.utils.checkpoint, so the backward pass keeps one
-state per step and recomputes the step's internals (windows, pair sums)
-when it reaches that step: one value-and-grad of an S-step rollout runs
-each forward sweep 2S times and each backward sweep S times. The peak of
-torch.cuda.max_memory_allocated over the grad call is reported.
+The rollout runs through models/scan.run_steps, the counterpart of the
+JAX example's jax.jit(jax.value_and_grad(...)) over a jax.checkpoint'ed
+scan: under autograd a checkpointed adjoint scan that keeps one state per
+step and recomputes the step's internals (windows, pair sums) when the
+backward pass reaches it, each forward step and each backward step one
+replay of a captured CUDA graph on the card. One value-and-grad of an
+S-step `--fused` rollout runs each forward sweep 2S times and each
+backward sweep S times. The peak of torch.cuda.max_memory_allocated over
+the grad call is reported.
 
 Parameters are fitted in log space; the loss compares the active-particle
 displacement field at several times along the rollout with that of a
@@ -23,8 +30,8 @@ with cosine decay. Stim stays on throughout.
 
 Run:
     python -m sph_sm_monodomain_tpu_torch.examples.fit_material_flagship \\
-        [scene] [steps] [iters] [--device cuda|cpu] [--csv=PATH] [--lr=0.15]
-        [--roughness] [--scan]
+        [scene] [steps] [iters] [--fused] [--device cuda|cpu] [--csv=PATH]
+        [--lr=0.15] [--roughness] [--scan]
 Defaults: biceps_full 250 30 on the card. `--roughness` fits no material:
 it prints the loss's roughness in log K and log mu (`roughness`) at the
 initial guess and at (0.494, 40.8), where a 250-step, 120-iteration fit
@@ -44,9 +51,9 @@ import time
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from ..models.monodomain import ensure_fp32, step_fused_diff
+from ..models.monodomain import ensure_fp32, step, step_fused_diff
+from ..models.scan import run_steps
 from ..ops.shape_matching import sm_invariants
 from ..utils.io import build_scene
 
@@ -74,34 +81,42 @@ def append_fit_row(path, vals) -> None:
                          for v in vals) + "\n")
 
 
-def rollout_disp(scene, sm_inv, log_theta, steps: int, snaps: int,
-                 on_step=None):
-    """Active-particle displacement snapshots (snaps, N, 3) after each of
-    `snaps` blocks of steps // snaps steps, under (K, mu) =
-    exp(log_theta). With autograd on, each step is checkpointed.
-    `on_step(state)` sees the state after every step."""
+def displacement(s) -> torch.Tensor:
+    """The active particles' displacement from their rest positions."""
+    return torch.where(s.active[:, None], s.pos - s.orig_pos,
+                       torch.zeros_like(s.pos))
+
+
+def rollout_frames(scene, sm_inv, log_theta, steps: int, every: int,
+                   extract, fused: bool = True) -> list:
+    """`extract(state)` after each block of `every` steps of a `steps`-step
+    rollout under (K, mu) = exp(log_theta): the fused step
+    (step_fused_diff) or the unfused one, through models/scan.run_steps
+    (under autograd its checkpointed adjoint scan)."""
     params = {"k_stiffness": torch.exp(log_theta[0]),
               "mu_viscosity": torch.exp(log_theta[1])}
-    cfg, sub_q = scene.cfg, scene.sub_block
+    cfg, sub_q, cap = scene.cfg, scene.sub_block, scene.neighbor_capacity
 
-    def body(s):
-        return step_fused_diff(s, cfg, sub_q, sm_inv=sm_inv, params=params)
+    def one(s, ops):
+        if fused:
+            return step_fused_diff(s, cfg, sub_q, sm_inv=ops[0],
+                                   params=ops[1]), None
+        return step(s, cfg, cap, sm_inv=ops[0], params=ops[1])
 
-    s = scene.state
-    disp = []
-    for _ in range(snaps):
-        for _ in range(steps // snaps):
-            if torch.is_grad_enabled():
-                # the step draws no random numbers: no RNG state to replay
-                s = checkpoint(body, s, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                s = body(s)
-            if on_step is not None:
-                on_step(s)
-        disp.append(torch.where(s.active[:, None], s.pos - s.orig_pos,
-                                torch.zeros_like(s.pos)))
-    return torch.stack(disp)
+    return run_steps(one, scene.state, steps, operands=(sm_inv, params),
+                     key=("fit_material_flagship", cfg, fused, sub_q, cap),
+                     record_every=every, extract=extract)[2]
+
+
+def rollout_disp(scene, sm_inv, log_theta, steps: int, snaps: int,
+                 fused: bool = True):
+    """Active-particle displacement snapshots (snaps, N, 3) after each of
+    `snaps` blocks of steps // snaps steps, under (K, mu) =
+    exp(log_theta)."""
+    blk = steps // snaps
+    frames = rollout_frames(scene, sm_inv, log_theta, blk * snaps, blk,
+                            lambda s: (displacement(s),), fused)
+    return torch.stack([f[0] for f in frames])
 
 
 def theta_of(k: float, mu: float, device) -> torch.Tensor:
@@ -109,12 +124,18 @@ def theta_of(k: float, mu: float, device) -> torch.Tensor:
                                   device=device))
 
 
-def make_loss(scene, sm_inv, target, steps: int, snaps: int, on_step=None):
+def misfit(disp, target) -> torch.Tensor:
     """Displacement misfit against `target`, in mm^2 for readable logs."""
+    d = disp - target
+    return (d * d).sum() * 1e6
+
+
+def make_loss(scene, sm_inv, target, steps: int, snaps: int,
+              fused: bool = True):
+    """log_theta -> the misfit of its displacement snapshots."""
     def loss(log_theta):
-        d = rollout_disp(scene, sm_inv, log_theta, steps, snaps,
-                         on_step) - target
-        return (d * d).sum() * 1e6
+        return misfit(rollout_disp(scene, sm_inv, log_theta, steps, snaps,
+                                   fused), target)
     return loss
 
 
@@ -174,17 +195,18 @@ def roughness(value, theta, axis: int, half_width: float = 5e-3,
     return float(np.sqrt(np.mean(res * res)) / abs(vals[points // 2]))
 
 
-def roughness_report(sc, steps: int, log=print) -> dict:
+def roughness_report(sc, steps: int, log=print, fused: bool = True) -> dict:
     """The fit loss of `sc` over `steps` steps (snapshots and hidden
-    material as the fit's) at ROUGHNESS_POINTS: its value and its
-    roughness in log K and log mu, forward only."""
+    material as the fit's, the fused or the unfused step) at
+    ROUGHNESS_POINTS: its value and its roughness in log K and log mu,
+    forward only."""
     dev = sc.state.device
     snaps = max(1, min(5, steps))
     sm_inv = sm_invariants(sc.state, sc.cfg)
     with torch.no_grad():
         target = rollout_disp(sc, sm_inv, theta_of(TRUE_K, TRUE_MU, dev),
-                              steps, snaps)
-    loss = make_loss(sc, sm_inv, target, steps, snaps)
+                              steps, snaps, fused)
+    loss = make_loss(sc, sm_inv, target, steps, snaps, fused)
 
     def value(th):
         with torch.no_grad():
@@ -202,9 +224,10 @@ def roughness_report(sc, steps: int, log=print) -> dict:
     return out
 
 
-def loss_scan(sc, steps: int, offsets=SCAN_LOG_K, log=print) -> list:
+def loss_scan(sc, steps: int, offsets=SCAN_LOG_K, log=print,
+              fused: bool = True) -> list:
     """The fit loss of `sc` over `steps` steps (snapshots and hidden
-    material as the fit's) at log K = log TRUE_K + each offset, mu at
+    material as the fit's, the fused or the unfused step) at log K = log TRUE_K + each offset, mu at
     TRUE_MU, forward only; along each rollout, the count of active
     particles whose pressure sits on the EOS clamp +-max_pressure. One
     dict per point: log_theta (float32), k, loss, and the clamped count's
@@ -213,19 +236,25 @@ def loss_scan(sc, steps: int, offsets=SCAN_LOG_K, log=print) -> list:
     snaps = max(1, min(5, steps))
     sm_inv = sm_invariants(sc.state, sc.cfg)
     pmax = sc.cfg.max_pressure
+    blk = steps // snaps
+
+    def extract(s):
+        return displacement(s), (s.active & (s.pres.abs() == pmax)).sum()
+
     with torch.no_grad():
         target = rollout_disp(sc, sm_inv, theta_of(TRUE_K, TRUE_MU, dev),
-                              steps, snaps)
+                              steps, snaps, fused)
         rows = []
         for off in offsets:
             th = np.log(np.asarray([TRUE_K, TRUE_MU], np.float32))
             th[0] = np.float32(th[0] + off)
-            counts = []
-            loss = make_loss(sc, sm_inv, target, steps, snaps,
-                             on_step=lambda s: counts.append(
-                                 (s.active & (s.pres.abs() == pmax)).sum()))
-            val = float(loss(torch.from_numpy(th).to(dev)))
-            c = torch.stack(counts).cpu().double()
+            # a frame after every step: the clamp count along the rollout,
+            # and every blk-th one's displacement for the loss
+            frames = rollout_frames(sc, sm_inv, torch.from_numpy(th).to(dev),
+                                    blk * snaps, 1, extract, fused)
+            val = float(misfit(torch.stack([f[0] for f in
+                                            frames[blk - 1::blk]]), target))
+            c = torch.stack([f[1] for f in frames]).cpu().double()
             rows.append({"log_theta": th, "k": float(np.exp(th[0])),
                          "loss": val, "clamped_max": int(c.max()),
                          "clamped_mean": float(c.mean())})
@@ -253,6 +282,9 @@ def main(argv=None) -> dict:
     ap.add_argument("scene", nargs="?", default="biceps_full")
     ap.add_argument("steps", nargs="?", type=int, default=250)
     ap.add_argument("iters", nargs="?", type=int, default=30)
+    ap.add_argument("--fused", action="store_true",
+                    help="the fused step with its hand-written adjoint "
+                    "(default: the unfused step under autograd)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--csv", default=None, help="append a fit row here")
     ap.add_argument("--lr", type=float, default=0.15)
@@ -265,35 +297,40 @@ def main(argv=None) -> dict:
     sc = build_scene(args.scene, device=args.device)
     dev = sc.state.device
     ensure_fp32()
+    fused = args.fused
+    log = lambda s: print(s, flush=True)  # noqa: E731
     if args.roughness:
-        return roughness_report(sc, args.steps,
-                                log=lambda s: print(s, flush=True))
+        return roughness_report(sc, args.steps, log=log, fused=fused)
     if args.scan:
-        return loss_scan(sc, args.steps, log=lambda s: print(s, flush=True))
+        return loss_scan(sc, args.steps, log=log, fused=fused)
     n, steps, iters = sc.num_particles, args.steps, args.iters
+    grad_path = "fused-hand-adjoint" if fused else "torch-autodiff"
     # displacement snapshots along the rollout: a contraction's endpoint is
     # weakly sensitive to (K, mu), its path is not
     snaps = max(1, min(5, steps))
     print(f"{args.scene}: {n} particles, {steps}-step stim-on rollout, "
-          f"{iters} Adam iters ({dev})", flush=True)
+          f"{iters} Adam iters ({dev}); path {grad_path}", flush=True)
     # rest-shape SM moments are rollout constants with no theta dependence
     sm_inv = sm_invariants(sc.state, sc.cfg)
 
     theta_true = theta_of(TRUE_K, TRUE_MU, dev)
     with torch.no_grad():
         target, first_ms = _timed_ms(
-            lambda: rollout_disp(sc, sm_inv, theta_true, steps, snaps), dev)
+            lambda: rollout_disp(sc, sm_inv, theta_true, steps, snaps,
+                                 fused), dev)
         _, fwd_ms = _timed_ms(
-            lambda: rollout_disp(sc, sm_inv, theta_true, steps, snaps), dev)
+            lambda: rollout_disp(sc, sm_inv, theta_true, steps, snaps,
+                                 fused), dev)
     fwd_ms /= steps
     print(f"target: displacement field from hidden K={TRUE_K} mu={TRUE_MU} "
           f"(|disp| mean {float(target.abs().mean()):.2e}); forward "
           f"{fwd_ms:.3f} ms/step (first call {first_ms / 1e3:.1f} s)",
           flush=True)
 
-    loss = make_loss(sc, sm_inv, target, steps, snaps)
+    loss = make_loss(sc, sm_inv, target, steps, snaps, fused)
     theta0 = theta_of(*THETA0, dev)
-    value_and_grad(loss, theta0)
+    # the first call captures the backward step's graph
+    _, first_grad_ms = _timed_ms(lambda: value_and_grad(loss, theta0), dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _, grad_ms = _timed_ms(lambda: value_and_grad(loss, theta0), dev)
@@ -301,12 +338,13 @@ def main(argv=None) -> dict:
     peak_gib = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                 if dev.type == "cuda" else float("nan"))
     print(f"value_and_grad: {grad_ms:.3f} ms/step "
-          f"({grad_ms / fwd_ms:.2f}x forward); peak allocated "
+          f"({grad_ms / fwd_ms:.2f}x forward; first call "
+          f"{first_grad_ms / 1e3:.1f} s); peak allocated "
           + (f"{peak_gib:.3f} GiB" if dev.type == "cuda"
              else "not measured (CPU)"), flush=True)
 
     log_theta, losses, grads = adam_fit(
-        loss, theta0, iters, args.lr, log=lambda s: print(s, flush=True))
+        loss, theta0, iters, args.lr, log=log)
     k, mu = torch.exp(log_theta).tolist()
     err_k, err_mu = abs(k - TRUE_K) / TRUE_K, abs(mu - TRUE_MU) / TRUE_MU
     print(f"recovered K={k:.4f} (true {TRUE_K}, {err_k * 100:.1f}% off), "
@@ -317,13 +355,13 @@ def main(argv=None) -> dict:
             args.scene, n, steps, iters, round(fwd_ms, 4), round(grad_ms, 4),
             round(grad_ms / fwd_ms, 3), round(peak_gib, 3), TRUE_K,
             round(k, 5), TRUE_MU, round(mu, 4), round(err_k, 5),
-            round(err_mu, 5), dev.type, "fused-hand-adjoint"])
+            round(err_mu, 5), dev.type, grad_path])
         print(f"fit row appended to {args.csv}", flush=True)
     if iters >= 20 and max(err_k, err_mu) > 0.2:
         raise SystemExit("material recovery did not converge")
     return {"k": k, "mu": mu, "losses": [float(v) for v in losses],
             "grads": grads, "fwd_ms": fwd_ms, "grad_ms": grad_ms,
-            "peak_gib": peak_gib}
+            "peak_gib": peak_gib, "grad_path": grad_path}
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ physics (the port of examples/fit_stimulus_demo.py).
 
 The reference's step is an imperative C++ loop (SPH_SM_monodomain.cpp:
 794-824). Here the unfused coupled step (`models.monodomain.step`, plain
-PyTorch) runs under autograd, which differentiates a whole S-step rollout
-end to end: SPH density and forces, shape matching (fixed-iteration Jacobi
+PyTorch) runs under autograd through `models.monodomain.simulate(...,
+fused=False)` (the checkpointed adjoint scan of models/scan.py, replays
+of captured graphs on the card), which differentiates a whole S-step
+rollout end to end w.r.t. the initial state's `stim`: SPH density and forces, shape matching (fixed-iteration Jacobi
 polar decomposition), FHN reaction, the voltage -> pressure coupling and
 the integrator. The mean-voltage observable is close to linear in the
 amplitude, so Newton recovers the hidden amplitude in about one step.
@@ -22,9 +24,8 @@ import argparse
 
 import torch
 
-from ..models.monodomain import step
+from ..models.monodomain import simulate
 from ..ops.numerics import ensure_fp32
-from ..ops.shape_matching import sm_invariants
 from ..utils.io import build_scene
 
 TRUE_AMP = 420.0     # hidden stimulus amplitude
@@ -36,13 +37,11 @@ def make_rollout(scene, steps: int):
     the stimulated particles' stim set to `amp`."""
     st0, cfg = scene.state, scene.cfg
     stim_mask = st0.stim > 0.0
-    # the rest-shape moments do not depend on the amplitude
-    sm_inv = sm_invariants(st0, cfg)
 
     def rollout_vm(amp):
         s = st0.replace(stim=torch.where(stim_mask, amp, st0.stim))
-        for _ in range(steps):
-            s, _aux = step(s, cfg, scene.neighbor_capacity, sm_inv=sm_inv)
+        s = simulate(s, cfg, steps, fused=False,
+                     neighbor_capacity=scene.neighbor_capacity)[0]
         vm = torch.where(s.active, s.vm, torch.zeros_like(s.vm))
         return vm.sum() / scene.num_particles
     return rollout_vm

@@ -14,7 +14,8 @@ reference form of the same phases over a neighbor table (ops/grid.py, ops/sph.py
 plain PyTorch everywhere, and the in-package cross-check of the fused step.
 `simulate` runs N steps through models/scan.py, the counterpart of the
 JAX package's `lax.scan`: on the card, replays of one captured CUDA graph
-of `unroll` steps (no host launch per kernel, no host sync per step);
+of `unroll` steps (no host launch per kernel, no host sync per step), and
+under autograd its checkpointed adjoint scan;
 `simulate_donated` does so in the input state's own tensors;
 `run_protocol` replays the reference app's experiment protocol in
 chunks, donating on the fused v1-v4 paths. `step_fused_diff` is the
@@ -170,8 +171,9 @@ def step_fused_diff(state: ParticleState, cfg: SimConfig, sub_q: int = 128,
     ops.fused_adjoint.step_fused_diff): step_fused with the production
     sweep kernels forward and the hand-written backward sweeps in
     autograd's backward pass. Gradients w.r.t. the state and any tensor
-    `params` overrides (config.PARAM_FIELDS). For long rollouts wrap the
-    step in torch.utils.checkpoint. Returns the new state."""
+    `params` overrides (config.PARAM_FIELDS). Long rollouts run it through
+    models/scan.run_steps, whose adjoint scan checkpoints each step
+    (examples/fit_material_flagship.py). Returns the new state."""
     return step_fused(state, cfg, sub_q, sm_inv=sm_inv, params=params,
                       sweeps=make_diff_sweeps(cfg, sub_q))[0]
 
@@ -210,11 +212,21 @@ def _simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
     The steps run through models/scan.run_steps, the counterpart of the JAX
     package's jitted lax.scan: on the card, replays of one captured CUDA
     graph of `unroll` steps, cached under the static arguments (the JAX
-    package's _SIM_STATIC) and the shapes; on the CPU, or where a tensor of
-    the state or `params` requires grad, the same blocks eagerly. Without
-    `donate` the result never shares memory with the cached graph's
-    buffers; with it (simulate_donated) the result is the input state's
-    own tensors.
+    package's _SIM_STATIC) and the shapes; on the CPU the same blocks
+    eagerly. Without `donate` the result never shares memory with the
+    cached graph's buffers; with it (simulate_donated) the result is the
+    input state's own tensors.
+
+    Under autograd (a float tensor of the state, or a tensor of `params`,
+    requiring grad) the unfused run is differentiable w.r.t. both, as the
+    JAX package's simulate is on its XLA path: the steps run as the
+    checkpointed adjoint scan of models/scan.py (one carry per step, the
+    step recomputed in the backward pass; forward and backward steps
+    replays of captured graphs on the card). simulate_donated then does
+    not donate: its input is the adjoint's carry 0, and the result is a
+    new state. The fused step is not differentiable here, as in the JAX
+    package: on the card its sweep kernels raise under autograd (the
+    fused gradient is step_fused_diff's).
 
     `stim_off_step`: turnOffStim fires BEFORE that step index
     (main.cpp:329-334); -1 disables. If `record_every` > 0, returns (state,
@@ -260,6 +272,7 @@ simulate = functools.partial(_simulate, donate=False)
 # steps' state (on the card, the captured graph's buffers) and the result
 # is written into them; the input is dead after the call, as under the JAX
 # package's donate_argnums (run_protocol copies the caller's state once).
+# Under autograd it does not donate (see _simulate).
 simulate_donated = functools.partial(_simulate, donate=True)
 
 # The JAX package's threshold above which run_protocol unrolls its

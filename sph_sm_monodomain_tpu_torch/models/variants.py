@@ -18,8 +18,10 @@ once per step backward (`LapVmFn`), over geometry computed once
 (q_block, w_chunk, w_window) have no counterpart; `sub_q` is the rows per
 bookkeeping sub-block, one thread block of the kernels. Every driver runs
 its steps through models/scan.run_steps, the counterpart of the JAX
-package's jitted lax.scan: on the card, replays of a captured CUDA graph
-unless a tensor of the state or the operands requires grad.
+package's jitted lax.scan: on the card, replays of a captured CUDA graph,
+and under autograd (a tensor of the state or the operands requiring
+grad) its checkpointed adjoint scan, whose forward and backward steps are
+replays of captured graphs too.
 """
 
 from __future__ import annotations

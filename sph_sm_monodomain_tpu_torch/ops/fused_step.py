@@ -483,10 +483,21 @@ def _check_slab_inputs(qm, slabs, trips, sub_q: int, w_chunk: int) -> None:
 def _launch(fn, qm, *operands, out_cols: int = 16) -> torch.Tensor:
     """Launch fn(qm, *tensors, out, N, *ints, stream) on qm's device and
     stream into a new (N, out_cols) f32 output: `operands` are the tensor
-    inputs after qm, then the int arguments. Raises on a CPU tensor and on
-    a launch error."""
+    inputs after qm, then the int arguments. Raises on a CPU tensor, on a
+    launch error, and under grad mode on an input that requires grad: the
+    output is written through ctypes and has no autograd history, so a
+    gradient through it would silently lack the sweep's part (the plain
+    versions a CPU tensor takes are differentiable)."""
     if qm.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {qm.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qm,) + operands if torch.is_tensor(t)):
+        raise RuntimeError(
+            f"{fn.__name__}: the sweep kernels are opaque to autograd; "
+            "differentiate the coupled step through "
+            "models.monodomain.step_fused_diff (the v4 sweeps with their "
+            "backward kernels) or the monodomain mode through "
+            "variants.LapVmFn")
     tensors = [t.data_ptr() for t in operands if torch.is_tensor(t)]
     ints = [i for i in operands if not torch.is_tensor(i)]
     out = qm.new_empty((qm.shape[0], out_cols))

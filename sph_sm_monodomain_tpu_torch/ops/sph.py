@@ -17,9 +17,8 @@ Reference quirks kept (switches on SimConfig):
   - XSPH reads the PREVIOUS step's densities (phase order, cpp:794-824);
   - inter_vm = lap + (sigma/(Beta*Cm))*lap - (Iion - stim*dt/m)/Cm
     (cpp:571): the Laplacian is scaled by (1 + sigma/(Beta*Cm)).
-Masked slots read particle 0 and are zeroed by torch.where; the divisions
-that autograd sees are guarded, so no masked slot carries inf or NaN into a
-gradient.
+Masked slots are zeroed by torch.where; the divisions that autograd sees
+are guarded, so no masked slot carries inf or NaN into a gradient.
 """
 
 from __future__ import annotations
@@ -47,6 +46,20 @@ def _masked_sum(mask, x):
     return torch.where(mask, x, torch.zeros_like(x)).sum(dim=1)
 
 
+def gather_index(nbr: NeighborTable) -> torch.Tensor:
+    """The table's indices as the phases gather with them: a masked slot
+    reads its query's row number (any row in range would do) where the
+    table holds particle 0. The values read there are zeroed by
+    torch.where either way, so the forward is the same; the backward of a
+    gather is an index_put with accumulation, which walks each index's
+    duplicates serially, and with every masked slot of the table on
+    particle 0 that walk grew to seconds a gather on the card at
+    biceps_full's width (chip_smoke phase 32 times both)."""
+    idx = nbr.idx.long()
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return torch.where(nbr.mask, idx, rows)
+
+
 def _diffs(pos_q, pos_g, idx):
     """[pos_q_i - pos_g_j] per axis, three (Nq, K) tensors, and r^2."""
     d = [pos_q[:, k:k + 1] - pos_g[:, k][idx] for k in range(3)]
@@ -58,7 +71,7 @@ def xsph_arrays(pos_q, cvel_q, pos_g, cvel_g, mass_g, dens_g,
     """inter_vel = corrected_vel + mixing * sum_j (v_j - v_i) W_poly6 m_j /
     rho_j (calculate_intermediate_velocity, cpp:669-701), with last step's
     densities."""
-    idx, mask = nbr.idx.long(), nbr.mask
+    idx, mask = gather_index(nbr), nbr.mask
     _, r2 = _diffs(pos_q, pos_g, idx)
     wv = poly6(r2, cfg) * _div(mass_g[idx], dens_g[idx])
     partial = torch.stack([
@@ -71,7 +84,7 @@ def density_pressure_arrays(pos_q, vm_q, stim_q, mass_q, pos_g, mass_g,
                             nbr: NeighborTable, cfg: SimConfig):
     """Density summation + single-pressure EOS with voltage coupling
     (Compute_Density_SingPressure, cpp:448-513). Returns (dens, pres)."""
-    idx, mask = nbr.idx.long(), nbr.mask
+    idx, mask = gather_index(nbr), nbr.mask
     _, r2 = _diffs(pos_q, pos_g, idx)
     dens = _masked_sum(mask, mass_g[idx] * poly6(r2, cfg))
     if cfg.quirk_double_self_density:                        # cpp:483
@@ -94,7 +107,7 @@ def force_diffusion_arrays(pos_q, ivel_q, pres_q, vm_q, dens_q, iion_q,
     """Pressure + viscosity accelerations and the SPH-discretized monodomain
     Laplacian in one neighbor sweep (Compute_Force, cpp:515-573). Returns
     (acc, inter_vm)."""
-    idx, mask = nbr.idx.long(), nbr.mask
+    idx, mask = gather_index(nbr), nbr.mask
     diff, r2 = _diffs(pos_q, pos_g, idx)
     pair = mask & (r2 > _PAIR_EPS)                           # cpp:546
     r = sqrt_rn(torch.where(pair, r2, torch.ones_like(r2)))

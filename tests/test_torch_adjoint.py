@@ -271,10 +271,11 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
 
 
 def test_fit_driver_cpu_smoke(tmp_path, capsys):
-    """`susane 4 3 --device cpu`: finite losses and grads, the loss falls,
-    and the CSV row follows the JAX example's schema."""
+    """`susane 4 3 --device cpu --fused`: finite losses and grads, the loss
+    falls, and the CSV row follows the JAX example's schema."""
     csv = tmp_path / "fit.csv"
-    res = fit.main(["susane", "4", "3", "--device", "cpu", f"--csv={csv}"])
+    res = fit.main(["susane", "4", "3", "--device", "cpu", "--fused",
+                    f"--csv={csv}"])
     assert len(res["losses"]) == 3 and np.all(np.isfinite(res["losses"]))
     assert all(bool(torch.isfinite(g).all()) for g in res["grads"])
     assert res["losses"][-1] < res["losses"][0]

@@ -368,6 +368,10 @@ def test_op_count_does_not_grow_with_clusters(form, quadratic):
         with mock.patch.object(tsm, "_BLOCKED_MAX_LANES", lanes):
             inv = tsm.sm_invariants(st, cfg)
             assert tsm._segment_form(inv, cfg, st.capacity) == form
+            # builds the form's constants (ops/constants.const_tensor, a
+            # process-wide cache), so that the counted call finds them
+            # built whichever test of the process ran first
+            tsm.project_positions(st, cfg, sm_inv=inv)
             with _OpCounter() as count:
                 tsm.project_positions(st, cfg, sm_inv=inv)
         seqs.append(count.ops)

@@ -719,7 +719,8 @@ def test_lap_vm_grad_on_card_matches_cpu(device):
     """d loss / d vm0 of a 3-step fused monodomain rollout through LapVmFn:
     the card (kernel forward and backward) against the CPU (plain
     version), and the launches of one value-and-grad on the card: the
-    prepare's one, then one forward and one backward per step."""
+    prepare's one, then per step one forward, and in the checkpointed
+    adjoint's backward pass one recomputed forward and one backward."""
     cfg, st = _blob(device, n=600, seed=3)
     rng = np.random.default_rng(4)
     wgt = rng.normal(size=st.capacity).astype(np.float32)
@@ -739,7 +740,7 @@ def test_lap_vm_grad_on_card_matches_cpu(device):
 
     n0 = fst.sweep_lap3.launches
     vc, gc = value_and_grad(st)
-    assert fst.sweep_lap3.launches - n0 == 1 + 2 * steps
+    assert fst.sweep_lap3.launches - n0 == 1 + 3 * steps
     vp, gp = value_and_grad(st.to("cpu"))
     np.testing.assert_allclose(vc, vp, rtol=1e-5)
     assert np.abs(gp).max() > 0
@@ -1133,3 +1134,173 @@ def test_cli_render_frames_differ_after_donated_run(device, tmp_path):
                        str(tmp_path)])
     assert rc == 0 and len(kept) == 3
     assert all(not torch.equal(a.pos, b.pos) for a, b in zip(kept, kept[1:]))
+
+
+# --- the compiled gradient paths (models/scan.py's adjoint scan) -----------
+
+def _grad_cases(device):
+    """{case: value_and_grad() -> [loss, grads...]} on susane: the flagship
+    loss through the fused v4 step (4 steps, 2 frames, w.r.t. log(K, mu)),
+    the unfused step through simulate (3 steps, w.r.t. (K, mu) and the
+    initial stim amplitude, stim off before step 2) and the fused
+    monodomain mode (5 steps, w.r.t. the initial vm and fh_c1)."""
+    from sph_sm_monodomain_tpu_torch.examples import fit_material_flagship \
+        as fit
+    sc = T.build_scene("susane", device=device)
+    st0, cfg = sc.state, sc.cfg
+    inv = sm_invariants(st0, cfg)
+    rng = np.random.default_rng(3)
+    wgt = torch.from_numpy(rng.normal(size=st0.capacity).astype(
+        np.float32)).to(device)
+    vm0 = torch.from_numpy(rng.normal(size=st0.capacity).astype(
+        np.float32) * 5.0).to(device)
+    tab = variants.monodomain_prepare_fused(st0, cfg, sub_q=sc.sub_block)
+    with torch.no_grad():
+        target = fit.rollout_disp(sc, inv, fit.theta_of(0.9, 40.0, device),
+                                  4, 2)
+
+    def fused():
+        lt = fit.theta_of(0.5, 100.0, device).requires_grad_()
+        val = fit.make_loss(sc, inv, target, 4, 2)(lt)
+        return [val.detach(), *torch.autograd.grad(val, lt)]
+
+    def unfused():
+        amp = torch.tensor(300.0, device=device, requires_grad=True)
+        th = torch.tensor([0.6, 80.0], device=device, requires_grad=True)
+        s = st0.replace(stim=torch.where(st0.stim > 0.0, amp, st0.stim))
+        out = T.simulate(s, cfg, 3, stim_off_step=2, fused=False,
+                         neighbor_capacity=sc.neighbor_capacity,
+                         params={"k_stiffness": th[0],
+                                 "mu_viscosity": th[1]})[0]
+        val = torch.where(out.active, out.vm * wgt, 0.0).sum() \
+            + (fit.displacement(out) ** 2).sum() * 1e6
+        return [val.detach(), *torch.autograd.grad(val, (th, amp))]
+
+    def monodomain():
+        v = vm0.clone().requires_grad_()
+        c1 = torch.tensor(cfg.fh_c1, device=device, requires_grad=True)
+        out = variants.simulate_monodomain_only_fused(
+            st0.replace(vm=v), tab, cfg, 5, sub_q=sc.sub_block,
+            params={"fh_c1": c1})
+        val = torch.where(out.active, out.vm * wgt, 0.0).sum()
+        return [val.detach(), *torch.autograd.grad(val, (v, c1))]
+    return {"fused": fused, "unfused": unfused, "monodomain": monodomain}
+
+
+@pytest.mark.parametrize("case", ["fused", "unfused", "monodomain"])
+def test_graphed_adjoint_matches_eager_on_card(device, case):
+    """The adjoint scan from captured graphs (two calls: the first
+    captures, the second replays) against the same adjoint with every step
+    eager (scan.eager()): two eager runs, four where the first two differ
+    in any bit (the unfused step's gathers accumulate their backward
+    with atomics); each graphed result within twice the eager runs'
+    largest pairwise difference of their mean, so bit for bit where they
+    agree. The eager adjoint against plain autograd (scan.run_steps_eager)
+    within 1e-5 relative."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.examples import fit_material_flagship \
+        as fit
+    from sph_sm_monodomain_tpu_torch.models import monodomain, scan
+    run = _grad_cases(device)[case]
+    scan.clear_cache()
+    graphed = [run(), run()]
+    with scan.eager():
+        eager = [run(), run()]
+        if any(not torch.equal(a, b) for a, b in zip(*eager)):
+            eager += [run(), run()]
+    with mock.patch.multiple(monodomain, run_steps=scan.run_steps_eager), \
+            mock.patch.multiple(variants, run_steps=scan.run_steps_eager), \
+            mock.patch.multiple(fit, run_steps=scan.run_steps_eager):
+        plain = run()
+    for e0, p in zip(eager[0], plain):
+        assert torch.isfinite(e0).all() and e0.abs().max() > 0
+        torch.testing.assert_close(e0, p, rtol=1e-5, atol=0)
+    for xs, *gs in zip(zip(*eager), *graphed):
+        spread = max(float((a - b).abs().max()) for a in xs for b in xs)
+        center = xs[0] + torch.stack([x - xs[0] for x in xs]).mean(0)
+        for g in gs:
+            assert float((g - center).abs().max()) <= 2 * spread, \
+                (case, g, xs)
+
+
+def test_backward_step_replays_without_a_new_capture(device):
+    """A second value-and-grad of a key captures nothing: the forward
+    step's graph and the backward step's graph are each captured once."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.models import scan
+    run = _grad_cases(device)["fused"]
+    scan.clear_cache()
+    seen = []
+    real = scan._capture
+
+    def counting(body, pool):
+        seen.append(body)
+        return real(body, pool)
+    with mock.patch.object(scan, "_capture", counting):
+        run()
+        assert len(seen) == 2
+        run()
+        run()
+    assert len(seen) == 2
+
+
+def test_backward_replays_count_their_launches(device):
+    """Each value-and-grad of the 4-step fused flagship loss launches K1 /
+    K2 8 times (4 forward, 4 recomputed) and K4 / K5 4 times, on the call
+    that captures and on those that replay."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+    kernels = (fst.sweep_a3, fst.sweep_b3, fad.sweep_bwd_a, fad.sweep_bwd_b)
+    run = _grad_cases(device)["fused"]
+    scan.clear_cache()
+    for _ in range(3):
+        before = [k.launches for k in kernels]
+        run()
+        assert [k.launches - b for k, b in zip(kernels, before)] \
+            == [8, 8, 4, 4]
+
+
+def test_a_host_sync_in_the_backward_step_raises(device):
+    """A step that reads a value back to the host only under autograd (its
+    forward graphs capture): the backward step's capture raises, nothing
+    falls back to eager autograd, and the backward step is not cached."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+
+    def step(st, ops):
+        if torch.is_grad_enabled() and float(st.sum()) > 1e30:
+            st = st * 0.0
+        return torch.sin(st) * ops[0], None
+    scan.clear_cache()
+    a = torch.tensor(0.9, device=device, requires_grad=True)
+    out = scan.run_steps(step, torch.ones(8, device=device), 3,
+                         key=("host sync in backward",), operands=(a,))[0]
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(out.sum(), a)
+    assert not [k for k in scan._captures if k[0] == "backward"]
+
+
+def test_forward_sweep_kernels_refuse_a_gradient(device):
+    """The forward-only sweep wrappers raise under autograd on an input
+    that requires grad (their ctypes output has no autograd history, so
+    the gradient would lack the sweeps' part): simulate(fused=True) under
+    grad raises in its backward pass and names step_fused_diff; under
+    no_grad the same call runs."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+    sc = T.build_scene("susane", device=device)
+    scan.clear_cache()
+    th = torch.tensor(0.6, device=device, requires_grad=True)
+    out = T.simulate(sc.state, sc.cfg, 2, params={"k_stiffness": th})[0]
+    with pytest.raises(RuntimeError, match="step_fused_diff"):
+        torch.autograd.grad(out.pos.sum(), th)
+    fs, feats_a, lo, hi = _step0(sc)
+    with pytest.raises(RuntimeError, match="step_fused_diff"):
+        fst.sweep_a3(fs.clone().requires_grad_(), feats_a, lo, hi, sc.cfg)
+    with torch.no_grad():
+        fst.sweep_a3(fs.clone().requires_grad_(), feats_a, lo, hi, sc.cfg)
+
+
+def _step0(sc):
+    st, cfg = sc.state, sc.cfg
+    order, inv, lo, hi, cx, cyz = sweep_bookkeeping3(st.pos, st.active, cfg,
+                                                     sc.sub_block)
+    fs, feats_a = fst.build_qm_feats(st, cx, cyz, order)
+    return fs, feats_a, lo, hi
