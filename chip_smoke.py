@@ -152,7 +152,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               size 1; the command line with --devices 2 --parallel
               gather / fused / halo (20 steps), the halo checkpoint
               resumed on one device; ms/step of each path (two ranks on
-              one card) and of one device
+              one card, eager: gloo through host copies cannot be
+              captured) and of one device. NCCL at world size 1, graphed
+              (models/scan.run_steps): a probe that captures of NCCL
+              collectives outlast the watchdog's tick in the default
+              capture mode; the fused slab against one device
+              bit for bit (3 steps) and its 500-step protocol in chunks
+              of 100, the gather path (3 steps) and the halo path on x7
+              (50 steps, every particle kept, overflow 0), each against
+              its run under scan.eager() bit for bit with the same K1 /
+              K2 slab launches; graphed and eager ms/step, host launch
+              calls and device operations a step, and slab launches a
+              step, of the fused slab (biceps_full) and the halo path
+              (x7)
  31. graph    the compiled run loop (models/scan.py: simulate, the mode
               drivers and run_protocol replay a captured CUDA graph):
               biceps_full v4 run_protocol(500 steps, stim off at 250,
@@ -1626,7 +1638,8 @@ def par_rank_main(comm, out_dir):
     from sph_sm_monodomain_tpu_torch.parallel import sharded_step as PS
     monodomain.ensure_fp32()
     out, dev, lead = Path(out_dir), comm.device, comm.rank == 0
-    res = {"transport": comm.transport, "describe": comm.describe()}
+    res = {"transport": comm.transport, "describe": comm.describe(),
+           "run_loop": PS.run_loop(comm)[1]}
     sc = T.build_scene("biceps_full", device=dev)
     sc = T.build_scene("biceps_full", device=dev,
                        pad_to=par_pad(sc.state.capacity, sc.sub_block))
@@ -1875,9 +1888,10 @@ def cli_par_runs(tmp: Path) -> dict:
         if p.returncode != 0:
             raise AssertionError(f"cli --parallel {par}: rc {p.returncode}")
         want = f"parallel impl: {par} over {PAR_RANKS} devices, transport"
-        if want not in text or "overflow=0" not in text:
-            raise AssertionError(f"cli --parallel {par}: missing {want!r} "
-                                 "or overflow=0")
+        eager = "run loop eager (gloo through host copies)"
+        if want not in text or eager not in text or "overflow=0" not in text:
+            raise AssertionError(f"cli --parallel {par}: missing {want!r}, "
+                                 f"{eager!r} or overflow=0")
     t0 = time.perf_counter()
     end = tmp / "resumed.npz"
     p = subprocess.run(base[:-2] + [
@@ -1897,36 +1911,242 @@ def cli_par_runs(tmp: Path) -> dict:
     return outs
 
 
-def nccl_world_one(dev, scp) -> dict:
-    """The fused slab path over NCCL at world size 1 in this process,
-    against the single-device step on the same state."""
+# one NCCL group of world size 1 capturing collectives in torch.cuda.graph's
+# default "global" capture mode (argv: port, tries): each try runs an eager
+# all_reduce, then captures two with the capture held open for 0.25 s, long
+# enough for ProcessGroupNCCL's watchdog thread to wake and query the
+# finished work's events (under "global" a CUDA query from another thread
+# would end the capture); prints how many captures failed
+NCCL_CAPTURE_PROBE = r"""
+import datetime, sys, time, torch, torch.distributed as dist
+port, tries = int(sys.argv[1]), int(sys.argv[2])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        world_size=1, rank=0,
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.ones(1024, device="cuda")
+failed, last = 0, "-"
+for _ in range(tries):
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            dist.all_reduce(x)
+            time.sleep(0.25)
+            dist.all_reduce(x)
+        g.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        failed += 1
+        last = str(e).splitlines()[0][:160]
+print("RESULT", failed, tries, last, flush=True)
+dist.destroy_process_group()
+"""
+NCCL_PROBE_TRIES = 8
+# NCCL at world size 1: steps of each timed call on biceps_full (the fused
+# slab; the halo path's on x7 are PAR_HALO_STEPS)
+W1_TIMING_STEPS = 100
+
+
+def probe_nccl_capture() -> dict:
+    """The NCCL capture probe in a process of its own (a failed capture
+    may end it): {"failed": captures that failed, "tries", "last error"};
+    raises where any failed, since the run loop captures NCCL collectives
+    in the default mode."""
     from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    p = subprocess.run(
+        [sys.executable, "-c", NCCL_CAPTURE_PROBE, str(C.free_port()),
+         str(NCCL_PROBE_TRIES)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=120)
+    lines = [ln.split(" ", 3) for ln in p.stdout.splitlines()
+             if ln.startswith("RESULT")]
+    if p.returncode != 0 or not lines:
+        raise AssertionError(f"NCCL capture probe: exit {p.returncode}: "
+                             f"{p.stdout[-500:]}")
+    found = {"failed": int(lines[-1][1]), "tries": int(lines[-1][2]),
+             "last_error": lines[-1][3]}
+    print(f"NCCL collectives captured at world size 1 in the global capture "
+          f"mode, each capture held open 0.25 s after an eager collective: "
+          f"{found['failed']} of {found['tries']} failed (last error: "
+          f"{found['last_error']})", flush=True)
+    if found["failed"]:
+        raise AssertionError("a capture of NCCL collectives failed")
+    return found
+
+
+def par_chunks(make, st, steps: int, chunk: int, stim_off: int):
+    """The command line's chunk loop: make(n, off)(st) a chunk of at most
+    `chunk` steps, the stim-off index shifted into its chunk. Returns
+    (state, largest overflow)."""
+    done, ovf = 0, 0
+    while done < steps:
+        n = min(chunk, steps - done)
+        off = stim_off - done if done <= stim_off < done + n else -1
+        st, o = make(n, off)(st)
+        ovf = max(ovf, int(o))
+        done += n
+    return st, ovf
+
+
+def graphed_vs_eager(label, run) -> tuple:
+    """run() -> (state, overflow) graphed, then under scan.eager(): the two
+    bit for bit with the same overflow and K1 / K2 slab launches
+    (asserted). Returns (graphed result, the block lengths it captured,
+    its slab launches)."""
+    def counted(ctx):
+        fst.sweep_a3.slab_launches = fst.sweep_b3.slab_launches = 0
+        with ctx:
+            out = run()
+        torch.cuda.synchronize()
+        return out, (fst.sweep_a3.slab_launches, fst.sweep_b3.slab_launches)
+    seen = []
+    graphed, g_slab = counted(counting_captures(seen))
+    eager, e_slab = counted(scan.eager())
+    diff = differing_fields(graphed[0], eager[0])
+    print(f"{label}: graphed vs eager {'bit-equal' if not diff else diff}, "
+          f"overflow {int(graphed[1])} / {int(eager[1])}; captures of "
+          f"{seen} steps; K1 / K2 slab launches graphed {g_slab}, eager "
+          f"{e_slab}", flush=True)
+    if diff or int(graphed[1]) != int(eager[1]) or g_slab != e_slab:
+        raise AssertionError(f"{label}: graphed run differs from eager")
+    return graphed, seen, g_slab
+
+
+def w1_timing(label, run, steps: int) -> dict:
+    """Graphed and eager (scan.eager()) in turns: ms/step (best of 3 calls
+    ending in a host fetch), the host's kernel launch calls and the device
+    operations a step (launches_per_step: a call's own set-up drops out),
+    and the K1 / K2 slab launches a step of one call."""
+    out = {}
+    for form, ctx in (("graphed", contextlib.nullcontext),
+                      ("eager", scan.eager)):
+        with ctx():
+            ms = best_ms_per_step(run, steps)
+            per_step = launches_per_step(run)
+            fst.sweep_a3.slab_launches = fst.sweep_b3.slab_launches = 0
+            run(steps)
+            torch.cuda.synchronize()
+            slab = (fst.sweep_a3.slab_launches / steps,
+                    fst.sweep_b3.slab_launches / steps)
+        out[form] = {"ms_per_step": ms, **per_step, "slab_launches": slab}
+    g, e = out["graphed"], out["eager"]
+    print(f"{label}, NCCL world 1 ({roofline.card_line()}): graphed "
+          f"{g['ms_per_step']:.4f} ms/step, eager {e['ms_per_step']:.4f}; "
+          f"a step: host launch calls {g['launch_calls']:.2f} / "
+          f"{e['launch_calls']:.2f}, device operations {g['kernels']:.2f} "
+          f"/ {e['kernels']:.2f}, K1 / K2 slab launches "
+          f"{g['slab_launches']} / {e['slab_launches']}", flush=True)
+    return out
+
+
+def nccl_world_one(dev, scp, x7) -> dict:
+    """The three multi-device simulates over NCCL at world size 1 in this
+    process, graphed (models/scan.run_steps): the fused slab on the padded
+    biceps_full against one device bit for bit over PAR_PARITY_STEPS steps,
+    then the PAR_STEPS protocol in chunks of PAR_CHUNK (stim off at half,
+    as the command line runs it), the gather path PAR_GATHER_STEPS steps,
+    the halo path on biceps_full xPAR_HALO_REPLICATE PAR_HALO_STEPS steps
+    (every particle kept, overflow 0), each against its run under
+    scan.eager() bit for bit; then graphed and eager timings and counts of
+    the fused slab and the halo path."""
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    from sph_sm_monodomain_tpu_torch.parallel import halo_step as PH
     from sph_sm_monodomain_tpu_torch.parallel import sharded_step as PS
+    probe = probe_nccl_capture()
+    cfg, sq = scp.cfg, scp.sub_block
     comm = C.init(0, 1, "cuda", f"tcp://localhost:{C.free_port()}",
                   timeout_s=PAR_TIMEOUT_S)
     try:
-        if comm.transport != "nccl":
-            raise AssertionError(f"world 1 transport {comm.transport}")
-        step = PS.make_sharded_step_fused(comm, scp.cfg,
-                                          sub_q=scp.sub_block)
-        st, ref = PS.shard_state(scp.state, comm), scp.state
-        for _ in range(PAR_PARITY_STEPS):
-            st, _ = step(st)
-            ref, _ = T.step_fused(ref, scp.cfg, scp.sub_block)
-        got = PS.gather_state(st, comm)
+        how = PS.run_loop(comm)[1]
+        print(f"NCCL world 1: {comm.describe()}, run loop {how}",
+              flush=True)
+        if comm.transport != "nccl" or not how.startswith("graphed"):
+            raise AssertionError(f"world 1: {comm.transport}, {how}")
+        fused = lambda n, off: PS.make_sharded_simulate_fused(  # noqa: E731
+            comm, cfg, n, off, sub_q=sq)
+        st0 = PS.shard_state(scp.state, comm)
+
+        # the fused slab: one device, 3 steps; the protocol
+        (st3, _), _, _ = graphed_vs_eager(
+            f"fused slab, {PAR_PARITY_STEPS} steps",
+            lambda: fused(PAR_PARITY_STEPS, -1)(st0))
+        one3 = T.simulate(scp.state, cfg, PAR_PARITY_STEPS, sub_q=sq)[0]
+        diff = differing_fields(PS.gather_state(st3, comm), one3)
+        print(f"fused slab at world 1 vs one device, {PAR_PARITY_STEPS} "
+              f"steps: {'bit-equal' if not diff else diff}", flush=True)
+        if diff:
+            raise AssertionError("fused slab at world 1 differs from one "
+                                 f"device: {diff}")
+        scan.clear_cache()      # the protocol's first chunk captures
+        t0 = time.perf_counter()
+        (prot, _), prot_caps, prot_slab = graphed_vs_eager(
+            f"fused slab protocol, {PAR_STEPS} steps in chunks of "
+            f"{PAR_CHUNK}, stim off at {PAR_STEPS // 2}",
+            lambda: par_chunks(fused, st0, PAR_STEPS, PAR_CHUNK,
+                               PAR_STEPS // 2))
+        prot_s = time.perf_counter() - t0
+        if prot_slab != (PAR_STEPS, PAR_STEPS) or len(prot_caps) != 1:
+            raise AssertionError(f"fused slab protocol: slab launches "
+                                 f"{prot_slab}, captures {prot_caps}")
+        check_in_world(prot, cfg, "fused slab protocol at world 1")
+        def one_device(n, off):
+            def chunk(st):
+                st, aux = T.simulate(st, cfg, n, off, sub_q=sq)
+                return st, aux.overflow
+            return chunk
+        one_prot = par_chunks(one_device, scp.state, PAR_STEPS, PAR_CHUNK,
+                              PAR_STEPS // 2)[0]
+        prot_bits = differing_fields(prot, one_prot)
+        print(f"fused slab protocol at world 1 vs one device: "
+              f"{'bit-equal' if not prot_bits else prot_bits}", flush=True)
+
+        # the gather path
+        (gst, govf), _, _ = graphed_vs_eager(
+            f"gather path, {PAR_GATHER_STEPS} steps",
+            lambda: PS.make_sharded_simulate(
+                comm, cfg, scp.neighbor_capacity, PAR_GATHER_STEPS)(st0))
+        if govf:
+            raise AssertionError(f"gather path overflowed: {govf}")
+
+        # the halo path on x7
+        hst, s_cap, mig, halo = PH.shard_state_halo(
+            x7.state, comm, x7.cfg, q_block=x7.sub_block)
+        halo_sim = lambda n, off=-1: PH.make_halo_simulate(  # noqa: E731
+            comm, x7.cfg, mig, halo, n, off, sub_q=x7.sub_block)
+        (hend, hovf), _, hslab = graphed_vs_eager(
+            f"halo path on biceps_full x{PAR_HALO_REPLICATE}, "
+            f"{PAR_HALO_STEPS} steps (S, mig_cap, halo_cap = "
+            f"{[s_cap, mig, halo]})", lambda: halo_sim(PAR_HALO_STEPS)(hst))
+        act = hend.active
+        ends, starts = (st.orig_pos[st.active].cpu().numpy()
+                        for st in (hend, hst))
+        kept = np.array_equal(ends[np.lexsort(ends.T)],
+                              starts[np.lexsort(starts.T)])
+        print(f"halo run at world 1: {int(act.sum())} of "
+              f"{x7.num_particles} particles, every orig_pos kept {kept}, "
+              f"overflow {int(hovf)}", flush=True)
+        if int(hovf) or int(act.sum()) != x7.num_particles or not kept:
+            raise AssertionError("halo run at world 1 lost particles or "
+                                 "overflowed")
+        check_fields_finite(hend, x7.cfg, "halo run at world 1")
+
+        timing = {
+            "fused_slab": w1_timing(
+                "fused slab, biceps_full",
+                lambda n: fused(n, -1)(st0), W1_TIMING_STEPS),
+            f"halo_x{PAR_HALO_REPLICATE}": w1_timing(
+                f"halo path, biceps_full x{PAR_HALO_REPLICATE}",
+                lambda n: halo_sim(n)(hst), PAR_HALO_STEPS)}
         torch.cuda.synchronize()
     finally:
         C.shutdown()
-    err = float((got.pos - ref.pos).abs().max())
-    same = all(torch.equal(getattr(got, k), getattr(ref, k))
-               for k in ("pos", "vel", "vm", "dens"))
-    print(f"NCCL world 1 ({comm.describe()}): {PAR_PARITY_STEPS} fused "
-          f"steps, max |pos - one device| {err:.3g}, bitwise equal {same}",
-          flush=True)
-    if not err <= PAR_FUSED_TOLS["pos"][0]:
-        raise AssertionError("NCCL world 1 disagrees with one device")
-    return {"transport": comm.transport, "max_pos_err": err,
-            "bitwise_equal": same}
+    return {"transport": comm.transport, "run_loop": how,
+            "capture_probe": probe, "protocol_wall_s": prot_s,
+            "protocol_slab_launches": prot_slab,
+            "protocol_vs_one_device": prot_bits or "bit-equal",
+            "halo_slab_launches": hslab, "halo_caps": [s_cap, mig, halo],
+            "timing": timing}
 
 
 def phase_parallel(dev, report, times, bounds, launches) -> dict:
@@ -1955,8 +2175,11 @@ def phase_parallel(dev, report, times, bounds, launches) -> dict:
         ranks_s = time.perf_counter() - t0
         rk = [json.loads((out / f"rank{r}.json").read_text())
               for r in range(PAR_RANKS)]
-        print(f"{PAR_RANKS} ranks on one card: {rk[0]['describe']}, ranks "
-              f"ran {ranks_s:.1f} s", flush=True)
+        print(f"{PAR_RANKS} ranks on one card: {rk[0]['describe']}, run "
+              f"loop {rk[0]['run_loop']}, ranks ran {ranks_s:.1f} s",
+              flush=True)
+        if any(not r["run_loop"].startswith("eager") for r in rk):
+            raise AssertionError("ranks sharing the card must run eagerly")
 
         # the fused slab path: parity, protocol, counts
         n = scp.num_particles
@@ -2053,7 +2276,7 @@ def phase_parallel(dev, report, times, bounds, launches) -> dict:
     for _ in range(3):
         one()
     one_ms = cuda_ms(one, PAR_TIMING_STEPS)
-    nccl = nccl_world_one(dev, scp)
+    nccl = nccl_world_one(dev, scp, x7)
 
     with tempfile.TemporaryDirectory() as tmpd:
         cli_runs = cli_par_runs(Path(tmpd))
@@ -3516,8 +3739,9 @@ def main() -> int:
     cli_out["phase_s"] = time.perf_counter() - t0
     print(f"phase 29 took {cli_out['phase_s']:.3f} s", flush=True)
     phase(f"30 multi-device: K1 / K2 on slabs of rows, the fused slab, "
-          f"gather and halo paths with {PAR_RANKS} ranks on the card, NCCL "
-          "at world size 1, the command line with --devices")
+          f"gather and halo paths with {PAR_RANKS} ranks on the card, the "
+          "three simulates graphed over NCCL at world size 1, the command "
+          "line with --devices")
     par = phase_parallel(dev, report, times, bounds, launches)
     phase("31 graph: the compiled run loop (captured CUDA graphs) against "
           "eager runs; launch counts from replays; timing and idle share")

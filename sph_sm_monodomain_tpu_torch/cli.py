@@ -616,7 +616,8 @@ def _run(args, comm) -> int:
                     stim_off_step=off)
 
         say(f"parallel impl: {impl} over {comm.size} devices, "
-            f"{comm.describe()}", flush=True)
+            f"{comm.describe()}, run loop {SS.run_loop(comm)[1]}",
+            flush=True)
         overflow = 0
         done = 0
         while done < args.steps:

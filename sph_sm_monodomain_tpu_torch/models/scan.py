@@ -46,6 +46,13 @@ captures. On the CPU the same forward and backward steps run eagerly.
 
 On a CPU state without autograd the blocks run eagerly.
 
+The multi-device simulates (parallel/) run their steps here too, graphed
+over NCCL: a captured step holds its collectives, so every rank must make
+the same captures in the same order (their keys name the rank). The
+default "global" capture mode holds: ProcessGroupNCCL's watchdog thread,
+which queries the events of finished collectives, does not end a capture
+(chip_smoke.py's NCCL capture probe).
+
 `donate=True` makes the input state's own tensors the graph's buffers:
 the result is written into them and returned, and the input is dead after
 the call (the JAX package's `donate_argnums`). A donated call whose state

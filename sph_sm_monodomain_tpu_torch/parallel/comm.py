@@ -13,6 +13,10 @@ by the callers, and never switched after a failure:
                host memory, runs gloo on the host copy, and copies the
                result back to the rank's card.
 
+The collectives write into fresh tensors through `torch.distributed` and
+have no VJP, so a multi-device step refuses autograd (`refuse_grad`) rather
+than return a gradient that lacks every path through another rank's rows.
+
 `spawn(fn, world)` starts `world` ranks of `fn(comm, *args)` on this host
 (the command line's `--devices N`); `init_from_env` joins the ranks a
 launcher such as `torchrun` started. Nothing here runs at import time.
@@ -26,6 +30,9 @@ import socket
 
 import torch
 import torch.distributed as dist
+
+from ..models import scan
+from ..state import FIELD_NAMES
 
 TRANSPORTS = ("gloo", "nccl", "gloo-host")
 
@@ -127,6 +134,29 @@ class Comm:
         dist.barrier()
 
 
+def refuse_grad(what: str, state, params=None) -> None:
+    """Raise where autograd would differentiate through the collectives:
+    grad mode on and a tensor of `state` (a ParticleState) or of `params`
+    requiring grad. all_gather, all_sum and shift have no VJP here (their
+    results carry no autograd history), so the gradient would silently
+    lose every path through another rank's rows and through an earlier
+    step's gathered fields. Checked before any collective, alike on every
+    rank."""
+    if not torch.is_grad_enabled():
+        return
+    tensors = [getattr(state, f) for f in FIELD_NAMES]
+    tensors += list((params or {}).values())
+    if any(torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is not differentiable: comm.all_gather, comm.all_sum "
+            "and comm.shift have no VJP (all_gather's would be a "
+            "reduce-scatter of the cotangent, all_sum's an all_sum, "
+            "shift's the opposite shift), so a gradient would lose every "
+            "path through another rank's rows. Differentiate the "
+            "single-device run (models.monodomain.simulate), or run under "
+            "torch.no_grad()")
+
+
 def current() -> Comm | None:
     """The Comm this process joined (init / init_from_env), or None."""
     return _current
@@ -175,8 +205,11 @@ def launched_by_env() -> bool:
 
 
 def shutdown() -> None:
-    """Leave the group (destroy_process_group)."""
+    """Leave the group (destroy_process_group), and drop the run loop's
+    captured graphs: a graph captured over NCCL holds the group's
+    communicator, which a later group of the same shape must not replay."""
     global _current
+    scan.clear_cache()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _current = None

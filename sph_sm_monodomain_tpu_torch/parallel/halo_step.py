@@ -39,14 +39,14 @@ import torch
 from ..config import SimConfig, resolve_params
 from ..state import FIELD_NAMES, ParticleState
 from ..ops.constants import const_tensor
-from ..ops.electrophysiology import turn_off_stim
 from ..ops.fused_step import (apply_out_fused, build_dynp, feats_a_from_fs,
                               feats_from_out_a, sweep_a3, sweep_b3, vol_now)
 from ..ops.numerics import ensure_fp32
 from ..ops.shape_matching import (corrected_velocity, sm_invariants,
                                   sm_rebind_rows)
 from ..ops.sweeps import _COORD_SENTINEL, hash_axis_perm, hash_cells_perm
-from .comm import Comm
+from .comm import Comm, refuse_grad
+from .sharded_step import _simulate
 
 _SENTINEL = _COORD_SENTINEL  # -1048576: marks rows the stencil ignores
 # the fields a migrant carries, in the columns of the migration matrix
@@ -152,9 +152,11 @@ def shard_state_halo(state: ParticleState, mesh: Comm, cfg: SimConfig,
     lay, s_cap, mig_cap, halo_cap = halo_layout(
         state, mesh.size, cfg, mig_cap, halo_cap, slack, q_block)
     lo = mesh.rank * s_cap
-    local = {n: torch.from_numpy(np.ascontiguousarray(
-        a if a.ndim == 0 else a[lo:lo + s_cap])).to(mesh.device)
-        for n, a in lay.items()}
+    # np.array keeps the 0-dim stim flag 0-dim (ascontiguousarray makes
+    # it (1,), a shape the stim-off's in-place write would then keep)
+    local = {n: torch.from_numpy(np.array(a) if a.ndim == 0 else
+                                 np.ascontiguousarray(a[lo:lo + s_cap]))
+             .to(mesh.device) for n, a in lay.items()}
     return ParticleState(**local), s_cap, mig_cap, halo_cap
 
 
@@ -424,8 +426,10 @@ def make_halo_step(mesh: Comm, cfg: SimConfig, mig_cap: int, halo_cap: int,
     """The halo-exchange step: (state, params=None) -> (state, overflow),
     state from shard_state_halo (S rows a rank, a multiple of sub_q);
     params (config.PARAM_FIELDS overrides) reach the kernels through the
-    physics-constant vector."""
+    physics-constant vector. Eager, and not differentiable
+    (comm.refuse_grad)."""
     def impl(state, params=None):
+        refuse_grad("the multi-device step 'halo'", state, params)
         ensure_fp32()
         sm_inv = sm_invariants(state, cfg, comm=mesh)
         return _halo_body(state, cfg, sub_q, mig_cap, halo_cap, mesh,
@@ -437,18 +441,12 @@ def make_halo_simulate(mesh: Comm, cfg: SimConfig, mig_cap: int,
                        halo_cap: int, num_steps: int,
                        stim_off_step: int = -1, sub_q: int = 128):
     """N halo-exchange steps with the reference stim-off protocol
-    (main.cpp:329-334); the rest-shape moments hoisted (their sums do not
-    depend on which rank holds a row): (state, params=None) -> (state,
-    largest per-step overflow)."""
-    def impl(state, params=None):
-        ensure_fp32()
-        sm_inv = sm_invariants(state, cfg, comm=mesh)
-        overflow = torch.zeros((), dtype=torch.int32, device=state.device)
-        for i in range(num_steps):
-            if i == stim_off_step:
-                state = turn_off_stim(state, cfg)
-            state, o = _halo_body(state, cfg, sub_q, mig_cap, halo_cap,
-                                  mesh, sm_inv, params)
-            overflow = torch.maximum(overflow, o)
-        return state, overflow
-    return impl
+    (main.cpp:329-334) through the transport's run loop
+    (sharded_step.run_loop: graphed over NCCL); the rest-shape moments
+    hoisted (their sums do not depend on which rank holds a row):
+    (state, params=None) -> (state, largest per-step overflow)."""
+    return _simulate(
+        lambda st, inv, prm: _halo_body(st, cfg, sub_q, mig_cap, halo_cap,
+                                        mesh, inv, prm),
+        ("halo", cfg, sub_q, mig_cap, halo_cap), mesh, cfg, num_steps,
+        stim_off_step)

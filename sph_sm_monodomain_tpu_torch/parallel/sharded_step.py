@@ -22,7 +22,17 @@ the rank's own rows.
 Every returned step or run takes (state, params=None): `params` is a dict
 of physics overrides (config.PARAM_FIELDS) that reach the kernels through
 the physics-constant vector (the JAX package's `dynamic_params=True`
-form, which needs no flag here: nothing is compiled per signature).
+form, which needs no flag here: a tensor override is an operand of the
+captured graph, not part of its key).
+
+The simulates run their steps through models/scan.run_steps, the JAX
+package's jitted lax.scan inside shard_map: over NCCL, replays of one
+captured CUDA graph a step; on the CPU, the same steps eagerly; with
+gloo through host copies (ranks sharing a card), whose copies cannot be
+captured, scan.run_steps_eager (`run_loop`). The single-step makers stay
+eager: the JAX package's single jitted steps, and the reference the
+simulates are held to. Neither steps nor simulates are differentiable
+(comm.refuse_grad).
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig, resolve_params
+from ..models.monodomain import StepAux
+from ..models.scan import run_steps, run_steps_eager
 from ..state import FIELD_NAMES, ParticleState
 from ..ops.electrophysiology import fhn_cell_model, turn_off_stim
 from ..ops.fused_step import (apply_out_fused, build_dynp, feats_a_from_fs,
@@ -41,7 +53,7 @@ from ..ops.shape_matching import corrected_velocity, sm_invariants
 from ..ops.sph import (density_pressure_arrays, force_diffusion_arrays,
                        xsph_arrays)
 from ..ops.sweeps import sweep_bookkeeping3
-from .comm import Comm, current
+from .comm import Comm, current, refuse_grad
 
 # per-row fields in the packed (N, 34) matrix of gather_state; flags as 0/1
 _ROW_FIELDS = tuple(n for n in FIELD_NAMES if n != "is_stim_on")
@@ -147,30 +159,61 @@ def _sharded_step_body(state: ParticleState, cfg: SimConfig,
     return state, mesh.all_sum(nbr.overflow)
 
 
-def _simulate(body, mesh: Comm, cfg: SimConfig, num_steps: int,
-              stim_off_step: int):
-    """N steps of body(state, sm_inv, params) -> (state, overflow) with the
-    reference stim-off protocol (main.cpp:329-334) and the rest-shape
-    moments hoisted (rows never migrate on the all-gather paths)."""
+def run_loop(mesh: Comm):
+    """(run, how): the run loop of the multi-device simulates on `mesh`'s
+    transport, fixed by the transport and never switched after a failure,
+    and a line saying how it runs. NCCL: models/scan.run_steps, graphed
+    (a capture or replay that fails raises); gloo over CPU tensors:
+    run_steps, whose blocks run eagerly on the CPU; gloo through host
+    copies: scan.run_steps_eager (a copy to the host cannot be
+    captured)."""
+    if mesh.transport == "gloo-host":
+        return run_steps_eager, "eager (gloo through host copies)"
+    if mesh.transport == "nccl":
+        return run_steps, "graphed (captured CUDA graphs over NCCL)"
+    return run_steps, "eager (gloo over CPU tensors)"
+
+
+def _simulate(body, key: tuple, mesh: Comm, cfg: SimConfig,
+              num_steps: int, stim_off_step: int):
+    """N steps of body(state, sm_inv, params) -> (state, overflow) through
+    the transport's run loop, with the reference stim-off protocol
+    (main.cpp:329-334) and the rest-shape moments hoisted (the halo body
+    rebinds their per-row members to its migrated rows). Returns (state,
+    largest per-step overflow).
+
+    `key` names the path and its static arguments; the rank's (rank,
+    size, transport) join it, so no two paths or ranks share a capture,
+    and every rank makes the same captures in the same order. The number
+    of steps stays out of it: a run in chunks replays the first chunk's
+    capture. Nothing is donated (the JAX package's sharded scans donate
+    nothing)."""
+    run = run_loop(mesh)[0]
+    key = key + (mesh.rank, mesh.size, mesh.transport)
+
+    def one(st, ops):
+        st, overflow = body(st, *ops)
+        return st, StepAux(overflow=overflow)
+
     def impl(state, params=None):
+        refuse_grad(f"the multi-device run {key[0]!r}", state, params)
         ensure_fp32()
         sm_inv = sm_invariants(state, cfg, comm=mesh)
-        overflow = torch.zeros((), dtype=torch.int32, device=state.device)
-        for i in range(num_steps):
-            if i == stim_off_step:
-                state = turn_off_stim(state, cfg)
-            state, o = body(state, sm_inv, params)
-            overflow = torch.maximum(overflow, o)
+        state, overflow, _ = run(
+            one, state, num_steps, key=key, operands=(sm_inv, params),
+            stim_off_step=stim_off_step,
+            stim_off=lambda st: turn_off_stim(st, cfg))
         return state, overflow
     return impl
 
 
 def make_sharded_step(mesh: Comm, cfg: SimConfig, neighbor_capacity: int):
     """The unfused multi-device step: (state, params=None) -> (state,
-    overflow), state from shard_state. The sorted window table has no
-    per-cell buckets, so the JAX package's `cell_capacity` has no
+    overflow), state from shard_state; eager. The sorted window table has
+    no per-cell buckets, so the JAX package's `cell_capacity` has no
     counterpart (as in the port's unfused step)."""
     def impl(state, params=None):
+        refuse_grad("the multi-device step 'sharded_gather'", state, params)
         ensure_fp32()
         return _sharded_step_body(state, cfg, neighbor_capacity, mesh,
                                   params=params)
@@ -180,12 +223,14 @@ def make_sharded_step(mesh: Comm, cfg: SimConfig, neighbor_capacity: int):
 def make_sharded_simulate(mesh: Comm, cfg: SimConfig,
                           neighbor_capacity: int, num_steps: int,
                           stim_off_step: int = -1):
-    """N unfused multi-device steps with the stim-off protocol: (state,
-    params=None) -> (state, largest per-step overflow)."""
+    """N unfused multi-device steps with the stim-off protocol through the
+    transport's run loop (run_loop): (state, params=None) -> (state,
+    largest per-step overflow)."""
     return _simulate(
         lambda st, inv, prm: _sharded_step_body(
             st, cfg, neighbor_capacity, mesh, sm_inv=inv, params=prm),
-        mesh, cfg, num_steps, stim_off_step)
+        ("sharded_gather", cfg, neighbor_capacity), mesh, cfg, num_steps,
+        stim_off_step)
 
 
 def _sharded_fused_body(state: ParticleState, cfg: SimConfig, sub_q: int,
@@ -237,11 +282,12 @@ def _sharded_fused_body(state: ParticleState, cfg: SimConfig, sub_q: int,
 
 
 def make_sharded_step_fused(mesh: Comm, cfg: SimConfig, sub_q: int = 128):
-    """The fused multi-device step: (state, params=None) -> (state, 0).
-    The capacity must be a multiple of ranks x sub_q, so each rank owns
+    """The fused multi-device step, eager: (state, params=None) -> (state,
+    0). The capacity must be a multiple of ranks x sub_q, so each rank owns
     whole sub-blocks of sorted rows (the JAX package's q_block
     contract)."""
     def impl(state, params=None):
+        refuse_grad("the multi-device step 'sharded_fused'", state, params)
         ensure_fp32()
         return _sharded_fused_body(state, cfg, sub_q, mesh, params=params)
     return impl
@@ -249,11 +295,11 @@ def make_sharded_step_fused(mesh: Comm, cfg: SimConfig, sub_q: int = 128):
 
 def make_sharded_simulate_fused(mesh: Comm, cfg: SimConfig, num_steps: int,
                                 stim_off_step: int = -1, sub_q: int = 128):
-    """N fused multi-device steps with the stim-off protocol (the command
-    line's `--devices N --parallel fused`): (state, params=None) ->
-    (state, 0)."""
+    """N fused multi-device steps with the stim-off protocol through the
+    transport's run loop (run_loop; the command line's `--devices N
+    --parallel fused`): (state, params=None) -> (state, 0)."""
     return _simulate(
         lambda st, inv, prm: _sharded_fused_body(st, cfg, sub_q, mesh,
                                                  sm_inv=inv, params=prm),
-        mesh, cfg, num_steps, stim_off_step)
+        ("sharded_fused", cfg, sub_q), mesh, cfg, num_steps, stim_off_step)
 

@@ -286,6 +286,7 @@ def test_cli_two_ranks_match_one_device(parallel, tmp_path, capfd):
                      str(ckpt)]) == 0
     out = capfd.readouterr().out
     assert f"parallel impl: {parallel} over 2 devices, transport gloo" in out
+    assert "run loop eager (gloo over CPU tensors)" in out
     two, step = T.load_checkpoint(str(ckpt), device="cpu")
     assert step == STEPS and int(two.active.sum()) == 507
     if parallel == "gather":

@@ -5,8 +5,9 @@ the monodomain mode's gradient, the clustered shape matching of the
 multi-muscle scenes and the demos on the card, K1 / K2 on a slab of query
 rows and the multi-device fused slab and halo paths with two ranks on the
 card, against their plain PyTorch versions and the CPU path, and the
-graphed run loop (models/scan.py) against the same drivers run eagerly
-(marker `cuda`; skipped where torch sees no GPU).
+graphed run loop (models/scan.py) against the same drivers run eagerly,
+the three multi-device simulates among them, graphed over NCCL at world
+size 1 (marker `cuda`; skipped where torch sees no GPU).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
@@ -1304,3 +1305,96 @@ def _step0(sc):
                                                      sc.sub_block)
     fs, feats_a = fst.build_qm_feats(st, cx, cyz, order)
     return fs, feats_a, lo, hi
+
+
+# --- the multi-device simulates graphed over NCCL at world size 1 -----------
+
+@pytest.fixture
+def nccl_world1(device):
+    """This process as the one rank of an NCCL group (the card's only
+    transport without host copies); left, and its captures dropped, after
+    the test."""
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    comm = C.init(0, 1, "cuda", f"tcp://localhost:{C.free_port()}",
+                  timeout_s=120)
+    try:
+        yield comm
+    finally:
+        C.shutdown()
+
+
+def _world1_runs(comm, device):
+    """{path: run() -> (state, overflow)} of the three simulates at world
+    size 1 on tests/torch_parallel_ranks.py's states, with the stim off
+    inside the run and physics overrides, at its overflowing capacities
+    (gather, halo)."""
+    import torch_parallel_ranks as R
+    from sph_sm_monodomain_tpu_torch.parallel import halo_step as H
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
+    params = {k: torch.tensor(v, device=device)
+              for k, v in R.OVERRIDES.items()}
+    n, off = R.LOOP_STEPS, R.LOOP_STIM_OFF
+    gst = S.shard_state(R.blob_state(200, seed=9).to(device), comm)
+    fst_ = S.shard_state(R.blob_state(300, 0, pad_to=512, seed=10)
+                         .to(device), comm)
+    hst, _, mig, _ = H.shard_state_halo(
+        R.halo_cases()["uniform"][1].to(device), comm, R.CFG)
+    return {
+        "sharded_gather": lambda: S.make_sharded_simulate(
+            comm, R.CFG, R.LOOP_NBR, n, off)(gst, params),
+        "sharded_fused": lambda: S.make_sharded_simulate_fused(
+            comm, R.CFG, n, off, sub_q=R.FUSED_SUB_Q)(fst_, params),
+        "halo": lambda: H.make_halo_simulate(
+            comm, R.CFG, mig, R.LOOP_HALO_CAP, n, off,
+            sub_q=R.HALO_SUB_Q)(hst, params)}
+
+
+@pytest.mark.parametrize("path", ["sharded_gather", "sharded_fused",
+                                  "halo"])
+def test_multi_device_simulate_graphed_matches_eager_on_card(
+        device, nccl_world1, path):
+    """Each multi-device simulate over NCCL at world size 1 replays a
+    captured graph (one capture, on the first call; the second call
+    replays it) and equals its run under scan.eager() bit for bit, with
+    the same overflow and the same K1 / K2 slab launches."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.models import scan
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
+    assert S.run_loop(nccl_world1)[1].startswith("graphed")
+    run = _world1_runs(nccl_world1, device)[path]
+    seen = []
+    real = scan._Capture._capture
+
+    def counting(self, step, length):
+        seen.append(length)
+        return real(self, step, length)
+    outs = []
+    for ctx in (mock.patch.object(scan._Capture, "_capture", counting),
+                mock.patch.object(scan._Capture, "_capture", counting),
+                scan.eager()):
+        fst.sweep_a3.slab_launches = fst.sweep_b3.slab_launches = 0
+        with ctx:
+            st, ovf = run()
+        outs.append((st, int(ovf), (fst.sweep_a3.slab_launches,
+                                    fst.sweep_b3.slab_launches)))
+    assert seen == [1]
+    (g1, o1, n1), (g2, o2, n2), (e, oe, ne) = outs
+    assert o1 == o2 == oe and n1 == n2 == ne
+    assert n1 == ((0, 0) if path == "sharded_gather" else (5, 5))
+    _bits_equal(g1, e)
+    _bits_equal(g2, e)
+
+
+def test_fused_slab_at_nccl_world_one_matches_one_device(device,
+                                                        nccl_world1):
+    """The fused slab simulate over NCCL at world size 1, graphed, equals
+    the single-device v4 simulate bit for bit over 3 steps (the slab
+    launch of K1 / K2 over every row is the full launch)."""
+    import torch_parallel_ranks as R
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
+    st = R.blob_state(400, 5, pad_to=512, seed=1).to(device)
+    got, _ = S.make_sharded_simulate_fused(nccl_world1, R.CFG, 3,
+                                           sub_q=R.FUSED_SUB_Q)(
+        S.shard_state(st, nccl_world1))
+    want = T.simulate(st, R.CFG, 3, sub_q=R.FUSED_SUB_Q)[0]
+    _bits_equal(got, want)

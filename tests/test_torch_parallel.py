@@ -19,6 +19,11 @@ compare them:
     params) against the single-device v4 step, particles matched by
     orig_pos (tests/test_halo.py:27-33), at tests/test_halo.py's
     tolerances, every particle conserved and overflow 0.
+  - the run loop: each simulate through models/scan.run_steps against the
+    step loop it replaced, bit for bit (stim-off inside the run, physics
+    overrides, the overflow, a run in two chunks); the capture keys of
+    the three paths and of the ranks distinct; every multi-device step
+    and simulate refusing autograd.
 Cheap parity with the JAX functions needs no ranks: slab_bounds, the halo
 layout and its capacities, _window_bounds3, the unshard round trip, and
 sweep_a3 / sweep_b3 on a slab of query rows in interpret mode. No JAX
@@ -45,10 +50,12 @@ from sph_sm_monodomain_tpu.parallel import halo_step as JH
 from sph_sm_monodomain_tpu.parallel import sharded_step as JS
 
 import sph_sm_monodomain_tpu_torch as T
+from sph_sm_monodomain_tpu_torch.models import scan
 from sph_sm_monodomain_tpu_torch.ops import fused_step as tfs
 from sph_sm_monodomain_tpu_torch.ops.sweeps import sweep_bookkeeping3
 from sph_sm_monodomain_tpu_torch.parallel import comm as C
 from sph_sm_monodomain_tpu_torch.parallel import halo_step as H
+from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
 
 import torch_parallel_ranks as R
 
@@ -415,6 +422,79 @@ def test_halo_dynamic_params_match_baked(world):
                                    err_msg=f"halo dynamic params: {f}")
 
 
+# --- the run loop (models/scan.run_steps) ---------------------------------
+
+@pytest.mark.parametrize("path", R.LOOP_PATHS)
+def test_simulate_equals_the_step_loop(world, path):
+    """Each simulate, through models/scan.run_steps, equals bit for bit the
+    step loop it replaced (torch_parallel_ranks.step_loop), with the stim
+    off inside the run and physics overrides, and gives the same largest
+    overflow (nonzero on the gather and halo paths, whose capacities there
+    overflow). A run in two chunks (the stim-off shifted into the second)
+    equals the loop's same two chunks bit for bit, and the one run: bit
+    for bit on the all-gather paths, whose rows never move; within
+    tests/test_halo.py's pos tolerance on the halo path, where each call
+    sums the rest-shape moments anew over its migrated rows (as the JAX
+    package's make_halo_simulate does)."""
+    _, res, _ = world
+    got = _res(res, f"loop_{path}")
+    one_vs_loop, chunks_vs_loop, chunks_vs_one = got["mismatch"]
+    assert one_vs_loop == 0 and chunks_vs_loop == 0
+    o_run, o_loop, o_chunks = got["overflow"]
+    assert o_run == o_loop == o_chunks
+    assert (o_run > 0) == (path != "sharded_fused")
+    if path == "halo":
+        assert float(got["chunk_pos_err"]) <= HALO_TOLS["pos"]
+    else:
+        assert chunks_vs_one == 0
+    act = got["active"].astype(bool)
+    np.testing.assert_array_equal(got["stim"][act], -10000.0)
+    assert np.isfinite(got["pos"][act]).all()
+
+
+def test_capture_keys_name_the_path_and_the_rank(world):
+    """The keys the simulates give run_steps: one a path for its one run
+    and both chunks (the step count stays out of it, so the chunks after
+    the first replay the first one's capture), naming the path first and
+    the rank, the group size and the transport last; distinct across the
+    three paths and the ranks."""
+    d, res, _ = world
+    keys = res["loop_keys"]
+    n = len(R.LOOP_PATHS)
+    assert keys.shape == (d, 3 * n)
+    for r in range(d):
+        for i, path in enumerate(R.LOOP_PATHS):
+            calls = set(keys[r, 3 * i:3 * i + 3])
+            assert len(calls) == 1
+            key = calls.pop()
+            assert key.startswith(f"('{path}', ")
+            assert key.endswith(f", {r}, {d}, 'gloo')")
+    assert len(set(keys[:, ::3].reshape(-1))) == d * n
+
+
+def test_multi_device_runs_refuse_autograd(world):
+    """Every multi-device step and simulate raises, naming the missing VJPs
+    of the collectives, when an override or the state requires grad; under
+    torch.no_grad() the same call runs."""
+    _, res, _ = world
+    np.testing.assert_array_equal(res["grad_raised"],
+                                  np.ones((len(R.GRAD_MAKERS), 2)))
+    assert int(res["grad_no_grad_ran"]) == 1
+
+
+def test_run_loop_by_transport():
+    """The simulates' run loop is fixed by the transport: NCCL graphed
+    (run_steps), gloo over CPU tensors run_steps (eager on the CPU), gloo
+    through host copies run_steps_eager."""
+    for transport, run, how in (
+            ("nccl", scan.run_steps, "graphed"),
+            ("gloo", scan.run_steps, "eager (gloo over CPU tensors)"),
+            ("gloo-host", scan.run_steps_eager,
+             "eager (gloo through host copies)")):
+        got_run, got_how = S.run_loop(C.Comm(0, 2, transport, "cpu"))
+        assert got_run is run and got_how.startswith(how)
+
+
 # --- cheap parity with the JAX functions ---------------------------------
 
 @pytest.mark.parametrize("d", (2, 4, 8))
@@ -444,6 +524,7 @@ def test_halo_layout_matches_jax(case, d):
         loc = H.shard_state_halo(st, C.Comm(r, d, "gloo", "cpu"), cfg)[0]
         np.testing.assert_array_equal(loc.pos.numpy(),
                                       lay["pos"][r * s_cap:(r + 1) * s_cap])
+        assert loc.is_stim_on.shape == st.is_stim_on.shape == ()
 
 
 def test_window_bounds3_matches_jax():

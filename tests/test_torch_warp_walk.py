@@ -33,7 +33,10 @@ in numpy on the CPU.
   the window of the run that holds it, and a warp stages no more slots
   than the union of its rows' nonempty runs holds. Planted faults each
   fail it: an empty run (at row 0) counted into the union, a window's
-  last row dropped, a slice end one row too far.
+  last row dropped, a slice end one row too far, a slice that skips its
+  last pass of 32 slots, a window's end one row short. On biceps_full the
+  mask's pairs come from the run bounds (run_pairs_from_bounds), which
+  the small cases hold to the plain mask walked row chunk by row chunk.
 - for_each_warp_slab_candidate (the v5 slab sweeps): every (row, slot)
   pair of the plain slab mask is staged exactly once, at sub_q 16 (a
   warp's rows span two slabs), 32 and 64, and by the same slice whether
@@ -439,12 +442,30 @@ def _run_case(case):
     return qs.numpy(), qe.numpy()
 
 
-@functools.lru_cache(maxsize=None)
-def _run_mask_pairs(case):
+def run_pairs_from_bounds(qs, qe):
     """Sorted keys q * N + j of every pair that the plain v1 sweeps' mask
-    admits (the (rows, N) mask that legacy_sweeps._run_sums hands its pair
-    terms), and the run r that holds each."""
-    qs, qe = (torch.from_numpy(a) for a in _run_case(case))
+    admits, and the run r that holds each, from the run bounds alone: the
+    mask's own conditions qs[q, r] <= j < qe[q, r] over r < 9 and 0 <= j <
+    N, one slot a pair (O(pairs), where the plain mask is (rows, N))."""
+    n = qs.shape[0]
+    s = np.clip(qs[:, :9].astype(np.int64), 0, n).reshape(-1)
+    e = np.clip(qe[:, :9].astype(np.int64), 0, n).reshape(-1)
+    length = np.maximum(e - s, 0)
+    run = np.repeat(np.arange(n * 9), length)          # q * 9 + r a pair
+    first = np.cumsum(length) - length
+    j = np.repeat(s - first, length) + np.arange(int(length.sum()))
+    key = run // 9 * n + j
+    o = np.argsort(key, kind="stable")
+    key = key[o]
+    assert (np.diff(key) > 0).all()  # the runs of a row are disjoint
+    return key, (run % 9)[o]
+
+
+def plain_run_mask_pairs(qs, qe):
+    """run_pairs_from_bounds' pairs as the plain v1 sweeps see them: the
+    (rows, N) mask that legacy_sweeps._run_sums hands its pair terms,
+    walked chunk by chunk (minutes on biceps_full)."""
+    qs, qe = torch.from_numpy(qs), torch.from_numpy(qe)
     n = qs.shape[0]
     seen = []
 
@@ -463,6 +484,29 @@ def _run_mask_pairs(case):
     assert (hit.sum(1) == 1).all()   # the runs of a row are disjoint
     o = np.argsort(key)
     return key[o], hit.argmax(1)[o]
+
+
+@functools.lru_cache(maxsize=None)
+def _run_mask_pairs(case):
+    """The pairs of the plain v1 mask of a case, and the run of each: the
+    plain mask walked on the small cases, derived from the run bounds on
+    biceps_full (test_run_pairs_from_bounds_match_the_plain_mask holds
+    the derivation to the walk)."""
+    qs, qe = _run_case(case)
+    if case == "biceps_full":
+        return run_pairs_from_bounds(qs, qe)
+    return plain_run_mask_pairs(qs, qe)
+
+
+@pytest.mark.parametrize("case", ["slice", "sparse", "scattered"])
+def test_run_pairs_from_bounds_match_the_plain_mask(case):
+    """The pairs derived from the run bounds are the plain v1 mask's, each
+    in the run that holds it."""
+    key, run = run_pairs_from_bounds(*_run_case(case))
+    want, want_r = _run_mask_pairs(case)
+    assert want.size > 0
+    assert np.array_equal(key, want)
+    assert np.array_equal(run, want_r)
 
 
 @pytest.mark.parametrize("slices", [2, 4, 16])

@@ -21,11 +21,13 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import sph_sm_monodomain_tpu_torch as T
 from sph_sm_monodomain_tpu_torch.parallel import comm as C
 from sph_sm_monodomain_tpu_torch.parallel import halo_step as H
 from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
+from sph_sm_monodomain_tpu_torch.state import FIELD_NAMES
 
 CFG = T.SimConfig()
 NBR = 9 * 64             # unfused table width (tests/test_sharded.py)
@@ -38,6 +40,17 @@ OVERRIDES = {"k_stiffness": 0.8, "mu_viscosity": 150.0, "sm_alpha": 0.5,
 # a world of 750^3 cells: window ids pass 2^24, where a value cast of the
 # id column through float32 would merge neighbouring ids
 BIG_WORLD = (30.0, 30.0, 30.0)
+# the run-loop cases: steps, the stim-off index, the steps of the first of
+# two chunks (the stim-off falls in the second, shifted); a table of 2
+# slots a run (the gather path's overflow) and a boundary capacity of 8
+# rows (the halo path's)
+LOOP_STEPS, LOOP_STIM_OFF, LOOP_SPLIT = 5, 3, 2
+LOOP_NBR, LOOP_HALO_CAP = 18, 8
+LOOP_PATHS = ("sharded_gather", "sharded_fused", "halo")
+# the makers that refuse autograd, in the order of the "grad" case
+GRAD_MAKERS = ("make_sharded_step", "make_sharded_step_fused",
+               "make_halo_step", "make_sharded_simulate",
+               "make_sharded_simulate_fused", "make_halo_simulate")
 
 
 def blob_state(n=300, n_fixed=7, pad_to=None, seed=0):
@@ -249,6 +262,150 @@ def _halo_cases(comm, res):
     _put(res, "halo_baked", _fields(S.gather_state(b, comm)))
 
 
+def step_loop(body, state, cfg, num_steps, stim_off_step, mesh,
+              params=None):
+    """The loop the multi-device simulates ran before models/scan: eager
+    steps of body(state, sm_inv, params) -> (state, overflow) with the
+    rest-shape moments hoisted, turnOffStim before step `stim_off_step`,
+    the largest per-step overflow. The reference the simulates are held
+    to bit for bit. It steps the bodies the single-step makers step: the
+    makers recompute the moments each step, and after the halo path's
+    migration reorders the rows their sums differ in the last bits."""
+    from sph_sm_monodomain_tpu_torch.ops.shape_matching import sm_invariants
+    sm_inv = sm_invariants(state, cfg, comm=mesh)
+    overflow = torch.zeros((), dtype=torch.int32)
+    for i in range(num_steps):
+        if i == stim_off_step:
+            state = T.stim.turn_off_stim(state, cfg)
+        state, o = body(state, sm_inv, params)
+        overflow = torch.maximum(overflow, o)
+    return state, overflow
+
+
+def loop_paths(comm) -> dict:
+    """{path: (make(num_steps, stim_off_step) -> simulate, body(state,
+    sm_inv, params), cfg, sharded state)} of the run-loop cases; the
+    gather and halo paths at capacities that overflow."""
+    halo_st, _, mig, _ = H.shard_state_halo(halo_cases()["uniform"][1],
+                                            comm, CFG)
+    return {
+        "sharded_gather": (
+            lambda n, off: S.make_sharded_simulate(comm, CFG, LOOP_NBR, n,
+                                                   off),
+            lambda st, inv, prm: S._sharded_step_body(
+                st, CFG, LOOP_NBR, comm, sm_inv=inv, params=prm),
+            CFG, S.shard_state(blob_state(200, seed=9), comm)),
+        "sharded_fused": (
+            lambda n, off: S.make_sharded_simulate_fused(
+                comm, CFG, n, off, sub_q=FUSED_SUB_Q),
+            lambda st, inv, prm: S._sharded_fused_body(
+                st, CFG, FUSED_SUB_Q, comm, sm_inv=inv, params=prm),
+            CFG, S.shard_state(blob_state(300, 0, pad_to=512, seed=10),
+                               comm)),
+        "halo": (
+            lambda n, off: H.make_halo_simulate(
+                comm, CFG, mig, LOOP_HALO_CAP, n, off, sub_q=HALO_SUB_Q),
+            lambda st, inv, prm: H._halo_body(
+                st, CFG, HALO_SUB_Q, mig, LOOP_HALO_CAP, comm, inv, prm),
+            CFG, halo_st)}
+
+
+def _bit_mismatches(a, b) -> int:
+    """Fields of two states whose bits differ."""
+    bad = 0
+    for f in FIELD_NAMES:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        bad += int(not torch.equal(x, y))
+    return bad
+
+
+def _loop_cases(comm, res):
+    """Each simulate (through models/scan.run_steps) against the step loop
+    it replaced, with the stim-off inside the run and physics overrides,
+    and a run in two chunks (the stim-off index shifted into the second)
+    against the same two chunks of the loop and against the one run. Bit
+    mismatches summed over the ranks (one run vs loop, two chunks vs
+    loop, two chunks vs one run), the largest |pos| difference of the two
+    chunks from the one run, the overflows, and the capture keys each
+    rank passed."""
+    params = {k: torch.tensor(v) for k, v in OVERRIDES.items()}
+    keys = []
+    real = S.run_steps
+
+    def recording(step, state, num_steps, *, key, **kw):
+        keys.append(repr(key))
+        return real(step, state, num_steps, key=key, **kw)
+    off2 = LOOP_STIM_OFF - LOOP_SPLIT
+    for path, (make, body, cfg, st) in loop_paths(comm).items():
+        with mock.patch.object(S, "run_steps", recording):
+            one, o1 = make(LOOP_STEPS, LOOP_STIM_OFF)(st, params)
+            a, oa = make(LOOP_SPLIT, -1)(st, params)
+            two, ob = make(LOOP_STEPS - LOOP_SPLIT, off2)(a, params)
+        ref, o_ref = step_loop(body, st, cfg, LOOP_STEPS, LOOP_STIM_OFF,
+                               comm, params)
+        ref_a, _ = step_loop(body, st, cfg, LOOP_SPLIT, -1, comm, params)
+        ref_two, _ = step_loop(body, ref_a, cfg, LOOP_STEPS - LOOP_SPLIT,
+                               off2, comm, params)
+        mism = comm.all_sum(torch.tensor(
+            [_bit_mismatches(one, ref), _bit_mismatches(two, ref_two),
+             _bit_mismatches(two, one)]))
+        full, full_two = (S.gather_state(x, comm) for x in (one, two))
+        _put(res, f"loop_{path}", {
+            "mismatch": mism,
+            "chunk_pos_err": float((full_two.pos - full.pos).abs().max()),
+            "overflow": [int(o1), int(o_ref), max(int(oa), int(ob))],
+            "stim": full.stim.numpy(), "active": full.active.numpy(),
+            "pos": full.pos.numpy()})
+    every = [None] * comm.size
+    dist.all_gather_object(every, keys)
+    res["loop_keys"] = np.asarray(every)
+
+
+def _grad_cases(comm, res):
+    """Every multi-device step and simulate called with a physics override
+    that requires grad, then with a state whose positions require grad:
+    1 where it raised naming the missing VJPs, before any collective (so
+    every rank raises alike); then once under torch.no_grad(), where the
+    fused step runs."""
+    st = S.shard_state(blob_state(300, 0, pad_to=512, seed=10), comm)
+    halo_st, _, mig, halo = H.shard_state_halo(
+        halo_cases()["uniform"][1], comm, CFG)
+    makers = {
+        "make_sharded_step": (lambda: S.make_sharded_step(comm, CFG, NBR),
+                              st),
+        "make_sharded_step_fused": (lambda: S.make_sharded_step_fused(
+            comm, CFG, sub_q=FUSED_SUB_Q), st),
+        "make_halo_step": (lambda: H.make_halo_step(
+            comm, CFG, mig, halo, sub_q=HALO_SUB_Q), halo_st),
+        "make_sharded_simulate": (lambda: S.make_sharded_simulate(
+            comm, CFG, NBR, 2), st),
+        "make_sharded_simulate_fused": (lambda: S.make_sharded_simulate_fused(
+            comm, CFG, 2, sub_q=FUSED_SUB_Q), st),
+        "make_halo_simulate": (lambda: H.make_halo_simulate(
+            comm, CFG, mig, halo, 2, sub_q=HALO_SUB_Q), halo_st)}
+    raised = np.zeros((len(GRAD_MAKERS), 2), np.int32)
+    for i, name in enumerate(GRAD_MAKERS):
+        make, s0 = makers[name]
+        k = torch.tensor(OVERRIDES["k_stiffness"], requires_grad=True)
+        calls = (lambda: make()(s0, {"k_stiffness": k}),
+                 lambda: make()(s0.replace(
+                     pos=s0.pos.clone().requires_grad_())))
+        for j, call in enumerate(calls):
+            try:
+                call()
+            except RuntimeError as e:
+                raised[i, j] = int("no VJP" in str(e))
+    k = torch.tensor(OVERRIDES["k_stiffness"], requires_grad=True)
+    with torch.no_grad():
+        out, _ = makers["make_sharded_step_fused"][0]()(
+            st, {"k_stiffness": k})
+    res["grad_raised"] = raised
+    res["grad_no_grad_ran"] = np.asarray(
+        int(torch.isfinite(out.pos).all() and not out.pos.requires_grad))
+
+
 def run_world(comm, out_dir):
     """Every case on this rank; rank 0 writes world<D>.npz."""
     torch.set_num_threads(1)
@@ -260,6 +417,8 @@ def run_world(comm, out_dir):
     _gather_cases(comm, res)
     _fused_cases(comm, res)
     _halo_cases(comm, res)
+    _loop_cases(comm, res)
+    _grad_cases(comm, res)
     if comm.rank == 0:
         np.savez(out_dir / f"world{comm.size}.npz", **res)
 
