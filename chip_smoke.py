@@ -141,10 +141,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               through host copies; which gloo collectives take CUDA
               tensors is probed and printed): the fused slab path (3
               steps against one device at tests/test_sharded_fused.py's
-              tolerances, then 500 protocol steps, stim off at 250, finite
-              and inside the world, K1 / K2 slab launches exactly 500 per
-              rank), the gather path (3 steps), the halo path on
-              biceps_full x7 (3 steps against one device by orig_pos at
+              tolerances, then 200 protocol steps, stim off at 100,
+              finite and inside the world, K1 / K2 slab launches
+              exactly 200 per rank), the gather path (3 steps), the halo
+              path on biceps_full x7 (3 steps against one device by
+              orig_pos at
               tests/test_halo.py's tolerances, then 50 steps: every
               particle kept, migration counted, overflow 0), K1 / K2 on
               each rank's recorded halo inputs (S queries against S + 2H
@@ -157,14 +158,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               (models/scan.run_steps): a probe that captures of NCCL
               collectives outlast the watchdog's tick in the default
               capture mode; the fused slab against one device
-              bit for bit (3 steps) and its 500-step protocol in chunks
+              bit for bit (3 steps) and its 200-step protocol in chunks
               of 100, the gather path (3 steps) and the halo path on x7
               (50 steps, every particle kept, overflow 0), each against
               its run under scan.eager() bit for bit with the same K1 /
               K2 slab launches; graphed and eager ms/step, host launch
               calls and device operations a step, and slab launches a
               step, of the fused slab (biceps_full) and the halo path
-              (x7)
+              (x7). The gather path's value-and-grad (overrides K
+              and mu and the initial vel requiring grad, loss sum(pos *
+              w)): at NCCL world size 1 on the padded biceps_full (3
+              steps, stim off before step 1), the graphed adjoint scan
+              (two captures, forward and backward step, then replays)
+              against scan.eager() bit for bit and against one device's
+              unfused adjoint (bit for bit, or within the CPU tests'
+              tolerances widened by one device's own spread; which is
+              printed), ms/step graphed and eager, peak memory; 2 ranks
+              sharing the card (2 steps, the eager adjoint through host
+              copies) against one device the same way. The halo pricing
+              tool (tools/halo_gpu.py --check on x7 at world size 1) and
+              its row
  31. graph    the compiled run loop (models/scan.py: simulate, the mode
               drivers and run_protocol replay a captured CUDA graph):
               biceps_full v4 run_protocol(500 steps, stim off at 250,
@@ -189,8 +202,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  32. grad     the compiled gradient paths (models/scan.py's checkpointed
               adjoint scan: forward and backward steps replay captured
               graphs) on biceps_full: the flagship --fused value-and-grad
-              at the JAX example's defaults (250 steps, 5 snapshots, from
-              (0.3, 150)), graphed against the eager adjoint (scan.eager())
+              (100 steps, 5 snapshots, from the JAX example's (0.3,
+              150)), graphed against the eager adjoint (scan.eager())
               bit for bit or within twice the spread of two eager runs, and
               both within GRAD_RTOL of the torch.utils.checkpoint loop,
               exact K1 / K2 / K4 / K5 counts, ms/step graphed (best of 3)
@@ -279,11 +292,14 @@ SLICE_DENS_RTOL = 5e-5
 GRAD_STEPS, GRAD_RTOL = 3, 1e-3
 # the fit at full width: rollout steps, snapshots, Adam iterations
 FIT_STEPS, FIT_SNAPS, FIT_ITERS = 20, 4, 6
-# phase 32: the flagship value-and-grad at the JAX example's defaults
-# (steps, snapshots), its unfused path's steps and snapshots (the unfused
-# step streams (N, neighbor_capacity) tensors, 18,560 x 4,464 here), and
-# the steps of simulate under grad
-FLAG_STEPS, FLAG_SNAPS = 250, 5
+# phase 32: the flagship fit at the JAX example's defaults (steps,
+# snapshots), the steps of the value-and-grad held to its eager adjoint
+# and to the checkpoint loop (fewer than the fit's, to make room for
+# phase 30's multi-device gradient: each eager reference runs ~90 ms a
+# step), its unfused path's steps and snapshots (the unfused step streams
+# (N, neighbor_capacity) tensors, 18,560 x 4,464 here), and the steps of
+# simulate under grad
+FLAG_STEPS, FLAG_SNAPS, FLAG_VG_STEPS = 250, 5, 100
 FLAG_UNFUSED_STEPS, FLAG_UNFUSED_SNAPS = 4, 2
 SIM_GRAD_STEPS = 3
 # the monodomain mode: steps of its main run; slice steps card vs CPU at
@@ -1508,7 +1524,7 @@ SLAB_KERNELS = (
 # the gather path, and of the halo run on biceps_full x7 that counts
 # migration; each collective's wait bound
 PAR_RANKS, PAR_PARITY_STEPS = 2, 3
-PAR_STEPS, PAR_CHUNK, PAR_TIMING_STEPS = 500, 100, 20
+PAR_STEPS, PAR_CHUNK, PAR_TIMING_STEPS = 200, 100, 20
 PAR_GATHER_STEPS, PAR_HALO_REPLICATE, PAR_HALO_STEPS = 3, 7, 50
 PAR_TIMEOUT_S = 300
 # Two ranks against one device, by particle identity: each field within
@@ -1533,6 +1549,102 @@ PAR_FIELDS = ("pos", "vel", "vm", "dens", "iion", "w", "inter_vm", "stim",
               "active", "orig_pos")
 # the command line's short runs (steps, chunk), and the resumed steps
 PAR_CLI_STEPS, PAR_CLI_CHUNK, PAR_CLI_RESUME = 20, 10, 10
+# the gather path's value-and-grad: the stim-off index inside
+# PAR_GATHER_STEPS steps at NCCL world size 1, the steps of the run of
+# PAR_RANKS ranks sharing the card, the overrides that require grad (the
+# initial vel requires grad too), the seed of the loss weights w (loss
+# sum(pos * w)); against one device, tests/test_torch_parallel.py's
+# tolerances (the value relative, each gradient relative to its largest
+# magnitude), each widened to twice one device's own largest relative
+# change when every live position moves one ulp or the rows are shuffled
+# (PAR_SHUFFLE_SEED)
+PAR_GRAD_STIM_OFF, PAR_GRAD_RANK_STEPS, PAR_GRAD_SEED = 1, 2, 5
+PAR_GRAD_PARAMS = {"k_stiffness": 0.8, "mu_viscosity": 150.0}
+PAR_GRAD_VALUE_RTOL, PAR_GRAD_RTOL = 1e-5, 1e-4
+# the halo pricing tool's run (tools/halo_gpu.py): replicate, scan length
+HALO_TOOL_ARGS = ("7", "20")
+
+
+def grad_weights(cap: int, dev) -> torch.Tensor:
+    """The seeded weights w (cap, 3) of the gradient runs' loss."""
+    return torch.from_numpy(np.random.default_rng(PAR_GRAD_SEED).normal(
+        size=(cap, 3)).astype(np.float32)).to(dev)
+
+
+def gather_value_and_grad(run, st0, w) -> list:
+    """[loss, d/dK, d/dmu, d/dvel] of loss = sum(pos * w) after run(state,
+    params), the initial vel and the PAR_GRAD_PARAMS overrides requiring
+    grad."""
+    vel = st0.vel.detach().clone().requires_grad_()
+    params = {k: torch.tensor(v, device=st0.pos.device, requires_grad=True)
+              for k, v in PAR_GRAD_PARAMS.items()}
+    out = run(st0.replace(vel=vel), params)
+    val = (out.pos * w).sum()
+    return [val.detach(), *torch.autograd.grad(val, [*params.values(),
+                                                     vel])]
+
+
+def one_device_grad(scp, steps: int, st0=None, w=None) -> list:
+    """gather_value_and_grad of the one-device unfused adjoint
+    (simulate(fused=False), phase 32's path) over `steps` steps, the stim
+    off before PAR_GRAD_STIM_OFF."""
+    st0 = scp.state if st0 is None else st0
+    w = grad_weights(st0.capacity, st0.device) if w is None else w
+    return gather_value_and_grad(lambda st, p: T.simulate(
+        st, scp.cfg, steps, PAR_GRAD_STIM_OFF, fused=False,
+        neighbor_capacity=scp.neighbor_capacity, params=p)[0], st0, w)
+
+
+def one_device_grad_spread(scp, steps: int, want: list) -> list:
+    """One device's own largest relative change of each output of
+    one_device_grad (`want`) when every live position moves one float32
+    ulp toward +inf, and when its rows are shuffled (PAR_SHUFFLE_SEED; the
+    loss weights and vel's gradient follow the rows)."""
+    st = scp.state
+    bumped = st.replace(pos=torch.where(st.active[:, None], torch.nextafter(
+        st.pos, torch.full_like(st.pos, float("inf"))), st.pos))
+    perm = torch.from_numpy(np.random.default_rng(PAR_SHUFFLE_SEED)
+                            .permutation(st.capacity)).to(st.device)
+    shuffled = T.ParticleState(**{
+        f: getattr(st, f) if f == "is_stim_on" else getattr(st, f)[perm]
+        for f in FIELD_NAMES})
+    w = grad_weights(st.capacity, st.device)
+    other = one_device_grad(scp, steps, bumped)
+    shuf = one_device_grad(scp, steps, shuffled, w[perm])
+    vel = torch.empty_like(shuf[3])
+    vel[perm] = shuf[3]
+    shuf[3] = vel
+    return [max(float((x - b).abs().max()) / float(b.abs().max())
+                for x in (o, s)) for b, o, s in zip(want, other, shuf)]
+
+
+GRAD_NAMES = ("value", "d/dK", "d/dmu", "d/dvel")
+
+
+def hold_grad_to_one_device(what, got, scp, steps: int, want=None) -> dict:
+    """`got` ([loss, d/dK, d/dmu, d/dvel] of a multi-device run) against
+    one device's: bit for bit, or each output within max(its tolerance, 2
+    x one device's spread) of its largest magnitude. Prints which;
+    returns {"bit_equal", "errors", "limits", "spread"}."""
+    want = one_device_grad(scp, steps) if want is None else want
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        print(f"{what} vs one device's unfused adjoint: bit for bit",
+              flush=True)
+        return {"bit_equal": True}
+    spread = one_device_grad_spread(scp, steps, want)
+    errs = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got, want)]
+    lims = [max(PAR_GRAD_VALUE_RTOL if i == 0 else PAR_GRAD_RTOL, 2.0 * sp)
+            for i, sp in enumerate(spread)]
+    print(f"{what} vs one device's unfused adjoint: not bit for bit; "
+          "relative errors (of each output's largest magnitude) "
+          + ", ".join(f"{n} {e:.3g} (limit {lim:.3g}, one device's spread "
+                      f"{sp:.3g})" for n, e, lim, sp in
+                      zip(GRAD_NAMES, errs, lims, spread)), flush=True)
+    if any(not e <= lim for e, lim in zip(errs, lims)):
+        raise AssertionError(f"{what}: off one device: {errs} vs {lims}")
+    return {"bit_equal": False, "errors": errs, "limits": lims,
+            "spread": spread}
 
 
 def par_pad(scene_cap: int, sub_q: int) -> int:
@@ -1691,6 +1803,25 @@ def par_rank_main(comm, out_dir):
         _save_fields(full, out / "gather.pt")
     res["gather_ms"], _ = rank_ms(lambda s: gstep(s)[0], st,
                                   PAR_GATHER_STEPS, comm)
+    # its value-and-grad: the eager adjoint scan through host copies, each
+    # rank differentiating its rows' share of the loss
+    gsim = PS.make_sharded_simulate(comm, cfg, sc.neighbor_capacity,
+                                    PAR_GRAD_RANK_STEPS, PAR_GRAD_STIM_OFF)
+    n_loc = sc.state.capacity // comm.size
+    w = grad_weights(sc.state.capacity, dev)[comm.rank * n_loc:
+                                              (comm.rank + 1) * n_loc]
+    comm.barrier()
+    t0 = time.perf_counter()
+    got = gather_value_and_grad(lambda s, p: gsim(s, p)[0],
+                                PS.shard_state(sc.state, comm), w)
+    torch.cuda.synchronize()
+    res["grad_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        grad = {"value": comm.all_sum(got[0].double()).cpu(),
+                "params": comm.all_gather(torch.stack(got[1:3])[None]).cpu(),
+                "vel": comm.all_gather(got[3]).cpu()}
+    if lead:
+        torch.save(grad, out / "grad.pt")
 
     # the halo path on biceps_full x7 (a world stretched along x)
     x7 = T.build_scene("biceps_full", replicate=PAR_HALO_REPLICATE,
@@ -2040,6 +2171,98 @@ def w1_timing(label, run, steps: int) -> dict:
     return out
 
 
+def world1_gather_grad(comm, scp) -> dict:
+    """The gather path's value-and-grad at NCCL world size 1 on the padded
+    biceps_full: make_sharded_simulate over PAR_GATHER_STEPS steps (stim
+    off before PAR_GRAD_STIM_OFF), the PAR_GRAD_PARAMS overrides and the
+    initial vel requiring grad, loss sum(pos * w): the graphed adjoint
+    scan (its first call captures the forward step and the backward step,
+    whose recompute holds the all_gathers and all_sums and their VJPs'
+    collectives; a second call captures nothing) against the same call
+    under scan.eager() bit for bit (hold_grads), then against one
+    device's unfused adjoint (hold_grad_to_one_device). Graphed ms/step
+    (best of 3 calls ending in a host fetch), eager ms/step, peak memory
+    over the first call and over a replayed one, with the card."""
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as PS
+    dev, steps = scp.state.device, PAR_GATHER_STEPS
+    sim = PS.make_sharded_simulate(comm, scp.cfg, scp.neighbor_capacity,
+                                   steps, PAR_GRAD_STIM_OFF)
+    w = grad_weights(scp.state.capacity, dev)
+
+    def vg():
+        return gather_value_and_grad(
+            lambda st, p: sim(PS.shard_state(st, comm), p)[0], scp.state, w)
+    scan.clear_cache()
+    seen = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counting_all_captures(seen):
+        t0 = time.perf_counter()
+        first = vg()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_peak = torch.cuda.max_memory_allocated(dev)
+        captures = len(seen)
+        torch.cuda.reset_peak_memory_stats(dev)
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = vg()
+            float(again[0])
+            best = min(best, time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+    if captures != 2 or len(seen) != captures:
+        raise AssertionError(f"gather value-and-grad at world 1: {captures} "
+                             f"captures on the first call, {len(seen)} "
+                             "after four (want 2 and 2)")
+    eager_s = []
+
+    def timed_eager():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = vg()
+        float(res[0])
+        eager_s.append(time.perf_counter() - t0)
+        return res
+    label = (f"gather path value-and-grad at NCCL world 1, biceps_full "
+             f"padded to {scp.state.capacity} rows, {steps} steps")
+    held = hold_grads(label, [first, again], timed_eager)
+    if not held["bit_equal"]:
+        raise AssertionError(f"{label}: graphed not bit for bit equal to "
+                             "scan.eager()")
+    one = hold_grad_to_one_device(label, first, scp, steps)
+    out = {"steps": steps, "captures": captures, "first_call_s": first_s,
+           "graphed_ms_per_step": best / steps * 1e3,
+           "eager_ms_per_step": eager_s[0] / steps * 1e3,
+           "peak_gib": peak / 2**30, "first_call_peak_gib":
+           first_peak / 2**30, "held_before_gib": base / 2**30,
+           "loss": float(first[0]), "grad_k_mu": [float(first[1]),
+                                                  float(first[2])],
+           "graphed_vs_eager": held, "vs_one_device": one}
+    print(f"{label} ({roofline.card_line()}): graphed "
+          f"{out['graphed_ms_per_step']:.4f} ms/step (best of 3; first call "
+          f"{first_s:.3f} s with {captures} captures, forward and backward "
+          f"step), eager {out['eager_ms_per_step']:.4f} ms/step; peak "
+          f"allocated {out['peak_gib']:.4f} GiB over a replayed call, "
+          f"{out['first_call_peak_gib']:.4f} over the first "
+          f"({out['held_before_gib']:.4f} GiB held before it); loss "
+          f"{out['loss']:.9g}, d/dK, d/dmu {out['grad_k_mu']}", flush=True)
+    scan.clear_cache()
+    return out
+
+
+def halo_tool_row(tmp: Path) -> dict:
+    """tools/halo_gpu.py --check on biceps_full x HALO_TOOL_ARGS[0] at world
+    size 1 (NCCL), its row written to a scratch file and printed."""
+    from sph_sm_monodomain_tpu_torch.tools import halo_gpu
+    res = halo_gpu.main([*HALO_TOOL_ARGS, "--check", f"--row={tmp}/h.csv"])
+    print(f"halo tool row: {res['row']}", flush=True)
+    scan.clear_cache()
+    return res
+
+
 def nccl_world_one(dev, scp, x7) -> dict:
     """The three multi-device simulates over NCCL at world size 1 in this
     process, graphed (models/scan.run_steps): the fused slab on the padded
@@ -2108,6 +2331,7 @@ def nccl_world_one(dev, scp, x7) -> dict:
                 comm, cfg, scp.neighbor_capacity, PAR_GATHER_STEPS)(st0))
         if govf:
             raise AssertionError(f"gather path overflowed: {govf}")
+        ggrad = world1_gather_grad(comm, scp)
 
         # the halo path on x7
         hst, s_cap, mig, halo = PH.shard_state_halo(
@@ -2142,6 +2366,7 @@ def nccl_world_one(dev, scp, x7) -> dict:
     finally:
         C.shutdown()
     return {"transport": comm.transport, "run_loop": how,
+            "gather_grad": ggrad,
             "capture_probe": probe, "protocol_wall_s": prot_s,
             "protocol_slab_launches": prot_slab,
             "protocol_vs_one_device": prot_bits or "bit-equal",
@@ -2225,6 +2450,22 @@ def phase_parallel(dev, report, times, bounds, launches) -> dict:
             f"gather path, {PAR_GATHER_STEPS} steps, {PAR_RANKS} ranks vs "
             "one device's unfused step", _by_identity(g)[0],
             want[PAR_GATHER_STEPS], shuf[PAR_GATHER_STEPS], PAR_GATHER_TOLS)
+        rgrad = torch.load(out / "grad.pt")
+        per_rank = rgrad["params"]
+        if not bool((per_rank == per_rank[0]).all()):
+            raise AssertionError(f"ranks' override gradients differ: "
+                                 f"{per_rank.tolist()}")
+        got = [t.to(dev) for t in (rgrad["value"].float(), per_rank[0, 0],
+                                   per_rank[0, 1], rgrad["vel"])]
+        print(f"gather path value-and-grad, {PAR_RANKS} ranks sharing the "
+              f"card ({PAR_GRAD_RANK_STEPS} steps, stim off before step "
+              f"{PAR_GRAD_STIM_OFF}; {rk[0]['grad_s']:.3f} s on rank 0, "
+              f"{roofline.card_line()}): "
+              f"loss {float(got[0]):.9g}, every rank's d/dK, d/dmu "
+              f"{per_rank.tolist()}", flush=True)
+        ggrad = hold_grad_to_one_device(
+            f"gather path value-and-grad, {PAR_RANKS} ranks sharing the card",
+            got, scp, PAR_GRAD_RANK_STEPS)
 
         # the halo path on x7
         x7 = T.build_scene("biceps_full", replicate=PAR_HALO_REPLICATE,
@@ -2277,6 +2518,8 @@ def phase_parallel(dev, report, times, bounds, launches) -> dict:
         one()
     one_ms = cuda_ms(one, PAR_TIMING_STEPS)
     nccl = nccl_world_one(dev, scp, x7)
+    with tempfile.TemporaryDirectory() as tmpd:
+        halo_tool = halo_tool_row(Path(tmpd))
 
     with tempfile.TemporaryDirectory() as tmpd:
         cli_runs = cli_par_runs(Path(tmpd))
@@ -2302,10 +2545,11 @@ def phase_parallel(dev, report, times, bounds, launches) -> dict:
             "one_device_ms_per_step": one_ms,
             "fused_protocol_wall_s": rk[0]["protocol"]["wall_s"],
             "fused_parity": worst, "gather_parity": gworst,
+            "gather_grad_ranks": {"wall_s": rk[0]["grad_s"], **ggrad},
             "halo_parity": herr, "halo_caps": caps, "migrated": migrated,
             "halo_kernel_ms": {k: v for k, v in halo_k.items()
                                if k.endswith("_ms")},
-            "nccl_world1": nccl,
+            "nccl_world1": nccl, "halo_tool": halo_tool,
             "cli_wall_s": {k: v[0] for k, v in cli_runs.items()},
             "phase_s": phase_s}
 
@@ -2845,7 +3089,7 @@ def phase_grad(dev, scene) -> dict:
     th0 = fit.theta_of(*fit.THETA0, dev)
     out = {}
     for label, fused, steps, snaps in (
-            ("flagship_fused", True, FLAG_STEPS, FLAG_SNAPS),
+            ("flagship_fused", True, FLAG_VG_STEPS, FLAG_SNAPS),
             ("flagship_unfused", False, FLAG_UNFUSED_STEPS,
              FLAG_UNFUSED_SNAPS)):
         scan.clear_cache()
@@ -3740,8 +3984,9 @@ def main() -> int:
     print(f"phase 29 took {cli_out['phase_s']:.3f} s", flush=True)
     phase(f"30 multi-device: K1 / K2 on slabs of rows, the fused slab, "
           f"gather and halo paths with {PAR_RANKS} ranks on the card, the "
-          "three simulates graphed over NCCL at world size 1, the command "
-          "line with --devices")
+          "three simulates graphed over NCCL at world size 1, the gather "
+          "path's value-and-grad, the halo pricing tool, the command line "
+          "with --devices")
     par = phase_parallel(dev, report, times, bounds, launches)
     phase("31 graph: the compiled run loop (captured CUDA graphs) against "
           "eager runs; launch counts from replays; timing and idle share")

@@ -51,7 +51,11 @@ over NCCL: a captured step holds its collectives, so every rank must make
 the same captures in the same order (their keys name the rank). The
 default "global" capture mode holds: ProcessGroupNCCL's watchdog thread,
 which queries the events of finished collectives, does not end a capture
-(chip_smoke.py's NCCL capture probe).
+(chip_smoke.py's NCCL capture probe). Under autograd the all-gather
+path's backward step holds the recompute's collectives and their VJPs'
+(parallel/comm.py), captured on autograd's device thread like any other
+backward step; every rank's autograd engine runs the same graph in the
+same order, so the ranks issue the same collectives in the same order.
 
 `donate=True` makes the input state's own tensors the graph's buffers:
 the result is written into them and returned, and the input is dead after
@@ -286,6 +290,15 @@ def run_steps_eager(step, state, num_steps: int, *, key=None, operands=(),
         _assign(state, cur)
         cur = state
     return cur, overflow, frames
+
+
+def run_steps_uncaptured(step, state, num_steps: int, **kw):
+    """`run_steps` with nothing captured, as inside `eager()`: the blocks
+    eagerly, and under autograd the checkpointed adjoint scan with its
+    forward and backward steps eager (one carry a step). For steps whose
+    collectives copy through host memory, which no capture can hold."""
+    with eager():
+        return run_steps(step, state, num_steps, **kw)
 
 
 def _check_donated(state, donate: bool) -> None:

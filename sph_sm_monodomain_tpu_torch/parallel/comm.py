@@ -13,9 +13,18 @@ by the callers, and never switched after a failure:
                host memory, runs gloo on the host copy, and copies the
                result back to the rank's card.
 
-The collectives write into fresh tensors through `torch.distributed` and
-have no VJP, so a multi-device step refuses autograd (`refuse_grad`) rather
-than return a gradient that lacks every path through another rank's rows.
+`all_gather` and `all_sum` are differentiable on every transport (the
+transpose rules `shard_map` applies to `all_gather` and `psum`): the VJP
+of all_gather gives rank r the sum over the ranks of their cotangents'
+rows [r n, (r + 1) n) (a reduce-scatter), the VJP of all_sum is an all_sum
+of the cotangent. `replicated(x)` is the identity whose VJP all_sums the
+cotangent: a replicated operand (the physics overrides) passes through it
+once a call, so that each rank's gradient of its own rows' share of a
+loss is the gradient of the loss summed over the ranks, what `jax.grad`
+of a loss over the gathered output of a `shard_map` gives for a `P()`
+input. Integer tensors stay outside autograd, and `shift` has no VJP: the
+halo path that uses it refuses autograd (`refuse_grad`), as the JAX
+package's does not differentiate it either.
 
 `spawn(fn, world)` starts `world` ranks of `fn(comm, *args)` on this host
 (the command line's `--devices N`); `init_from_env` joins the ranks a
@@ -88,7 +97,28 @@ class Comm:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' `x` concatenated along dim 0 in rank order
-        (`all_gather(x, "p", tiled=True)`)."""
+        (`all_gather(x, "p", tiled=True)`); differentiable for a float
+        `x` (its VJP a reduce-scatter of the cotangent)."""
+        if x.is_floating_point():
+            return _AllGather.apply(self, x)
+        return self._gather(x)
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of the ranks' `x` (`psum(x, "p")`);
+        differentiable for a float `x` (its VJP an all_sum of the
+        cotangent)."""
+        if x.is_floating_point():
+            return _AllSum.apply(self, x)
+        return self._sum(x)
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`, an operand every rank holds alike, marked as such for
+        autograd: the identity, whose VJP all_sums the cotangent (the
+        transpose `shard_map` applies to a `P()` input), so the gradient
+        each rank reads for `x` is the one of the sum over the ranks."""
+        return _Replicated.apply(self, x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         w = self._wire(x)
         if self.transport == "nccl":
             out = w.new_empty((self.size * w.shape[0],) + tuple(w.shape[1:]))
@@ -99,11 +129,22 @@ class Comm:
         dist.all_gather(parts, w)
         return self._back(torch.cat(parts))
 
-    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The elementwise sum of the ranks' `x` (`psum(x, "p")`)."""
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
         w = self._wire(x).clone()
         dist.all_reduce(w, op=dist.ReduceOp.SUM)
         return self._back(w)
+
+    def _reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Rows [r n, (r + 1) n) of the sum over the ranks of `x` ((size
+        n, ...) on every rank), on rank r."""
+        w, n = x.contiguous(), x.shape[0] // self.size
+        if self.transport == "nccl":
+            out = w.new_empty((n,) + tuple(w.shape[1:]))
+            dist.reduce_scatter_tensor(out, w)
+            return out
+        # gloo: an all_reduce of the whole tensor, then this rank's rows
+        # (gloo's reduce-scatter is not in every build; all_reduce is)
+        return self._sum(w)[self.rank * n:(self.rank + 1) * n]
 
     def shift(self, x: torch.Tensor, direction: int) -> torch.Tensor:
         """Rank k's `x` arrives at rank k + direction (direction = +1 or
@@ -134,27 +175,69 @@ class Comm:
         dist.barrier()
 
 
+class _AllGather(torch.autograd.Function):
+    """Comm.all_gather with its VJP: a reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return comm._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._reduce_scatter(g)
+
+
+class _AllSum(torch.autograd.Function):
+    """Comm.all_sum with its VJP: an all_sum of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return comm._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._sum(g)
+
+
+class _Replicated(torch.autograd.Function):
+    """Comm.replicated: the identity, its VJP an all_sum of the
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._sum(g)
+
+
 def refuse_grad(what: str, state, params=None) -> None:
-    """Raise where autograd would differentiate through the collectives:
-    grad mode on and a tensor of `state` (a ParticleState) or of `params`
-    requiring grad. all_gather, all_sum and shift have no VJP here (their
-    results carry no autograd history), so the gradient would silently
-    lose every path through another rank's rows and through an earlier
-    step's gathered fields. Checked before any collective, alike on every
-    rank."""
+    """Raise where autograd would differentiate the fused slab or halo
+    path: grad mode on and a tensor of `state` (a ParticleState) or of
+    `params` requiring grad. Their sweeps (K1 / K2 on a slab of query
+    rows) and `shift` have no VJP here, and the JAX package does not
+    differentiate these paths either: `jax.grad` through its
+    make_sharded_simulate_fused or make_halo_simulate raises
+    NotImplementedError (pallas_call has no VJP inside shard_map).
+    Checked before any collective, alike on every rank."""
     if not torch.is_grad_enabled():
         return
     tensors = [getattr(state, f) for f in FIELD_NAMES]
     tensors += list((params or {}).values())
     if any(torch.is_tensor(t) and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what} is not differentiable: comm.all_gather, comm.all_sum "
-            "and comm.shift have no VJP (all_gather's would be a "
-            "reduce-scatter of the cotangent, all_sum's an all_sum, "
-            "shift's the opposite shift), so a gradient would lose every "
-            "path through another rank's rows. Differentiate the "
-            "single-device run (models.monodomain.simulate), or run under "
-            "torch.no_grad()")
+            f"{what} is not differentiable: its sweeps on a slab of query "
+            "rows and comm.shift have no VJP, and the JAX package does "
+            "not differentiate this path either (jax.grad through its "
+            "fused-slab and halo simulates raises NotImplementedError: "
+            "pallas_call has no VJP inside shard_map). Differentiate the "
+            "all-gather path (sharded_step.make_sharded_step / "
+            "make_sharded_simulate) or the single-device run "
+            "(models.monodomain.simulate), or run under torch.no_grad()")
 
 
 def current() -> Comm | None:

@@ -444,7 +444,8 @@ def make_halo_simulate(mesh: Comm, cfg: SimConfig, mig_cap: int,
     (main.cpp:329-334) through the transport's run loop
     (sharded_step.run_loop: graphed over NCCL); the rest-shape moments
     hoisted (their sums do not depend on which rank holds a row):
-    (state, params=None) -> (state, largest per-step overflow)."""
+    (state, params=None) -> (state, largest per-step overflow). Not
+    differentiable (comm.refuse_grad)."""
     return _simulate(
         lambda st, inv, prm: _halo_body(st, cfg, sub_q, mig_cap, halo_cap,
                                         mesh, inv, prm),

@@ -29,10 +29,26 @@ The simulates run their steps through models/scan.run_steps, the JAX
 package's jitted lax.scan inside shard_map: over NCCL, replays of one
 captured CUDA graph a step; on the CPU, the same steps eagerly; with
 gloo through host copies (ranks sharing a card), whose copies cannot be
-captured, scan.run_steps_eager (`run_loop`). The single-step makers stay
-eager: the JAX package's single jitted steps, and the reference the
-simulates are held to. Neither steps nor simulates are differentiable
-(comm.refuse_grad).
+captured, scan.run_steps_uncaptured (`run_loop`). The single-step makers
+stay eager: the JAX package's single jitted steps, and the reference the
+simulates are held to.
+
+The all-gather path is differentiable, as the JAX package's
+`jax.value_and_grad` through its make_sharded_simulate(...,
+dynamic_params=True) is: its collectives carry their VJPs
+(parallel/comm.py), the physics overrides pass through
+`comm.replicated` once a call, and the simulate under autograd is the
+checkpointed adjoint scan of models/scan.py (its backward step graphed
+over NCCL, eager on the CPU and through host copies). The contract: the
+loss is a sum over the ranks of each rank's share (e.g. a sum over its
+own rows of the output); each rank calls torch.autograd on its own share
+and reads
+  - for a physics override: the gradient of the whole loss, the same on
+    every rank;
+  - for a sharded field of the input state: the gradient of the whole
+    loss at the rank's own rows.
+The fused slab path refuses autograd (comm.refuse_grad), as the JAX
+package's does not differentiate it.
 """
 
 from __future__ import annotations
@@ -41,7 +57,7 @@ import torch
 
 from ..config import SimConfig, resolve_params
 from ..models.monodomain import StepAux
-from ..models.scan import run_steps, run_steps_eager
+from ..models.scan import run_steps, run_steps_uncaptured
 from ..state import FIELD_NAMES, ParticleState
 from ..ops.electrophysiology import fhn_cell_model, turn_off_stim
 from ..ops.fused_step import (apply_out_fused, build_dynp, feats_a_from_fs,
@@ -163,19 +179,34 @@ def run_loop(mesh: Comm):
     """(run, how): the run loop of the multi-device simulates on `mesh`'s
     transport, fixed by the transport and never switched after a failure,
     and a line saying how it runs. NCCL: models/scan.run_steps, graphed
-    (a capture or replay that fails raises); gloo over CPU tensors:
-    run_steps, whose blocks run eagerly on the CPU; gloo through host
-    copies: scan.run_steps_eager (a copy to the host cannot be
-    captured)."""
+    (a capture or replay that fails raises), its gradient the graphed
+    adjoint scan; gloo over CPU tensors: run_steps, whose blocks and
+    adjoint run eagerly on the CPU; gloo through host copies:
+    scan.run_steps_uncaptured (a copy to the host cannot be captured),
+    its gradient the eager adjoint scan."""
     if mesh.transport == "gloo-host":
-        return run_steps_eager, "eager (gloo through host copies)"
+        return (run_steps_uncaptured, "eager (gloo through host copies), "
+                "gradients through the eager adjoint scan")
     if mesh.transport == "nccl":
-        return run_steps, "graphed (captured CUDA graphs over NCCL)"
-    return run_steps, "eager (gloo over CPU tensors)"
+        return run_steps, ("graphed (captured CUDA graphs over NCCL), "
+                           "gradients through the graphed adjoint scan")
+    return run_steps, ("eager (gloo over CPU tensors), gradients through "
+                       "the eager adjoint scan")
+
+
+def _replicated(mesh: Comm, params):
+    """The physics overrides (a dict, or None) with every tensor that
+    requires grad passed through comm.replicated under grad mode: the
+    transpose of a replicated input (module docstring)."""
+    if not params or not torch.is_grad_enabled():
+        return params
+    return {k: mesh.replicated(v) if torch.is_tensor(v) and v.requires_grad
+            else v for k, v in params.items()}
 
 
 def _simulate(body, key: tuple, mesh: Comm, cfg: SimConfig,
-              num_steps: int, stim_off_step: int):
+              num_steps: int, stim_off_step: int,
+              differentiable: bool = False):
     """N steps of body(state, sm_inv, params) -> (state, overflow) through
     the transport's run loop, with the reference stim-off protocol
     (main.cpp:329-334) and the rest-shape moments hoisted (the halo body
@@ -187,7 +218,9 @@ def _simulate(body, key: tuple, mesh: Comm, cfg: SimConfig,
     and every rank makes the same captures in the same order. The number
     of steps stays out of it: a run in chunks replays the first chunk's
     capture. Nothing is donated (the JAX package's sharded scans donate
-    nothing)."""
+    nothing). `differentiable`: under autograd the run is the adjoint
+    scan, the overrides replicated (_replicated); else it refuses
+    autograd (comm.refuse_grad)."""
     run = run_loop(mesh)[0]
     key = key + (mesh.rank, mesh.size, mesh.transport)
 
@@ -196,7 +229,10 @@ def _simulate(body, key: tuple, mesh: Comm, cfg: SimConfig,
         return st, StepAux(overflow=overflow)
 
     def impl(state, params=None):
-        refuse_grad(f"the multi-device run {key[0]!r}", state, params)
+        if differentiable:
+            params = _replicated(mesh, params)
+        else:
+            refuse_grad(f"the multi-device run {key[0]!r}", state, params)
         ensure_fp32()
         sm_inv = sm_invariants(state, cfg, comm=mesh)
         state, overflow, _ = run(
@@ -209,14 +245,14 @@ def _simulate(body, key: tuple, mesh: Comm, cfg: SimConfig,
 
 def make_sharded_step(mesh: Comm, cfg: SimConfig, neighbor_capacity: int):
     """The unfused multi-device step: (state, params=None) -> (state,
-    overflow), state from shard_state; eager. The sorted window table has
-    no per-cell buckets, so the JAX package's `cell_capacity` has no
-    counterpart (as in the port's unfused step)."""
+    overflow), state from shard_state; eager, and differentiable under
+    eager autograd (the module docstring's contract). The sorted window
+    table has no per-cell buckets, so the JAX package's `cell_capacity`
+    has no counterpart (as in the port's unfused step)."""
     def impl(state, params=None):
-        refuse_grad("the multi-device step 'sharded_gather'", state, params)
         ensure_fp32()
         return _sharded_step_body(state, cfg, neighbor_capacity, mesh,
-                                  params=params)
+                                  params=_replicated(mesh, params))
     return impl
 
 
@@ -225,12 +261,18 @@ def make_sharded_simulate(mesh: Comm, cfg: SimConfig,
                           stim_off_step: int = -1):
     """N unfused multi-device steps with the stim-off protocol through the
     transport's run loop (run_loop): (state, params=None) -> (state,
-    largest per-step overflow)."""
+    largest per-step overflow). Under autograd (an override or a field of
+    the state requiring grad) the checkpointed adjoint scan, graphed over
+    NCCL: each rank's gradient of its rows' share of a loss gives the
+    overrides' gradient of the loss summed over the ranks and the state's
+    at the rank's rows (the module docstring's contract), as
+    jax.value_and_grad through the JAX package's make_sharded_simulate(...,
+    dynamic_params=True) gives them."""
     return _simulate(
         lambda st, inv, prm: _sharded_step_body(
             st, cfg, neighbor_capacity, mesh, sm_inv=inv, params=prm),
         ("sharded_gather", cfg, neighbor_capacity), mesh, cfg, num_steps,
-        stim_off_step)
+        stim_off_step, differentiable=True)
 
 
 def _sharded_fused_body(state: ParticleState, cfg: SimConfig, sub_q: int,
@@ -285,7 +327,7 @@ def make_sharded_step_fused(mesh: Comm, cfg: SimConfig, sub_q: int = 128):
     """The fused multi-device step, eager: (state, params=None) -> (state,
     0). The capacity must be a multiple of ranks x sub_q, so each rank owns
     whole sub-blocks of sorted rows (the JAX package's q_block
-    contract)."""
+    contract). Refuses autograd (comm.refuse_grad)."""
     def impl(state, params=None):
         refuse_grad("the multi-device step 'sharded_fused'", state, params)
         ensure_fp32()
@@ -297,7 +339,8 @@ def make_sharded_simulate_fused(mesh: Comm, cfg: SimConfig, num_steps: int,
                                 stim_off_step: int = -1, sub_q: int = 128):
     """N fused multi-device steps with the stim-off protocol through the
     transport's run loop (run_loop; the command line's `--devices N
-    --parallel fused`): (state, params=None) -> (state, 0)."""
+    --parallel fused`): (state, params=None) -> (state, 0). Refuses
+    autograd (comm.refuse_grad)."""
     return _simulate(
         lambda st, inv, prm: _sharded_fused_body(st, cfg, sub_q, mesh,
                                                  sm_inv=inv, params=prm),

@@ -1398,3 +1398,107 @@ def test_fused_slab_at_nccl_world_one_matches_one_device(device,
         S.shard_state(st, nccl_world1))
     want = T.simulate(st, R.CFG, 3, sub_q=R.FUSED_SUB_Q)[0]
     _bits_equal(got, want)
+
+
+# --- the all-gather path's value-and-grad over NCCL at world size 1 ---------
+
+def _gather_grad_runs(comm, device):
+    """{"world1": run(), "one_device": run(st0=None)} -> [loss, its
+    gradients w.r.t. the overrides R.GRAD_PARAMS and the fields
+    R.GRAD_FIELDS] of tests/torch_parallel_ranks.py's value-and-grad case
+    on the card: make_sharded_simulate at world size 1 (the adjoint scan,
+    graphed over NCCL) and the one-device simulate(fused=False)."""
+    import torch_parallel_ranks as R
+    from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
+    base = R.grad_state().to(device)
+    w = R.grad_weights(base.capacity).to(device)
+    sim = S.make_sharded_simulate(comm, R.CFG, R.NBR, R.GRAD_STEPS,
+                                  R.GRAD_STIM_OFF)
+
+    def value_and_grad(run, st0):
+        st, leaves, params = R.grad_inputs(st0)
+        params = {k: v.to(device).detach().requires_grad_()
+                  for k, v in params.items()}
+        out = run(st, params)
+        val = (out.pos * w).sum()
+        return [val.detach(), *torch.autograd.grad(
+            val, list(params.values()) + list(leaves.values()))]
+
+    def world1():
+        return value_and_grad(
+            lambda st, p: sim(S.shard_state(st, comm), p)[0], base)
+
+    def one_device(st0=None):
+        return value_and_grad(lambda st, p: T.simulate(
+            st, R.CFG, R.GRAD_STEPS, R.GRAD_STIM_OFF, fused=False,
+            neighbor_capacity=R.NBR, params=p)[0],
+            base if st0 is None else st0)
+    return {"world1": world1, "one_device": one_device}
+
+
+def test_gather_value_and_grad_graphed_matches_eager_on_card(device,
+                                                             nccl_world1):
+    """The all-gather simulate's value-and-grad over NCCL at world size 1:
+    the first call captures the forward step and the backward step (its
+    recompute's all_gathers and all_sums and their VJPs' collectives), the
+    second captures nothing and replays both; both equal the same call
+    under scan.eager() bit for bit where two eager runs agree (else
+    within twice their spread, as test_graphed_adjoint_matches_eager_on_
+    card holds the one-device adjoint). comm.shutdown drops the
+    captures, the backward step's among them."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.models import scan
+    run = _gather_grad_runs(nccl_world1, device)["world1"]
+    scan.clear_cache()
+    seen = []
+    real = scan._capture
+
+    def counting(body, pool):
+        seen.append(body)
+        return real(body, pool)
+    with mock.patch.object(scan, "_capture", counting):
+        graphed = [run()]
+        assert len(seen) == 2
+        graphed.append(run())
+    assert len(seen) == 2
+    with scan.eager():
+        eager = [run(), run()]
+        if any(not torch.equal(a, b) for a, b in zip(*eager)):
+            eager += [run(), run()]
+    for xs, *gs in zip(zip(*eager), *graphed):
+        assert torch.isfinite(xs[0]).all()
+        spread = max(float((a - b).abs().max()) for a in xs for b in xs)
+        center = xs[0] + torch.stack([x - xs[0] for x in xs]).mean(0)
+        for g in gs:
+            assert float((g - center).abs().max()) <= 2 * spread, (g, xs)
+    # leaving the group drops every capture, the backward steps' too (a
+    # graph holds the group's communicator)
+    from sph_sm_monodomain_tpu_torch.parallel import comm as C
+    assert any(k[0] == "backward" for k in scan._captures)
+    C.shutdown()
+    assert not scan._captures
+
+
+def test_gather_value_and_grad_at_nccl_world_one_matches_one_device(
+        device, nccl_world1):
+    """The same value-and-grad, graphed at world size 1, against the
+    one-device unfused adjoint: bit for bit where it is, else the value
+    within 1e-5 and each gradient within max(1e-4, 2 x the one-device
+    gradient's change under a one-ulp move of every live position) of its
+    largest magnitude (the CPU tests' rule, with the port's own spread in
+    place of JAX's)."""
+    import torch_parallel_ranks as R
+    runs = _gather_grad_runs(nccl_world1, device)
+    got, want = runs["world1"](), runs["one_device"]()
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return
+    base = R.grad_state().to(device)
+    bumped = base.replace(pos=torch.where(
+        base.active[:, None], torch.nextafter(
+            base.pos, torch.full_like(base.pos, float("inf"))), base.pos))
+    other = runs["one_device"](bumped)
+    for i, (a, b, c) in enumerate(zip(got, want, other)):
+        scale = float(b.abs().max())
+        spread = float((c - b).abs().max()) / scale
+        tol = max(1e-5 if i == 0 else 1e-4, 2.0 * spread) * scale
+        assert float((a - b).abs().max()) <= tol, (i, a, b, spread)

@@ -22,8 +22,13 @@ compare them:
   - the run loop: each simulate through models/scan.run_steps against the
     step loop it replaced, bit for bit (stim-off inside the run, physics
     overrides, the overflow, a run in two chunks); the capture keys of
-    the three paths and of the ranks distinct; every multi-device step
-    and simulate refusing autograd.
+    the three paths and of the ranks distinct;
+  - the all-gather path's value-and-grad (the checkpointed adjoint scan
+    over the differentiable collectives) against jax.value_and_grad
+    through the JAX package's make_sharded_simulate(...,
+    dynamic_params=True) and against the port's one-device adjoint; the
+    step under eager autograd; each collective's VJP against its formula
+    in float64; the fused slab and halo paths refusing autograd.
 Cheap parity with the JAX functions needs no ranks: slab_bounds, the halo
 layout and its capacities, _window_bounds3, the unshard round trip, and
 sweep_a3 / sweep_b3 on a slab of query rows in interpret mode. No JAX
@@ -58,6 +63,7 @@ from sph_sm_monodomain_tpu_torch.parallel import halo_step as H
 from sph_sm_monodomain_tpu_torch.parallel import sharded_step as S
 
 import torch_parallel_ranks as R
+from torch_parity import SPREAD_FACTOR, bump_pos
 
 WORLDS = (2, 4)
 RANK_TIMEOUT_S = 600
@@ -214,6 +220,86 @@ def jax_halo_uniform():
     for _ in range(steps):
         js, _ = j_fused(js, _jcfg(cfg), 128, 128, R.HALO_SUB_Q, impl="v4")
     return _state_fields(js)
+
+
+def _jax_grad_run(js0, mesh):
+    """jax.jit(jax.value_and_grad) of the loss sum(pos * w) after the JAX
+    package's make_sharded_simulate(..., dynamic_params=True) on `mesh`,
+    w.r.t. the overrides R.GRAD_PARAMS and the fields R.GRAD_FIELDS: a
+    function of a JAX state returning (value, [gradients])."""
+    sim = JS.make_sharded_simulate(mesh, J.SimConfig(), 32, R.NBR,
+                                   R.GRAD_STEPS, R.GRAD_STIM_OFF,
+                                   dynamic_params=True)
+    w = jnp.asarray(R.grad_weights(js0.capacity).numpy())
+
+    def loss(params, fields, js):
+        out, ovf = sim(js.replace(**fields), params)
+        return jnp.sum(out.pos * w), ovf
+    vg = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))
+
+    def run(js):
+        js = JS.shard_state(js, mesh)
+        params = {k: jnp.float32(R.OVERRIDES[k]) for k in R.GRAD_PARAMS}
+        fields = {f: getattr(js, f) for f in R.GRAD_FIELDS}
+        with jax.set_mesh(mesh):
+            (v, ovf), (gp, gf) = vg(params, fields, js)
+        assert int(ovf) == 0
+        return float(v), [np.asarray(gp[k]) for k in R.GRAD_PARAMS] + [
+            np.asarray(gf[f]) for f in R.GRAD_FIELDS]
+    return run
+
+
+def _rel_change(a, b) -> float:
+    """|a - b| relative to max |a| (a scalar or a field)."""
+    return float(np.abs(np.asarray(b) - np.asarray(a)).max()
+                 / np.abs(np.asarray(a)).max())
+
+
+@pytest.fixture(scope="module")
+def jax_grad():
+    """JAX's value-and-grad of the all-gather simulate on CPU meshes of 2
+    and 4 devices (R.grad_state), and JAX's own spread: the largest
+    relative change of the value and of each gradient when every live
+    row's position moves one float32 ulp toward +inf or toward -inf, or
+    when the mesh has the other size (the ranks' sums in another order):
+    ({D: (value, [gradients])}, spreads). mu_viscosity's gradient, a
+    small sum of cancelling terms, moves 1.2e-4 under the bump at D = 2
+    (5e-5 at D = 4)."""
+    js0 = _jax_state(R.grad_state())
+    runs, spreads = {}, []
+    for d in WORLDS:
+        run = _jax_grad_run(js0, JS.make_mesh(jax.devices()[:d]))
+        runs[d] = run(js0)
+        for toward in (np.inf, -np.inf):
+            spreads.append((runs[d], run(bump_pos(js0, toward))))
+    spreads.append((runs[WORLDS[0]], runs[WORLDS[1]]))
+    spread = [max(_rel_change(a[0], b[0]) for a, b in spreads)]
+    for i in range(len(runs[WORLDS[0]][1])):
+        spread.append(max(_rel_change(a[1][i], b[1][i]) for a, b in spreads))
+    return runs, spread
+
+
+@pytest.fixture(scope="module")
+def single_grad():
+    """The port's one-device value-and-grad of the same loss: simulate
+    (fused=False, the adjoint scan) and the step loop under autograd
+    (R.GRAD_STEP_STEPS steps): {"sim" | "step": (value, [gradients])}."""
+    st0, w = R.grad_state(), R.grad_weights(512)
+    out = {}
+    for case in ("sim", "step"):
+        st, leaves, params = R.grad_inputs(st0)
+        if case == "sim":
+            st, _ = T.simulate(st, R.CFG, R.GRAD_STEPS, R.GRAD_STIM_OFF,
+                               fused=False, neighbor_capacity=R.NBR,
+                               params=params)
+        else:
+            for _ in range(R.GRAD_STEP_STEPS):
+                st, _ = T.step(st, R.CFG, R.NBR, params=params)
+        loss = (st.pos * w).sum()
+        g = torch.autograd.grad(loss, list(params.values())
+                                + list(leaves.values()))
+        out[case] = (float(loss.detach()), [x.numpy() for x in g])
+    return out
 
 
 def test_references(single, jax_gather, jax_fused, jax_halo_uniform):
@@ -472,24 +558,128 @@ def test_capture_keys_name_the_path_and_the_rank(world):
     assert len(set(keys[:, ::3].reshape(-1))) == d * n
 
 
-def test_multi_device_runs_refuse_autograd(world):
-    """Every multi-device step and simulate raises, naming the missing VJPs
-    of the collectives, when an override or the state requires grad; under
-    torch.no_grad() the same call runs."""
+# --- the all-gather path under autograd ----------------------------------
+
+VALUE_RTOL, GRAD_RTOL = 1e-5, 1e-4
+# the float64 collectives' VJPs against their formulas (sums in another
+# order)
+VJP_TOL = 1e-12
+
+
+def _ranks_grad(res, prefix):
+    """(value, [override gradients], [field gradients]) of a rank case,
+    after asserting that every rank holds the same override gradients."""
+    got = _res(res, prefix)
+    per_rank = got["params"]
+    assert (per_rank == per_rank[0]).all(), per_rank
+    return (float(got["value"]), list(per_rank[0]),
+            [got[f] for f in R.GRAD_FIELDS])
+
+
+def _hold_grads(what, got, want, spread):
+    """The value within max(VALUE_RTOL, SPREAD_FACTOR x JAX's spread); each
+    override's gradient and each field's, row for row, within
+    max(GRAD_RTOL, SPREAD_FACTOR x its spread) of the largest |want|
+    (tests/test_torch_grad_scan.py's widening)."""
+    value, grads = got[0], got[1] + got[2]
+    np.testing.assert_allclose(value, want[0], rtol=max(
+        VALUE_RTOL, SPREAD_FACTOR * spread[0]), err_msg=f"{what}: value")
+    names = list(R.GRAD_PARAMS) + list(R.GRAD_FIELDS)
+    for name, a, b, sp in zip(names, grads, want[1], spread[1:]):
+        b = np.asarray(b)
+        assert np.isfinite(a).all() and np.abs(b).max() > 0, name
+        tol = max(GRAD_RTOL, SPREAD_FACTOR * sp) * np.abs(b).max()
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol,
+                                   err_msg=f"{what}: d/d{name}")
+
+
+def test_gather_value_and_grad_matches_jax(world, jax_grad):
+    """make_sharded_simulate under autograd (3 steps, the stim off before
+    step 1, k_stiffness and mu_viscosity and the initial vel, vm and
+    orig_pos requiring grad; each rank differentiates its rows' share of
+    sum(pos * w)) against jax.value_and_grad through the JAX package's
+    make_sharded_simulate(..., dynamic_params=True) on as many devices:
+    the loss, the overrides' gradients (the same on every rank) and the
+    fields' gradients row for row."""
+    d, res, _ = world
+    assert int(_res(res, "grad_sim")["overflow"]) == 0
+    runs, spread = jax_grad
+    _hold_grads(f"D={d} vs JAX on {d} devices",
+                _ranks_grad(res, "grad_sim"), runs[d], spread)
+
+
+def test_gather_value_and_grad_matches_one_device(world, jax_grad,
+                                                   single_grad):
+    """The same run against the port's one-device adjoint
+    (simulate(fused=False)), at the same tolerances."""
+    d, res, _ = world
+    _hold_grads(f"D={d} vs one device", _ranks_grad(res, "grad_sim"),
+                single_grad["sim"], jax_grad[1])
+
+
+def test_sharded_step_grad_matches_one_device(world, jax_grad, single_grad):
+    """make_sharded_step under eager autograd, R.GRAD_STEP_STEPS steps,
+    against the one-device step loop under autograd."""
+    d, res, _ = world
+    assert int(_res(res, "grad_step")["overflow"]) == 0
+    _hold_grads(f"D={d} step vs one device", _ranks_grad(res, "grad_step"),
+                single_grad["step"], jax_grad[1])
+
+
+def test_grad_runs_with_an_all_padding_rank(world):
+    """At D = 4 the last rank's 128 rows are all padding: it runs every
+    collective of the forward and backward passes with the others (the
+    run returned) and holds the same override gradients (_ranks_grad)."""
+    d, res, _ = world
+    last = int(_res(res, "grad_sim")["last_rank_active"])
+    assert (last == 0) == (d == 4), last
+    _, params, fields = _ranks_grad(res, "grad_sim")
+    assert np.isfinite(params).all() and all(np.isfinite(f).all()
+                                             for f in fields)
+
+
+def test_collective_vjps_match_their_formulas(world):
+    """all_gather's VJP is the reduce-scatter of the cotangents, all_sum's
+    and replicated's the all_sum, in float64, on gloo and on gloo through
+    host copies (columns: all_gather, all_sum, replicated; rows: ranks;
+    a result not in float64 adds 1)."""
     _, res, _ = world
-    np.testing.assert_array_equal(res["grad_raised"],
-                                  np.ones((len(R.GRAD_MAKERS), 2)))
+    for transport in ("gloo", "gloo-host"):
+        errs = res[f"vjp/{transport}"]
+        assert (errs <= VJP_TOL).all(), (transport, errs)
+
+
+def test_gloo_host_gradient_equals_gloo(world):
+    """The same value-and-grad through a Comm of the gloo-host transport
+    (host copies inside the collectives' Functions both ways; its run
+    loop scan.run_steps_uncaptured) equals the gloo run bit for bit."""
+    _, res, _ = world
+    assert int(res["grad_host/mismatch"]) == 0
+    assert str(res["grad_host/run_loop"]).startswith(
+        "eager (gloo through host copies), gradients through the eager "
+        "adjoint scan")
+
+
+def test_multi_device_runs_refuse_autograd(world):
+    """The fused slab and halo steps and simulates raise, naming the
+    missing VJPs and that the JAX package does not differentiate them
+    either, when an override or the state requires grad; the all-gather
+    step and simulate run; under torch.no_grad() the fused step runs."""
+    _, res, _ = world
+    want = np.array([[int(m in R.REFUSING)] * 2 for m in R.GRAD_MAKERS])
+    np.testing.assert_array_equal(res["grad_raised"], want)
     assert int(res["grad_no_grad_ran"]) == 1
 
 
 def test_run_loop_by_transport():
     """The simulates' run loop is fixed by the transport: NCCL graphed
     (run_steps), gloo over CPU tensors run_steps (eager on the CPU), gloo
-    through host copies run_steps_eager."""
+    through host copies run_steps_uncaptured (eager, its gradient the
+    eager adjoint scan)."""
     for transport, run, how in (
             ("nccl", scan.run_steps, "graphed"),
             ("gloo", scan.run_steps, "eager (gloo over CPU tensors)"),
-            ("gloo-host", scan.run_steps_eager,
+            ("gloo-host", scan.run_steps_uncaptured,
              "eager (gloo through host copies)")):
         got_run, got_how = S.run_loop(C.Comm(0, 2, transport, "cpu"))
         assert got_run is run and got_how.startswith(how)

@@ -10,7 +10,7 @@ the suite's parallel workers make each time noisy, so the JAX suite's
 [0.5, 1.5] x the step band is checked on the card (chip_smoke phase 29),
 not here."""
 
-import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -151,18 +151,30 @@ def test_profile_phases_fused_v5(susane):
         trep.profile_phases_fused(susane._replace(fused_impl="v3"), length=2)
 
 
-def test_iter_cost_and_auto_length_take_chain_differences():
+def test_iter_cost_and_auto_length_take_chain_differences(monkeypatch):
     """_iter_cost reads a body's own cost from two chain lengths, and
-    _auto_length sizes chains so the cheap body accumulates ~50 ms."""
-    def body(x):
-        time.sleep(0.004)
-        return x + 1.0
+    _auto_length sizes chains so the cheap body accumulates ~50 ms. The
+    CPU chains are timed with report's time.perf_counter, which a virtual
+    clock replaces here: each body call advances it by the body's cost (powers
+    of two, so every difference is exact), so the arithmetic is held
+    exactly whatever the host's load."""
+    clock = {"t": 1024.0}
+    monkeypatch.setattr(trep, "time",
+                        SimpleNamespace(perf_counter=lambda: clock["t"]))
+    t_cheap, t_full = 2.0 ** -8, 2.0 ** -5
 
+    def costing(cost):
+        def body(x):
+            clock["t"] += cost
+            return x + 1.0
+        return body
+
+    cheap, full = costing(t_cheap), costing(t_full)
     x = torch.zeros(4)
-    cost = trep._iter_cost(body, x)
-    assert 0.003 <= cost <= 0.02
-    n = trep._auto_length(body, body, x)
-    assert 4 <= n <= 17
+    assert trep._iter_cost(cheap, x) == t_cheap
+    assert trep._iter_cost(full, x) == t_full
+    n = trep._auto_length(cheap, full, x)
+    assert n == max(4, int(min(250, 0.05 / t_cheap, 3.0 / t_full))) == 12
 
 
 # --- the measuring tools (after tests/test_aux.py:271-406), on the CPU ------
@@ -302,3 +314,90 @@ def test_profile_ablate_and_footprint_tools(capsys):
         with pytest.raises(SystemExit) as e:
             hbm_footprint.main(["--scenes", SCENE_SMALL])
         assert "no CUDA GPU" in str(e.value.code)
+
+
+# --- the halo pricing tool (after tests/test_aux.py:213-248) ----------------
+
+def _halo_rows(path):
+    lines = [ln for ln in open(path) if ln.strip()]
+    return ([ln for ln in lines if ln.startswith("#")],
+            [ln for ln in lines if not ln.startswith("#")])
+
+
+def test_halo_gpu_row_is_the_jax_tools_row(tmp_path):
+    """append_halo_row writes the JAX tool's header and rows byte for byte
+    (only the comment above them differs: it names the tool and the
+    backend), and the rows meet tests/test_aux.py's invariants."""
+    from sph_sm_monodomain_tpu_torch.tools import halo_gpu
+    jtool = _jax_tool("halo_tpu")
+    assert halo_gpu.HALO_ROW_HEADER == jtool.HALO_ROW_HEADER
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    rows = (("halo_d1_x7", 129325, 1, 0.0924, 0.0211, 1.70, 20, 18.0),
+            ("halo_d1_x56", 1034600, 1, 0.642, 0.1857, 1.70, 10, 60.0))
+    for name, mod, backend in (("t.csv", halo_gpu, card),
+                               ("j.csv", jtool, card)):
+        for r in rows:
+            mod.append_halo_row(str(tmp_path / name), *r, backend)
+    (t_notes, t_rows), (_, j_rows) = (_halo_rows(tmp_path / n)
+                                      for n in ("t.csv", "j.csv"))
+    assert t_rows == j_rows
+    assert card in t_notes[0] and "halo_gpu.py" in t_notes[0]
+    _check_halo_rows(t_rows, jtool.HALO_ROW_HEADER)
+    assert all(ln.strip().split(";")[-1] == card for ln in t_rows[1:])
+    # the committed rows, measured on the card
+    from pathlib import Path
+    committed = Path(__file__).resolve().parents[1] / halo_gpu.DEFAULT_ROW
+    notes, rows = _halo_rows(committed)
+    _check_halo_rows(rows, jtool.HALO_ROW_HEADER)
+    assert all(ln.strip().endswith(" W") for ln in rows[1:])
+
+
+def _check_halo_rows(rows, header):
+    """tests/test_aux.py's invariants of a halo pricing file's rows."""
+    assert rows[0].strip() == header and len(rows) >= 2
+    for ln in rows[1:]:
+        c = ln.strip().split(";")
+        halo_s, v4_s, ratio = float(c[3]), float(c[4]), float(c[5])
+        assert c[0].startswith("halo_d") and int(c[1]) > 0 and int(c[2]) >= 1
+        assert halo_s > v4_s > 0
+        assert abs(ratio - halo_s / v4_s) < 1e-3 * ratio
+
+
+def test_halo_gpu_parses_the_jax_tools_arguments():
+    from sph_sm_monodomain_tpu_torch.tools.halo_gpu import DEFAULT_ROW, \
+        parse_args
+    assert parse_args([]) == {"replicate": 7, "length": 20, "check": False,
+                              "slack": 1.2, "row": None, "device": "cuda"}
+    # a bare --row takes no value: `--row 56` is replicate 56
+    got = parse_args(["--row", "56"])
+    assert (got["replicate"], got["row"]) == (56, DEFAULT_ROW)
+    got = parse_args(["7", "10", "--check", "--slack=1.5", "--row=x.csv",
+                      "--device", "cpu"])
+    assert got == {"replicate": 7, "length": 10, "check": True,
+                   "slack": 1.5, "row": "x.csv", "device": "cpu"}
+    assert DEFAULT_ROW == "results_gpu_halo.csv"
+
+
+def test_halo_gpu_check_at_world_one_on_cpu(monkeypatch, tmp_path):
+    """main(["--check", "--device", "cpu", ...]) at world size 1 (gloo) on
+    a small two-muscle scene in place of biceps_full xN: every particle
+    kept, the 3-step identity-matched check within its limits, the
+    timings and the row written."""
+    from sph_sm_monodomain_tpu_torch.tools import halo_gpu
+    monkeypatch.setattr(halo_gpu, "build_scene",
+                        lambda name, replicate=1, device="cuda":
+                        T.build_scene("susane", replicate=2, device=device))
+    row = tmp_path / "halo.csv"
+    out = halo_gpu.main(["2", "2", "--check", "--device", "cpu",
+                         f"--row={row}"])
+    assert out["particles"] == 2 * T.build_scene(
+        "susane", device="cpu").num_particles
+    assert set(out["check"]) == set(halo_gpu.CHECK_FIELDS)
+    for f, (err, floor, tol) in out["check"].items():
+        assert err < tol == max(4.0 * floor, 1e-5), f
+    assert out["halo_ms"] > 0 and out["v4_ms"] > 0
+    notes, rows = _halo_rows(row)
+    assert rows[-1].strip() == out["row"]
+    c = out["row"].split(";")
+    assert c[0] == "halo_d1_x2" and int(c[1]) == out["particles"]
+    assert c[-1] == "cpu" and "on cpu" in notes[0]

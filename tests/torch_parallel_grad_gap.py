@@ -1,15 +1,23 @@
-"""What the multi-device collectives' missing VJPs cost a gradient, and why
-every multi-device step and simulate raises under autograd
-(sph_sm_monodomain_tpu_torch.parallel.comm.refuse_grad).
+"""The multi-device gradient of the all-gather path against one device:
+d(loss)/dK through the differentiable collectives
+(sph_sm_monodomain_tpu_torch.parallel.comm: all_gather's VJP a
+reduce-scatter, all_sum's an all_sum), and the `replicated` contract.
 
-Two ranks on gloo over CPU tensors run the all-gather path's step body
-(sharded_step._sharded_step_body, which the step and simulate makers
-wrap) for 2 steps in the step loop the simulates ran before
-models/scan (torch_parallel_ranks.step_loop), with k_stiffness an override
-that requires grad; each rank differentiates its rows' share of the loss
-sum(pos * w) (w seeded), and the ranks' gradients are summed. One device
-runs the same steps (models.monodomain.simulate, unfused, the adjoint
-scan) and a central difference. Imports torch and the port only:
+Two ranks on gloo over CPU tensors run the all-gather path for 2 steps,
+with k_stiffness an override that requires grad; each rank
+differentiates its rows' share of the loss sum(pos * w) (w seeded):
+  - through the step body in a plain loop (torch_parallel_ranks.step_loop
+    over sharded_step._sharded_step_body, the override NOT passed through
+    comm.replicated): each rank's gradient is its share's part of
+    d(loss)/dK, and their sum over the ranks is the whole;
+  - through make_sharded_simulate (the checkpointed adjoint scan, the
+    override passed through comm.replicated once a call): each rank's
+    gradient is already the whole d(loss)/dK, the sum over the ranks of
+    the parts above.
+One device runs the same steps (models.monodomain.simulate, unfused, the
+adjoint scan) and a central difference. Before the collectives had VJPs
+the two ranks' summed gradient read 0.0441842 against one device's
+0.0820182. Imports torch and the port only:
 
     PYTHONPATH=.:tests python tests/torch_parallel_grad_gap.py
 """
@@ -42,13 +50,22 @@ def rank_main(comm):
                                                  sm_inv=inv, params=prm),
         S.shard_state(st, comm), R.CFG, STEPS, -1, comm,
         {"k_stiffness": k})
-    loss = (out.pos * w).sum()
-    g = torch.autograd.grad(loss, k)[0]
-    tot = comm.all_sum(torch.stack([loss.detach().double(),
-                                    g.detach().double()]))
+    share = (out.pos * w).sum()
+    part = torch.autograd.grad(share, k)[0]
+    k = torch.tensor(K0, requires_grad=True)
+    out, _ = S.make_sharded_simulate(comm, R.CFG, R.NBR, STEPS)(
+        S.shard_state(st, comm), {"k_stiffness": k})
+    whole = torch.autograd.grad((out.pos * w).sum(), k)[0]
+    with torch.no_grad():
+        loss = comm.all_sum(share.detach().double())
+        parts = comm.all_gather(part.detach().double()[None])
+        wholes = comm.all_gather(whole.detach().double()[None])
     if comm.rank == 0:
-        print(f"{comm.size} ranks (gloo): loss {float(tot[0]):.9g}, "
-              f"dloss/dK summed over the ranks {float(tot[1]):.9g}",
+        print(f"{comm.size} ranks (gloo): loss {float(loss):.9g}; the step "
+              "bodies, the override not replicated: each rank's part "
+              f"{parts.tolist()}, summed over the ranks "
+              f"{float(parts.sum()):.9g}; make_sharded_simulate, the "
+              f"override replicated: each rank's {wholes.tolist()}",
               flush=True)
 
 

@@ -47,10 +47,23 @@ BIG_WORLD = (30.0, 30.0, 30.0)
 LOOP_STEPS, LOOP_STIM_OFF, LOOP_SPLIT = 5, 3, 2
 LOOP_NBR, LOOP_HALO_CAP = 18, 8
 LOOP_PATHS = ("sharded_gather", "sharded_fused", "halo")
-# the makers that refuse autograd, in the order of the "grad" case
+# the multi-device makers, in the order of the refusal case; the four
+# of the fused slab and halo paths refuse autograd
 GRAD_MAKERS = ("make_sharded_step", "make_sharded_step_fused",
                "make_halo_step", "make_sharded_simulate",
                "make_sharded_simulate_fused", "make_halo_simulate")
+REFUSING = ("make_sharded_step_fused", "make_halo_step",
+            "make_sharded_simulate_fused", "make_halo_simulate")
+# the all-gather path's value-and-grad: steps, stim-off index and the
+# overrides that require grad of the simulate case; steps of the step
+# case; the initial fields that require grad (orig_pos: the hoisted
+# rest-shape invariants' path); the state (at D = 4 the last rank holds
+# rows 384-511, all padding)
+GRAD_STEPS, GRAD_STIM_OFF, GRAD_STEP_STEPS = 3, 1, 2
+GRAD_PARAMS = ("k_stiffness", "mu_viscosity")
+GRAD_FIELDS = ("vel", "vm", "orig_pos")
+# rows of each rank's input to the collectives' VJP case
+VJP_ROWS = 3
 
 
 def blob_state(n=300, n_fixed=7, pad_to=None, seed=0):
@@ -363,12 +376,133 @@ def _loop_cases(comm, res):
     res["loop_keys"] = np.asarray(every)
 
 
+def grad_state():
+    """The state of the all-gather path's value-and-grad cases: 300
+    particles padded to 512 rows (at D = 4 the last rank's rows are all
+    padding)."""
+    return blob_state(300, 0, pad_to=512, seed=10)
+
+
+def grad_weights(cap: int) -> torch.Tensor:
+    """The seeded weights w of the loss sum(pos * w)."""
+    return torch.from_numpy(np.random.default_rng(5).normal(
+        size=(cap, 3)).astype(np.float32))
+
+
+def grad_inputs(st, fields=GRAD_FIELDS):
+    """(state with `fields` requiring grad, their tensors, the overrides
+    GRAD_PARAMS requiring grad)."""
+    leaves = {f: getattr(st, f).detach().clone().requires_grad_()
+              for f in fields}
+    params = {k: torch.tensor(OVERRIDES[k], requires_grad=True)
+              for k in GRAD_PARAMS}
+    return st.replace(**leaves), leaves, params
+
+
+def _sharded_value_and_grad(comm, run, st0, w):
+    """This rank's share of loss = sum(pos * w) over its rows after
+    run(state, params), and torch.autograd.grad of that share w.r.t. the
+    overrides and the initial fields. Returns (loss summed over the ranks
+    in float64, the overrides' gradients on this rank, the fields'
+    gradients gathered in rank order, the largest overflow)."""
+    n_loc = st0.capacity // comm.size
+    w_loc = w[comm.rank * n_loc:(comm.rank + 1) * n_loc]
+    st, leaves, params = grad_inputs(S.shard_state(st0, comm))
+    out, ovf = run(st, params)
+    share = (out.pos * w_loc).sum()
+    grads = torch.autograd.grad(share, list(params.values())
+                                + list(leaves.values()))
+    with torch.no_grad():
+        value = comm.all_sum(share.detach().double())
+        fields = {f: comm.all_gather(g) for f, g in
+                  zip(leaves, grads[len(params):])}
+    return value, torch.stack(grads[:len(params)]), fields, int(ovf)
+
+
+def _vjp_cases(comm, res):
+    """Each collective's VJP in float64 on both gloo transports (gloo
+    through host copies runs on CPU tensors here too): rank r's input x_r
+    ((VJP_ROWS, 2), seeded by r) and cotangent c_r (seeded by r); the
+    largest |autograd's gradient - the formula| on any rank, where the
+    formula is sum_r' c_r'[r n:(r + 1) n] (all_gather), sum_r' c_r'
+    (all_sum, replicated)."""
+    d, r = comm.size, comm.rank
+
+    def seeded(k, rows):
+        return torch.from_numpy(np.random.default_rng(100 * k + rows)
+                                .normal(size=(rows, 2)))
+    n = VJP_ROWS
+    cots_g = [seeded(k, d * n) for k in range(d)]
+    cots_s = [seeded(k, n) for k in range(d)]
+    want = {"all_gather": sum(c[r * n:(r + 1) * n] for c in cots_g),
+            "all_sum": sum(cots_s), "replicated": sum(cots_s)}
+    for transport in ("gloo", "gloo-host"):
+        cm = C.Comm(r, d, transport, "cpu")
+        errs = []
+        for name, cot in (("all_gather", cots_g[r]), ("all_sum", cots_s[r]),
+                          ("replicated", cots_s[r])):
+            x = seeded(50 + r, n).requires_grad_()
+            y = getattr(cm, name)(x)
+            (g,) = torch.autograd.grad(y, x, cot)
+            errs.append(float((g - want[name]).abs().max())
+                        + float(g.dtype != torch.float64))
+        res[f"vjp/{transport}"] = comm.all_gather(
+            torch.tensor([errs], dtype=torch.float64)).numpy()
+
+
 def _grad_cases(comm, res):
-    """Every multi-device step and simulate called with a physics override
-    that requires grad, then with a state whose positions require grad:
-    1 where it raised naming the missing VJPs, before any collective (so
-    every rank raises alike); then once under torch.no_grad(), where the
-    fused step runs."""
+    """The all-gather path under autograd, then the refusal of the fused
+    slab and halo paths.
+
+    grad_sim: make_sharded_simulate (GRAD_STEPS steps, stim off before
+    GRAD_STIM_OFF) on grad_state, the overrides GRAD_PARAMS and the
+    fields GRAD_FIELDS requiring grad: the loss, every rank's override
+    gradients, the fields' gradients, the overflow, the last rank's
+    active rows. grad_host: the same run through a Comm of the gloo-host
+    transport (its run loop scan.run_steps_uncaptured): fields of
+    (value, gradients) whose bits differ from grad_sim's, summed over the
+    ranks. grad_step: make_sharded_step, GRAD_STEP_STEPS steps under eager
+    autograd, the same loss and inputs.
+
+    grad_raised: every multi-device maker called with an override that
+    requires grad, then with a state whose positions require grad: 1
+    where it raised naming the missing VJPs and the JAX package, before
+    any collective (so every rank raises alike), 0 where it ran; then the
+    fused step once under torch.no_grad(), where it runs."""
+    st0, w = grad_state(), grad_weights(512)
+    _vjp_cases(comm, res)
+
+    def sim_on(cm):
+        return S.make_sharded_simulate(cm, CFG, NBR, GRAD_STEPS,
+                                       GRAD_STIM_OFF)
+    value, pgrad, fgrad, ovf = _sharded_value_and_grad(
+        comm, sim_on(comm), st0, w)
+    n_loc = st0.capacity // comm.size
+    _put(res, "grad_sim", {
+        "value": value, "params": comm.all_gather(pgrad[None, :]),
+        **fgrad, "overflow": ovf,
+        "last_rank_active": int(st0.active[-n_loc:].sum())})
+    host = C.Comm(comm.rank, comm.size, "gloo-host", "cpu")
+    hv, hp, hf, _ = _sharded_value_and_grad(host, sim_on(host), st0, w)
+    bits = int(not torch.equal(hv, value)) + int(not torch.equal(hp, pgrad))
+    bits += sum(int(not torch.equal(hf[f], fgrad[f])) for f in fgrad)
+    res["grad_host/mismatch"] = np.asarray(int(comm.all_sum(
+        torch.tensor(bits))))
+    res["grad_host/run_loop"] = np.asarray(S.run_loop(host)[1])
+
+    step = S.make_sharded_step(comm, CFG, NBR)
+
+    def steps(st, params):
+        ovf = 0
+        for _ in range(GRAD_STEP_STEPS):
+            st, o = step(st, params)
+            ovf = max(ovf, int(o))
+        return st, ovf
+    value, pgrad, fgrad, ovf = _sharded_value_and_grad(comm, steps, st0, w)
+    _put(res, "grad_step", {
+        "value": value, "params": comm.all_gather(pgrad[None, :]),
+        **fgrad, "overflow": ovf})
+
     st = S.shard_state(blob_state(300, 0, pad_to=512, seed=10), comm)
     halo_st, _, mig, halo = H.shard_state_halo(
         halo_cases()["uniform"][1], comm, CFG)
@@ -396,7 +530,8 @@ def _grad_cases(comm, res):
             try:
                 call()
             except RuntimeError as e:
-                raised[i, j] = int("no VJP" in str(e))
+                raised[i, j] = int("no VJP" in str(e)
+                                   and "JAX package" in str(e))
     k = torch.tensor(OVERRIDES["k_stiffness"], requires_grad=True)
     with torch.no_grad():
         out, _ = makers["make_sharded_step_fused"][0]()(
