@@ -108,7 +108,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               rows, two launches bitwise equal) and their times (CUDA
               events); the independent-run oracle: after 3 steps tile 0 of
               x7 and x56 within 2e-4 of an x1 run, and every tile (minus
-              its x offset) within 2e-4 of tile 0
+              its x offset) within 2e-4 of tile 0, beside the x1 run's own
+              spread (its largest move when every live position starts
+              one float32 ulp up, or down)
  25. small    susane x2: 6 coupled and 6 SM-only steps, card against CPU
  26. sm-only  SM-only on x56, 100 steps, finite fields
  27. timing   ms/step of coupled x7, coupled x56 and SM-only x56 (best of
@@ -214,6 +216,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               under grad, unfused, 3 steps, graphed against eager; one
               gather's backward through the unfused table with its own
               indices and with ops/sph.gather_index's
+ 33. trajectory  the main path against the JAX package's trajectory of
+              full biceps_full committed in tests/data/
+              biceps_full_jax_trajectory.npz (tools/trajectory_parity.py):
+              the graphed run_protocol (K1 / K2, stim off before step 20)
+              from the scene as built and from a seeded vm field, runs of
+              1, 3 and 40 steps, exact K1 / K2 counts; each field's largest
+              difference over its tolerance (max(the JAX suite's one-step
+              tolerance, 2 x the larger of JAX's committed spreads under a
+              one-ulp move and under a row shuffle), dens relative;
+              inter_vm after step 1 row by row), printed with the ratio
+              against the one-ulp spread alone; none above 1
 
 Earlier phases run the same drivers, now graphed: their exact launch
 counts come from replays (models/scan.py corrects the counters), and
@@ -269,7 +282,9 @@ from sph_sm_monodomain_tpu_torch.ops.sweeps import (auto_sweep5_params,
                                                     sweep_bookkeeping5)
 from sph_sm_monodomain_tpu_torch.tools import (ablate_fused, bench_rows,
                                                hbm_footprint, profile_phases,
-                                               roofline, sm_precision, sweep)
+                                               roofline, sm_precision, sweep,
+                                               tile_drift,
+                                               trajectory_parity)
 from sph_sm_monodomain_tpu_torch.utils import render as render_mod
 from sph_sm_monodomain_tpu_torch.utils import report as report_mod
 from sph_sm_monodomain_tpu_torch.tools.roofline import (PEAK_BYTES,
@@ -1099,16 +1114,25 @@ def phase_multi_muscle(dev, scene, scenes) -> dict:
     ref = T.simulate(scene.state, scene.cfg, num_steps=ORACLE_STEPS)[0]
     r = scene.num_particles
     ref_pos = ref.pos[:r]
-    oracle = {}
+    # the x1 run's own spread: its largest move when every live position
+    # starts one float32 ulp up, or down
+    spread = max(float((T.simulate(tile_drift.bump_pos(scene.state, t),
+                                   scene.cfg, num_steps=ORACLE_STEPS)[0]
+                        .pos[:r] - ref_pos).abs().max())
+                 for t in (np.inf, -np.inf))
+    print(f"x1: after {ORACLE_STEPS} steps its own +-1-ulp spread is "
+          f"{spread:.4g}", flush=True)
+    oracle = {"x1_spread": spread}
     for k, sc in scenes.items():
         st = T.simulate(sc.state, sc.cfg, num_steps=ORACLE_STEPS)[0]
         tiles = st.pos[:k * r].reshape(k, r, 3) - tile_offsets(k, dev)
         d_ref = (tiles - ref_pos).abs().amax(dim=(1, 2)).tolist()
         d_t0 = (tiles - tiles[0]).abs().amax(dim=(1, 2)).tolist()
         print(f"x{k}: after {ORACLE_STEPS} steps tile 0 lies {d_ref[0]:.4g} "
-              f"from the x1 run, every tile at most {max(d_t0):.4g} from "
-              f"tile 0 (bound {ORACLE_TOL:g} each); per tile, from tile 0 "
-              f"{[round(v, 7) for v in d_t0]}, from the x1 run "
+              f"from the x1 run ({d_ref[0] / spread:.3g} x the x1 run's own "
+              f"spread {spread:.4g}), every tile at most {max(d_t0):.4g} "
+              f"from tile 0 (bound {ORACLE_TOL:g} each); per tile, from "
+              f"tile 0 {[round(v, 7) for v in d_t0]}, from the x1 run "
               f"{[round(v, 7) for v in d_ref]}", flush=True)
         if not (d_ref[0] <= ORACLE_TOL and max(d_t0) <= ORACLE_TOL):
             raise AssertionError(f"x{k}: tiles diverge from the x1 run")
@@ -3231,6 +3255,31 @@ def phase_grad(dev, scene) -> dict:
     return out
 
 
+# --- phase 33: the main path against the committed JAX trajectory ----------
+
+def phase_trajectory() -> None:
+    """Phase 33: tools/trajectory_parity.py on the card (the graphed
+    run_protocol from both starts, runs of LAP_STEP and STEPS steps) with
+    exact K1 / K2 counts; every field's ratio printed, none above 1."""
+    tp = trajectory_parity
+    want = len(tp.STARTS) * (tp.LAP_STEP + sum(tp.STEPS))
+    fst.sweep_a3.launches = 0
+    fst.sweep_b3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tp.check("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"sweep_a3": fst.sweep_a3.launches,
+                "sweep_b3": fst.sweep_b3.launches}
+    print(f"trajectory: {want} steps run in {wall:.3f} s wall, launches "
+          f"{launches}", flush=True)
+    if launches != {"sweep_a3": want, "sweep_b3": want}:
+        raise AssertionError(f"trajectory launches {launches}, want {want}")
+    if not tp.report(res) <= 1.0:
+        raise AssertionError("trajectory: the card left the JAX trajectory")
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -4000,6 +4049,12 @@ def main() -> int:
     grad = phase_grad(dev, scene)
     grad["phase_s"] = time.perf_counter() - t0
     print(f"phase 32 took {grad['phase_s']:.3f} s", flush=True)
+    phase("33 trajectory: the main path on biceps_full against the "
+          "committed JAX trajectory, from the scene as built and from a "
+          "seeded vm field")
+    t0 = time.perf_counter()
+    phase_trajectory()
+    print(f"phase 33 took {time.perf_counter() - t0:.3f} s", flush=True)
 
     library = {"sweep_lap3": spmv_ms}
     print(json.dumps({"kernels": [

@@ -305,10 +305,55 @@ def _window_mask(cfg: SimConfig, stencil: str, sweep_a: bool):
     raise ValueError(f"unknown stencil {stencil!r} (expected xyz3 / hash9)")
 
 
-def _terms_a(q, c, m, P: _Phys) -> torch.Tensor:
+def _row_sum(x, cols=None) -> torch.Tensor:
+    """x.sum(-1); with `cols` = (idx, runs, n_c, buf), x's (R, C) columns
+    are the candidates idx ((C,) int64, ascending; `runs` the (start, end)
+    column ranges they form, or None) alone and first go back to their
+    columns of an (R, n_c) zero tensor, so each pair term sits where the
+    dense sum over every candidate puts it and the sum adds in that order
+    (the other columns hold exactly the zeros the dense mask gives them).
+    buf is that zero tensor (at least R rows), reused: zeroed again at idx
+    after the sum; a new one where autograd records x."""
+    if cols is None:
+        return x.sum(-1)
+    idx, runs, n_c, buf = cols
+    if x.requires_grad:
+        return x.new_zeros(x.shape[:-1] + (n_c,)).index_copy(
+            -1, idx, x).sum(-1)
+    buf = buf[:x.shape[0]]
+    if runs is None:
+        out = buf.index_copy_(-1, idx, x).sum(-1)
+        buf.index_fill_(-1, idx, 0.0)
+        return out
+    k = 0
+    for a, b in runs:
+        buf[:, a:b] = x[:, k:k + b - a]
+        k += b - a
+    out = buf.sum(-1)
+    for a, b in runs:
+        buf[:, a:b] = 0.0
+    return out
+
+
+def _runs(idx: torch.Tensor, most: int = 32):
+    """The (start, end) ranges of consecutive values of the ascending
+    indices idx, or None if there are more than `most`."""
+    if idx.numel() == 0:
+        return []
+    cut = (idx[1:] - idx[:-1] != 1).nonzero()[:, 0]
+    if cut.numel() >= most:
+        return None
+    cut = cut.tolist()
+    ends = cut + [idx.numel() - 1]
+    starts = [0] + [e + 1 for e in cut]
+    return [(int(idx[s]), int(idx[e]) + 1) for s, e in zip(starts, ends)]
+
+
+def _terms_a(q, c, m, P: _Phys, cols=None) -> torch.Tensor:
     """(..., R, 4) [a_d, a_x, a_y, a_z]: Poly6 density and XSPH sums of
     query rows q (..., R, 16) over candidates c (..., 16, C) under the mask
-    m, in the reference's per-pair difference form (cpp:483, 688-695)."""
+    m, in the reference's per-pair difference form (cpp:483, 688-695);
+    `cols` as in _row_sum."""
     dx = _qcol(q, 0) - _crow(c, 0)
     dy = _qcol(q, 1) - _crow(c, 1)
     dz = _qcol(q, 2) - _crow(c, 2)
@@ -317,16 +362,16 @@ def _terms_a(q, c, m, P: _Phys) -> torch.Tensor:
     w6 = torch.where(m, P.poly6 * t * t * t, torch.zeros_like(t))
     wv = w6 * _crow(c, 6)                                # * vol_prev_j
     return torch.stack([
-        (w6 * _crow(c, 7)).sum(-1),
-        (wv * (_crow(c, 3) - _qcol(q, 3))).sum(-1),
-        (wv * (_crow(c, 4) - _qcol(q, 4))).sum(-1),
-        (wv * (_crow(c, 5) - _qcol(q, 5))).sum(-1)], dim=-1)
+        _row_sum(w6 * _crow(c, 7), cols),
+        _row_sum(wv * (_crow(c, 3) - _qcol(q, 3)), cols),
+        _row_sum(wv * (_crow(c, 4) - _qcol(q, 4)), cols),
+        _row_sum(wv * (_crow(c, 5) - _qcol(q, 5)), cols)], dim=-1)
 
 
-def _terms_b(q, c, m, P: _Phys, with_ep: bool) -> torch.Tensor:
+def _terms_b(q, c, m, P: _Phys, with_ep: bool, cols=None) -> torch.Tensor:
     """(..., R, 4) [a_ax, a_ay, a_az, a_lap]: Spiky pressure + viscosity
     and the B-spline-2 Vm Laplacian (cpp:546-563) under the mask m with the
-    r^2 > 1e-12 pair guard."""
+    r^2 > 1e-12 pair guard; `cols` as in _row_sum."""
     dx = _qcol(q, 0) - _crow(c, 0)
     dy = _qcol(q, 1) - _crow(c, 1)
     dz = _qcol(q, 2) - _crow(c, 2)
@@ -339,25 +384,72 @@ def _terms_b(q, c, m, P: _Phys, with_ep: bool) -> torch.Tensor:
     common = volm * (P.spiky * hr)
     f_p = common * (hr * (-0.5) * inv_rr) * (_qcol(q, 6) + _crow(c, 7))
     f_v = P.mu_viscosity * common
-    cols = [(f_v * (_crow(c, 3 + k) - _qcol(q, 3 + k)) - f_p * d).sum(-1)
+    sums = [_row_sum(f_v * (_crow(c, 3 + k) - _qcol(q, 3 + k)) - f_p * d,
+                     cols)
             for k, d in enumerate((dx, dy, dz))]
     if with_ep:
         qr = rr * P.inv_h
         w2 = P.bspline * (1.5 * torch.clamp(2.0 - qr, min=0.0)
                           - 6.0 * torch.clamp(1.0 - qr, min=0.0))
-        cols.append(((volm * w2) * (_crow(c, 8) - _qcol(q, 7))).sum(-1))
+        sums.append(_row_sum((volm * w2) * (_crow(c, 8) - _qcol(q, 7)),
+                             cols))
     else:
-        cols.append(torch.zeros_like(cols[0]))
-    return torch.stack(cols, dim=-1)
+        sums.append(torch.zeros_like(sums[0]))
+    return torch.stack(sums, dim=-1)
 
 
-def _dense_sums(qm, feats, mask, terms) -> torch.Tensor:
+def _dense_sums(qm, feats, mask, terms, band=None) -> torch.Tensor:
     """(N_q, 4) pair sums of every query row of qm (N_q, 16) over all
     candidates feats (16, N_c), in row chunks sized by the candidate count:
-    terms(q, feats, mask(q, feats))."""
+    terms(q, feats, mask(q, feats)). With `band` (`_cell_band` of the
+    stencil), each chunk's terms are taken on the candidates its mask can
+    pass alone, terms(q, c, mask(q, c), cols) with c = feats[:, idx], and
+    _row_sum puts them back in their columns (`cols` as there, one zero
+    buffer for every chunk): the same sums, added in the same order,
+    without evaluating the pairs that lie cells apart."""
     rows = _rows_per_chunk(feats.shape[1], qm.device)
-    return torch.cat([terms(q, feats, mask(q, feats))
-                      for q in qm.split(rows)])
+    if band is None:
+        return torch.cat([terms(q, feats, mask(q, feats))
+                          for q in qm.split(rows)])
+    n_c = feats.shape[1]
+    buf = feats.new_zeros((min(rows, qm.shape[0]), n_c))
+    out = []
+    for q in qm.split(rows):
+        idx = band(q, feats)
+        c = feats[:, idx]
+        out.append(terms(q, c, mask(q, c), (idx, _runs(idx), n_c, buf)))
+    return torch.cat(out)
+
+
+def _cell_band(cfg: SimConfig, stencil: str):
+    """band(q, feats) -> the (C,) int64 indices, ascending, of the live
+    candidates whose cell key (xyz3: cyz in column 13; hash9: the linear
+    hash in column 12) lies within 1 of [min, max] of the live query rows'
+    keys of q shifted by one of the stencil's key offsets (xyz3: 0 and
+    +-G_mid, its three slow-plane windows; hash9: the nine run offsets):
+    every candidate the stencil can pass for a row of q, and more.
+    The candidates need not be sorted."""
+    if stencil == "xyz3":
+        col, gm = 13, _g_mid(cfg)
+        offsets = (-gm, 0, gm)
+    elif stencil == "hash9":
+        gx, gy, _ = cfg.grid_size
+        col = 12
+        offsets = tuple(gx * (dy + gy * dz) for dy, dz in RUN_OFFSETS)
+    else:
+        raise ValueError(f"unknown stencil {stencil!r} (expected xyz3 / "
+                         "hash9)")
+
+    def band(q, feats):
+        keys = q[q[:, 12] >= 0.0, col]
+        if keys.numel() == 0:
+            return torch.zeros(0, dtype=torch.long, device=q.device)
+        kmin, kmax, key = keys.min(), keys.max(), feats[col]
+        ok = torch.zeros_like(key, dtype=torch.bool)
+        for d in offsets:
+            ok |= (key >= kmin + (d - 1.0)) & (key <= kmax + (d + 1.0))
+        return (ok & (feats[12] >= 0.0)).nonzero()[:, 0]
+    return band
 
 
 def _slab_sums(qm, slabs, terms) -> torch.Tensor:
@@ -382,7 +474,8 @@ def sweep_a3_plain(fs, feats_a, cfg: SimConfig, with_ep: bool = True,
     step's local rows against its merged candidates)."""
     P = _Phys(kernel_params(cfg, dynp, fs.device))
     s = _dense_sums(fs, feats_a, _window_mask(cfg, stencil, True),
-                    lambda q, c, m: _terms_a(q, c, m, P))
+                    lambda q, c, m, cols=None: _terms_a(q, c, m, P, cols),
+                    _cell_band(cfg, stencil))
     return _epi_a(cfg, s[:, 0], s[:, 1:4], fs, dynp, with_ep)
 
 
@@ -392,7 +485,9 @@ def sweep_b3_plain(out_a, feats_b, cfg: SimConfig, with_ep: bool = True,
     -> OUT_B (N_q,16), query rows as in sweep_a3_plain."""
     P = _Phys(kernel_params(cfg, dynp, out_a.device))
     s = _dense_sums(out_a, feats_b, _window_mask(cfg, stencil, False),
-                    lambda q, c, m: _terms_b(q, c, m, P, with_ep))
+                    lambda q, c, m, cols=None: _terms_b(q, c, m, P, with_ep,
+                                                        cols),
+                    _cell_band(cfg, stencil))
     return _epi_b(cfg, s[:, 0:3], s[:, 3], out_a, dynp, with_ep)
 
 

@@ -353,14 +353,19 @@ def _clustered_goal(state: ParticleState, cfg: SimConfig,
         Afpq = afpq.reshape(3, k, f).permute(1, 0, 2) \
             - cm[:, :, None] * mqf[:, None, :]             # (K, 3, f)
     elif form == "contig":
+        # torch.sum over each tile's rows, as the JAX package sums cm
+        # here: a batched product (bmm) over a tile's 18,475 rows rounds
+        # far worse on the card, and tile 0 of x56 then drifted 8x the x1
+        # run's own one-ulp spread from it in 3 steps (tools/tile_drift.py)
         nk = k * cfg.sm_tile_rows
 
         def r3(v):
             return v[:nk].reshape(k, cfg.sm_tile_rows, -1)
-        cm = (m_cm[:nk].reshape(k, 1, -1) @ r3(rel))[:, 0] \
+        cm = r3(m_cm[:, None] * rel).sum(1) \
             / sm_inv.mass_cm_sum[:, None]                  # (K, 3)
         qf_r = r3(qf)
-        Afpq = r3(relm).transpose(1, 2) @ qf_r \
+        outer = relm[:, :, None] * qf[:, None, :]          # (N, 3, f)
+        Afpq = r3(outer.reshape(n, 3 * f)).sum(1).reshape(k, 3, f) \
             - cm[:, :, None] * mqf[:, None, :]
     else:
         cid = cluster_ids(state.orig_pos, cfg)
