@@ -107,12 +107,17 @@ def fixed_slices_csrc(k: int) -> Path:
 def build_all(other: Path, slices) -> dict:
     """{label: bound library}: this build, the other, and the fixed-slice
     variants, compiled in parallel."""
-    jobs = {"this": (None, None), "other": (other, OUT_DIR / "other")}
-    jobs.update({k: (fixed_slices_csrc(k), OUT_DIR / f"slices{k}")
-                 for k in slices})
+    # the other tree's sources: its own .cu files (an older csrc/ may lack
+    # a newer one, whose entry points bind() then leaves unbound)
+    theirs = tuple(sorted(p.name for p in other.glob("*.cu")))
+    jobs = {"this": (None, None, cuda_lib.SOURCES),
+            "other": (other, OUT_DIR / "other", theirs)}
+    jobs.update({k: (fixed_slices_csrc(k), OUT_DIR / f"slices{k}",
+                     cuda_lib.SOURCES) for k in slices})
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = dict(zip(jobs, pool.map(
-            lambda j: cuda_lib.build(csrc=j[0], build_dir=j[1]),
+            lambda j: cuda_lib.build(csrc=j[0], build_dir=j[1],
+                                     sources=j[2]),
             jobs.values())))
     return {label: cuda_lib.bind(p) for label, p in paths.items()}
 

@@ -47,6 +47,7 @@ from ..ops.sph import (density_pressure, force_and_diffusion,
                        xsph_intermediate_velocity)
 from ..ops.sweeps import (sweep_bookkeeping2, sweep_bookkeeping3,
                           sweep_bookkeeping5)
+from ..utils import tracing
 from .scan import copy_state, run_steps
 
 
@@ -83,7 +84,12 @@ def step_fused(state: ParticleState, cfg: SimConfig, sub_q: int | None = None,
     that reach the kernels through the physics-constant vector
     (ops.fused_step.build_dynp). `sweeps` (v4 only): a (sweep_a, sweep_b)
     pair, each (qm, dynp, blk_lo, blk_hi) -> (N, 16), in place of the
-    production sweeps (step_fused_diff passes the differentiable ones)."""
+    production sweeps (step_fused_diff passes the differentiable ones).
+
+    While tracing is on (utils/tracing.py) the v4 step stamps the device
+    at its start and after each stage (tracing.STEP_STAMPS["v4"]):
+    bookkeeping, shape matching, the gathers of K1's inputs, K1, the
+    gathers of K2's, K2, and the apply (unsort)."""
     if (params or sweeps is not None) and impl != "v4":
         raise ValueError("dynamic params on the fused path require "
                          f"impl='v4'; impl={impl!r} bakes the constants")
@@ -107,22 +113,35 @@ def step_fused(state: ParticleState, cfg: SimConfig, sub_q: int | None = None,
     dynp = (build_dynp(cfg_eff, state.device)
             if params or sweeps is not None else None)
 
+    dev = state.device
+    tracing.stamp("off_step", dev)
     # the sort and windows are per-step geometry, outside autograd
     order, inv, blk_lo, blk_hi, cx, cyz = sweep_bookkeeping3(
         state.pos.detach(), state.active, cfg, sub_q)
+    tracing.stamp("bookkeeping", dev)
     # phase 2: shape matching (original order), with the effective config
     state = corrected_velocity(state, cfg_eff, sm_inv=sm_inv)
+    tracing.stamp("shape_matching", dev)
 
     fs, feats_a = build_qm_feats(state, cx, cyz, order)
+    tracing.stamp("gathers", dev)
     if sweeps is None:
         out_a = sweep_a3(fs, feats_a, blk_lo, blk_hi, cfg, sub_q=sub_q,
                          dynp=dynp)
-        out_b = sweep_b3(out_a, feats_b(out_a), blk_lo, blk_hi, cfg,
-                         sub_q=sub_q, dynp=dynp)
+        tracing.stamp("k1", dev)
+        fb = feats_b(out_a)
+        tracing.stamp("gathers", dev)
+        out_b = sweep_b3(out_a, fb, blk_lo, blk_hi, cfg, sub_q=sub_q,
+                         dynp=dynp)
+        del fb      # freed before the apply: it would raise the step's peak
     else:
         out_a = sweeps[0](fs, dynp, blk_lo, blk_hi)
+        tracing.stamp("k1", dev)
+        tracing.stamp("gathers", dev)   # K2's inputs are gathered inside
         out_b = sweeps[1](out_a, dynp, blk_lo, blk_hi)
+    tracing.stamp("k2", dev)
     state = apply_out_fused(state, out_a, out_b, inv)
+    tracing.stamp("apply", dev)
     return state, StepAux(overflow=_no_overflow(state))
 
 
@@ -238,7 +257,8 @@ def _simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
         raise ValueError("the unfused step needs neighbor_capacity > 0")
     ensure_fp32()
     # rest-shape SM moments are run constants: hoisted out of the loop
-    sm_inv = sm_invariants(state, cfg)
+    with tracing.span("simulate.sm_invariants"):
+        sm_inv = sm_invariants(state, cfg)
 
     def one(st, ops):
         inv, prm = ops
@@ -311,7 +331,20 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
 
     `callback(step_idx, state)` runs between chunks and may return
     {"stim_off": True} (turnOffStim now, key 'q') or {"stop": True} (end
-    the run, ESC). Returns (state, StepAux, traj|None)."""
+    the run, ESC). Returns (state, StepAux, traj|None).
+
+    Tracing (utils/tracing.py): a call is one unit, span `protocol.unit`,
+    with the spans `protocol.copy_state`, `protocol.chunk`,
+    `protocol.overflow_fetch` (the host sync a chunk) and
+    `protocol.callback`, and the counter `protocol.host_syncs`."""
+    with tracing.span("protocol.unit", unit=True):
+        return _run_protocol(scene, num_steps, stim_off_step, chunk,
+                             record_every, callback, fused, impl, params,
+                             unroll)
+
+
+def _run_protocol(scene, num_steps, stim_off_step, chunk, record_every,
+                  callback, fused, impl, params, unroll):
     fused = fused is not False
     state, cfg = scene.state, scene.cfg
     run_impl = impl or getattr(scene, "fused_impl", "v3")
@@ -322,8 +355,9 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
         chunk = max(record_every, chunk - chunk % record_every)
     donate = (fused and run_impl in ("v1", "v2", "v3", "v4")
               and state.device.type == "cuda")
-    if donate:
-        state = copy_state(state)
+    with tracing.span("protocol.copy_state", copied=donate):
+        if donate:
+            state = copy_state(state)
     if unroll is None:
         unroll = 4 if donate and state.capacity > VERY_LARGE_CAP else 1
     sim_fn = simulate_donated if donate else simulate
@@ -334,14 +368,17 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
     while done < num_steps:
         n = min(chunk, num_steps - done)
         off = stim_off_step - done if done <= stim_off_step < done + n else -1
-        out = sim_fn(state, cfg, num_steps=n, stim_off_step=off,
-                     record_every=record_every,
-                     sub_q=scene.sub_block or None, impl=run_impl,
-                     params=params, fused=fused,
-                     neighbor_capacity=scene.neighbor_capacity,
-                     pack_cap=getattr(scene, "pack_cap", 0),
-                     w_chunk=scene.block_window, unroll=unroll)
-        step_overflow = int(out[1].overflow)
+        with tracing.span("protocol.chunk", start=done, steps=n):
+            out = sim_fn(state, cfg, num_steps=n, stim_off_step=off,
+                         record_every=record_every,
+                         sub_q=scene.sub_block or None, impl=run_impl,
+                         params=params, fused=fused,
+                         neighbor_capacity=scene.neighbor_capacity,
+                         pack_cap=getattr(scene, "pack_cap", 0),
+                         w_chunk=scene.block_window, unroll=unroll)
+        with tracing.span("protocol.overflow_fetch"):
+            step_overflow = int(out[1].overflow)
+        tracing.count("protocol.host_syncs")
         if step_overflow and regrow < 3 and \
                 (not fused or run_impl in ("v5", "v5s")):
             # the table or the slabs truncated candidates (the cloud
@@ -361,7 +398,8 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
         max_overflow = max(max_overflow, step_overflow)
         done += n
         if callback is not None:
-            cmd = callback(done, state) or {}
+            with tracing.span("protocol.callback"):
+                cmd = callback(done, state) or {}
             if cmd.get("stim_off"):
                 state = turn_off_stim(state, cfg)
                 stim_off_step = -1  # already fired; don't re-fire later

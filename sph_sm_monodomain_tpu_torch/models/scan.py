@@ -67,7 +67,23 @@ replays without a copy; another state is captured anew. Without
 Launch counts: a replay launches kernels without running their wrappers,
 so the counters of ops/cuda_lib.launch_counters() are corrected: what a
 capture counted is taken off (nothing ran), and each replay adds what its
-capture counted.
+capture counted. The counters of utils/tracing.DEVICE_COUNTERS (bumped
+inside a step) take the same correction.
+
+Tracing (utils/tracing.py): while it is on, the run loop records the spans
+`scan.warmup` (the eager step 0 of a new capture), `scan.capture` (capture
+and instantiation of one block length; attribute: the steps it holds),
+`scan.replay` (the host's time in `graph.replay()`; `first` marks the
+first replay after a capture, which uploads the graph) and `scan.stim_off`,
+and the counters `scan.warmups`, `scan.replays`, `scan.captures` (graphs
+captured),`scan.captures.<why>` (why a key's
+buffers and graphs were made anew: `new_key`, `not_held` where a donated
+state is not the cached capture's buffers, `evicted` where the LRU dropped
+the key) and `scan.graph_kernels`: the kernel nodes of each captured
+graph, counted once from the graph itself (kept for that while tracing is
+on), stamps left out. Tracing's state is part of the capture key, so a
+graph captured with the step's device stamps is never replayed untraced,
+and the graphs captured untraced hold no stamps.
 """
 
 from __future__ import annotations
@@ -80,6 +96,7 @@ from torch.utils import _pytree as pytree
 
 from ..ops import cuda_lib
 from ..state import FIELD_NAMES, ParticleState
+from ..utils import tracing
 
 STIM_OFF, FRAME = "stim_off", "frame"
 # captures kept at once (the least recently used goes first); each holds
@@ -88,11 +105,13 @@ MAX_CAPTURES = 8
 
 _captures: OrderedDict = OrderedDict()
 _graphed = True     # False inside eager()
+_evicted: set = set()   # keys the LRU dropped while tracing was on
 
 
 def clear_cache() -> None:
     """Drop every cached capture, with its buffers and memory pool."""
     _captures.clear()
+    _evicted.clear()
 
 
 @contextmanager
@@ -187,7 +206,8 @@ def _run_eager(step, state, operands, events, stim_off, extract, hook=None):
         if hook is not None:
             hook(ev, cur)
         if ev == STIM_OFF:
-            cur = stim_off(cur)
+            with tracing.span("scan.stim_off"):
+                cur = stim_off(cur)
         elif ev == FRAME:
             frames.append(_frame(extract, cur))
         else:
@@ -198,25 +218,69 @@ def _run_eager(step, state, operands, events, stim_off, extract, hook=None):
     return cur, overflow, frames
 
 
+def _read_counters() -> tuple:
+    """The launch counters, then tracing's DEVICE_COUNTERS (the last one:
+    the stamps launched)."""
+    return cuda_lib.read_counters() + tracing.read_device_counters()
+
+
+def _add_counters(delta) -> None:
+    cuda_lib.add_counters(delta)
+    tracing.add_device_counters(delta)
+
+
 def _capture(body, pool):
     """(graph, counter deltas): `body()` captured as a CUDA graph into the
-    memory pool `pool` (torch.cuda.graph_pool_handle). Nothing runs during a capture, so what the launch
-    counters counted is taken off again; a replay adds it back."""
-    before = cuda_lib.read_counters()
-    graph = torch.cuda.CUDAGraph()
+    memory pool `pool` (torch.cuda.graph_pool_handle). Nothing runs during
+    a capture, so what the counters counted is taken off again; a replay
+    adds it back. While tracing is on the graph is kept to count its
+    kernel nodes (stamps left out), then instantiated."""
+    traced = tracing.on()
+    before = _read_counters()
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if traced \
+        else torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(graph, pool=pool):
             body()
     finally:
-        counted = tuple(a - b for a, b in
-                        zip(cuda_lib.read_counters(), before))
-        cuda_lib.add_counters(tuple(-d for d in counted))
+        counted = tuple(a - b for a, b in zip(_read_counters(), before))
+        _add_counters(tuple(-d for d in counted))
+    if traced:
+        graph.instantiate()
+        graph.trace_info = {"kernels": tracing.graph_nodes(graph)["kernel"]
+                            - counted[-1], "steps": 1, "replayed": False}
+    return graph, counted
+
+
+def _traced_capture(body, pool, steps: int):
+    """_capture(body, pool) in the span `scan.capture`, counted by tracing
+    with the steps its graph holds."""
+    with tracing.span("scan.capture", steps=steps):
+        graph, counted = _capture(body, pool)
+    info = getattr(graph, "trace_info", None)
+    if info is not None:
+        info["steps"] = steps
+        tracing.count("scan.captures")
+        tracing.count("scan.graph_kernels", info["kernels"])
     return graph, counted
 
 
 def _replay(graph, counted) -> None:
+    if tracing.on():
+        _replay_traced(graph, counted)
+        return
     graph.replay()
-    cuda_lib.add_counters(counted)
+    _add_counters(counted)
+
+
+def _replay_traced(graph, counted) -> None:
+    info = getattr(graph, "trace_info", {})
+    with tracing.span("scan.replay", first=info.get("replayed") is False,
+                      kernels=info.get("kernels"), steps=info.get("steps")):
+        graph.replay()
+    info["replayed"] = True
+    tracing.count("scan.replays")
+    _add_counters(counted)
 
 
 class _Capture:
@@ -247,7 +311,8 @@ class _Capture:
         _replay(*self.graphs[length])
 
     def _capture(self, step, length: int):
-        return _capture(lambda: self._steps(step, length), self.pool)
+        return _traced_capture(lambda: self._steps(step, length), self.pool,
+                               length)
 
     def _steps(self, step, length: int) -> None:
         st = self.bufs
@@ -265,13 +330,15 @@ def _signature(leaves) -> tuple:
 
 def _full_key(key, unroll, donate, leaves, op_leaves, op_spec) -> tuple:
     return (key, unroll, donate, leaves[0].device, _signature(leaves),
-            op_spec, _signature(op_leaves))
+            op_spec, _signature(op_leaves), tracing.on())
 
 
 def _cache(full_key, entry) -> None:
     _captures[full_key] = entry
     while len(_captures) > MAX_CAPTURES:
-        _captures.popitem(last=False)
+        old = _captures.popitem(last=False)[0]
+        if tracing.on():
+            _evicted.add(old)
 
 
 def run_steps_eager(step, state, num_steps: int, *, key=None, operands=(),
@@ -361,17 +428,24 @@ def _run_graphed(step, state, operands, op_leaves, full_key, num_steps,
     key, unroll, donate, device = full_key[:4]
     leaves = _leaves(state)
     entry = _captures.get(full_key)
+    why = "new_key"
     if entry is not None and donate and not entry.holds(leaves):
         del _captures[full_key]
-        entry = None
+        entry, why = None, "not_held"
     try:
         with torch.cuda.device(device):
             if entry is None:
+                if why == "new_key" and full_key in _evicted:
+                    why = "evicted"
+                _evicted.discard(full_key)
+                tracing.count(f"scan.captures.{why}")
+                tracing.count("scan.warmups")
                 # the warm-up: step 0 eagerly, on the caller's state
-                cur, overflow, frames = _run_eager(
-                    step, state, operands,
-                    schedule(1, 1, stim_off_step, record_every), stim_off,
-                    extract, hook)
+                with tracing.span("scan.warmup"):
+                    cur, overflow, frames = _run_eager(
+                        step, state, operands,
+                        schedule(1, 1, stim_off_step, record_every),
+                        stim_off, extract, hook)
                 if donate:
                     _assign(state, cur)
                     bufs = state
@@ -393,7 +467,8 @@ def _run_graphed(step, state, operands, op_leaves, full_key, num_steps,
                 if hook is not None:
                     hook(ev, entry.bufs)
                 if ev == STIM_OFF:
-                    _assign(entry.bufs, stim_off(entry.bufs))
+                    with tracing.span("scan.stim_off"):
+                        _assign(entry.bufs, stim_off(entry.bufs))
                 elif ev == FRAME:
                     frames.append(_frame(extract, entry.bufs))
                 else:
@@ -445,7 +520,8 @@ class _Backward:
             self._body()
             return
         if self.graph is None:
-            self.graph = _capture(self._body, torch.cuda.graph_pool_handle())
+            self.graph = _traced_capture(
+                self._body, torch.cuda.graph_pool_handle(), 1)
         _replay(*self.graph)
 
     def _body(self) -> None:

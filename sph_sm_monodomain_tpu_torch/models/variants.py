@@ -42,6 +42,7 @@ from ..ops.shape_matching import (apply_external_forces, corrected_velocity,
 from ..ops.sph import (density_pressure, force_and_diffusion,
                        xsph_intermediate_velocity)
 from ..ops.sweeps import sweep_bookkeeping3
+from ..utils import tracing
 from .monodomain import StepAux
 from .scan import run_steps
 
@@ -262,11 +263,15 @@ def _lap_inputs(vm_q, vol_row, vm_row, pos_s, cx_s, cyz_s):
 
 
 def _lap_sweep(vm_q, vol_row, vm_row, tables, cfg: SimConfig, sub_q: int):
-    """Column 0 of one Laplacian sweep over the tables' geometry."""
+    """Column 0 of one Laplacian sweep over the tables' geometry (stamped
+    just before and after the sweep's launch while tracing is on)."""
     qm, feats = _lap_inputs(vm_q, vol_row, vm_row, tables.pos_s,
                             tables.cx_s, tables.cyz_s)
-    return sweep_lap3(qm, feats, tables.blk_lo, tables.blk_hi, cfg,
-                      sub_q=sub_q)[:, 0]
+    tracing.stamp("reaction", qm.device)
+    out = sweep_lap3(qm, feats, tables.blk_lo, tables.blk_hi, cfg,
+                     sub_q=sub_q)
+    tracing.stamp("k3", qm.device)
+    return out[:, 0]
 
 
 def monodomain_prepare_fused(state: ParticleState, cfg: SimConfig,
@@ -342,8 +347,11 @@ def simulate_monodomain_only_fused(state: ParticleState,
     tensors. They are resolved after the Laplacian is set up, since the
     kernel is geometry only: every EP constant lives in the PyTorch part of
     the step, so gradients w.r.t. them flow here. Returns the state, or with
-    `record_every` (state, vm frames) as `simulate_monodomain_only`."""
+    `record_every` (state, vm frames) as `simulate_monodomain_only`.
+    While tracing is on (utils/tracing.py) a step stamps the device at its
+    start, around the sweep's launch and at its end."""
     def body(st, ops):
+        tracing.stamp("off_step", st.device)
         tabs, c = ops[0], resolve_params(cfg, ops[1])
         dt = c.time_delta
         st = fhn_cell_model(st, c)
@@ -353,8 +361,10 @@ def simulate_monodomain_only_fused(state: ParticleState,
             / c.cm_capacitance
         vm = torch.clamp(st.vm + inter_vm * dt / st.mass, -c.max_voltage,
                          c.max_voltage)
-        return st.replace(vm=torch.where(st.active, vm, st.vm),
-                          inter_vm=inter_vm, dens=tabs.dens)
+        st = st.replace(vm=torch.where(st.active, vm, st.vm),
+                        inter_vm=inter_vm, dens=tabs.dens)
+        tracing.stamp("update", st.device)
+        return st
 
     return _vm_frames(body, state, num_steps, record_every,
                       ("monodomain_fused", cfg, sub_q), (tables, params))

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fused_sweeps.cu", "fused_adjoint.cu", "legacy_sweeps.cu",
-           "roofline.cu")
+           "roofline.cu", "tracing.cu")
 HEADERS = ("sweep_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # no --use_fast_math: IEEE division and sqrt, as the reference computes them
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "sph_sweep_a2": [_P] * 6 + [_I] * 4 + [_P],
     "sph_sweep_b2": [_P] * 6 + [_I] * 4 + [_P],
     "sph_fma_chains": [_P] * 2 + [_I] * 3 + [_P],
+    "sph_stamp": [_P] + [_I] * 2 + [_P],
+    "sph_graph_nodes": [_P] * 2,
 }
 
 
@@ -66,11 +68,11 @@ def nvcc_path() -> str:
                        "kernels are built from source at first use")
 
 
-def library_path(csrc: Path | None = None,
-                 build_dir: Path | None = None) -> Path:
+def library_path(csrc: Path | None = None, build_dir: Path | None = None,
+                 sources: tuple = SOURCES) -> Path:
     csrc, build_dir = csrc or CSRC_DIR, build_dir or BUILD_DIR
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
         h.update((csrc / name).read_bytes())
     return build_dir / f"libsph_sweeps_{h.hexdigest()[:16]}.so"
@@ -92,22 +94,24 @@ def _run_all(cmds: list[list[str]], verbose: bool) -> None:
 
 
 def build(verbose: bool = False, csrc: Path | None = None,
-          build_dir: Path | None = None) -> Path:
+          build_dir: Path | None = None, sources: tuple = SOURCES) -> Path:
     """Compile the kernels unless a library of the same sources exists.
     `verbose` adds `-Xptxas -v` (registers, shared memory and spills per
-    kernel) and prints the compiler's output. `csrc` and `build_dir` build
-    another copy of the sources elsewhere (compare_builds.py)."""
+    kernel) and prints the compiler's output. `csrc`, `build_dir` and
+    `sources` build another copy of the sources elsewhere
+    (compare_builds.py: an older commit's csrc/, whose own list of
+    sources may be shorter)."""
     csrc = csrc or CSRC_DIR
-    path = library_path(csrc, build_dir)
+    path = library_path(csrc, build_dir, sources)
     if path.exists() and not verbose:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
-        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in sources]
         _run_all([[nvcc, *NVCC_FLAGS,
                    *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", o,
-                   str(csrc / s)] for s, o in zip(SOURCES, objs)],
+                   str(csrc / s)] for s, o in zip(sources, objs)],
                  verbose)
         lib = str(Path(tmp) / path.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)

@@ -1,10 +1,13 @@
 """Profiling helpers: torch.profiler traces and chained per-step wall time
 (mirror of `sph_sm_monodomain_tpu.utils.profiling`).
 
-Phase-level numbers come from utils/report.profile_phases*; this module
+Phase-level numbers come from utils/report.profile_phases* and, from
+inside the captured step, from utils/tracing's device stamps; this module
 adds whole-program traces and wall-time measurement of the dispatched path.
-torch.profiler may drop the events of the ctypes-launched sweep kernels,
-so time those with CUDA events (utils/report), not with a trace.
+torch.profiler records the ctypes-launched sweep kernels like any other
+(`sweep_a3_xyz3_kernel`, `sweep_b3_xyz3_kernel` in the benchmark's traced
+runs), but it lengthens kernels as short as their launch, so time those
+with CUDA events (utils/report), not with a trace.
 """
 
 from __future__ import annotations
@@ -15,17 +18,21 @@ import time
 
 import torch
 
+from . import tracing
+
 
 @contextlib.contextmanager
 def trace(log_dir: str = "sphsm_trace"):
     """Capture a torch.profiler trace of the block (CPU, and CUDA when torch
     sees a GPU) and write it as a Chrome trace, `log_dir`/trace.json
-    (open in chrome://tracing or Perfetto). Yields the directory."""
+    (open in chrome://tracing or Perfetto). The block runs with program
+    tracing on (utils/tracing.py), so the package's spans sit in the trace
+    beside the kernels. Yields the directory."""
     os.makedirs(log_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with tracing.enabled(), torch.profiler.profile(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
