@@ -183,7 +183,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  31. graph    the compiled run loop (models/scan.py: simulate, the mode
               drivers and run_protocol replay a captured CUDA graph):
               biceps_full v4 run_protocol(500 steps, stim off at 250,
-              donated, graphed) against an eager Python loop of step_fused
+              graphed) against an eager Python loop of step_fused
               over the same protocol, bit for bit (or within twice the
               spread of two eager runs, with the stage that does not
               repeat named), K1 / K2 launched exactly 500 times, one
@@ -198,7 +198,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               on biceps_full, x7, x56, SM-only x56 and monodomain fused;
               host launch calls a step, kernels a replay runs and the
               device's idle share, from a profiled window; the command
-              line's rendered frames after a donated run differ from
+              line's rendered frames after a graphed run differ from
               chunk to chunk
 
  32. grad     the compiled gradient paths (models/scan.py's checkpointed
@@ -779,7 +779,7 @@ def slice_card_vs_cpu(small, label):
 def counted_protocol(sc, names, **kw):
     """run_protocol(sc, **kw) with the launch counts of the kernels `names`
     set to 0 just before it and read just after, and each chunk's
-    simulate (or simulate_donated) call recorded as (pack_cap, steps): a
+    simulate call recorded as (pack_cap, steps): a
     regrown chunk shows as a call redone with a larger pack_cap. Returns (state, aux, traj,
     launches, calls, wall seconds)."""
     calls = []
@@ -795,9 +795,7 @@ def counted_protocol(sc, names, **kw):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with mock.patch.object(monodomain, "simulate",
-                           recording(monodomain.simulate)), \
-            mock.patch.object(monodomain, "simulate_donated",
-                              recording(monodomain.simulate_donated)):
+                           recording(monodomain.simulate)):
         st, aux, traj = T.run_protocol(sc, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2793,9 +2791,9 @@ def profile_window(run, steps: int, top: int = 0) -> dict:
 
 
 def cli_render_frames(tmp: Path) -> dict:
-    """The command line on biceps_full with --render-every: run_protocol
-    donates on the card, and the frames it renders differ chunk to chunk
-    (the render hook keeps copies)."""
+    """The command line on biceps_full with --render-every on the card:
+    the frames it renders differ chunk to chunk (the render hook keeps
+    copies)."""
     kept = []
 
     def keep(states, *a, **kw):
@@ -2822,8 +2820,8 @@ def phase_graph(dev, scene, x7, big) -> dict:
     """Phase 31: the compiled run loop, graphed against eager."""
     out = {}
     cfg, sq = scene.cfg, scene.sub_block
-    # A. the main path: 500 biceps_full v4 steps, graphed and donated,
-    # against the eager loop of step_fused
+    # A. the main path: 500 biceps_full v4 steps, graphed, against the
+    # eager loop of step_fused
     before = scan.copy_state(scene.state)
     seen = []
     with counting_captures(seen):
@@ -2840,7 +2838,7 @@ def phase_graph(dev, scene, x7, big) -> dict:
         raise AssertionError("run_protocol changed scene.state")
     mem = {t.untyped_storage().data_ptr() for t in scan._leaves(scene.state)}
     if mem & {t.untyped_storage().data_ptr() for t in scan._leaves(st_g)}:
-        raise AssertionError("the donated run shares memory with "
+        raise AssertionError("the graphed run shares memory with "
                              "scene.state")
     t0 = time.perf_counter()
     eager = [eager_v4_protocol(scene, STEPS, STEPS // 2) for _ in range(2)]
@@ -2967,7 +2965,7 @@ def phase_graph(dev, scene, x7, big) -> dict:
     out["timing"] = {"card": roofline.card_line(), "ms_per_step": timing,
                      "profile": prof}
 
-    # F. the command line's rendered frames after a donated run
+    # F. the command line's rendered frames after a graphed run
     with tempfile.TemporaryDirectory() as tmp:
         out["cli_frames"] = cli_render_frames(Path(tmp))
     scan.clear_cache()

@@ -651,8 +651,8 @@ def _run(args, comm) -> int:
         def cb(done, st):
             executed["steps"] = done
             if render_every:
-                # on the card run_protocol donates: the next chunk
-                # overwrites `st`, so the frame keeps a host copy
+                # the frames are rendered after the run: each keeps a
+                # host copy
                 frames.append((done, st.replace(**{
                     f: getattr(st, f).to("cpu", copy=True)
                     for f in FIELD_NAMES})))

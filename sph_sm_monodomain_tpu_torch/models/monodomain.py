@@ -16,9 +16,9 @@ plain PyTorch everywhere, and the in-package cross-check of the fused step.
 JAX package's `lax.scan`: on the card, replays of one captured CUDA graph
 of `unroll` steps (no host launch per kernel, no host sync per step), and
 under autograd its checkpointed adjoint scan;
-`simulate_donated` does so in the input state's own tensors;
+`simulate_donated` writes the result into the input state's own tensors;
 `run_protocol` replays the reference app's experiment protocol in
-chunks, donating on the fused v1-v4 paths. `step_fused_diff` is the
+chunks, each a `simulate` call. `step_fused_diff` is the
 fused step under autograd: it swaps in the differentiable sweeps of
 ops/fused_adjoint.py, whose backward passes are hand-written kernels.
 """
@@ -48,7 +48,7 @@ from ..ops.sph import (density_pressure, force_and_diffusion,
 from ..ops.sweeps import (sweep_bookkeeping2, sweep_bookkeeping3,
                           sweep_bookkeeping5)
 from ..utils import tracing
-from .scan import copy_state, run_steps
+from .scan import run_steps
 
 
 class StepAux(NamedTuple):
@@ -288,15 +288,14 @@ def _simulate(state: ParticleState, cfg: SimConfig, num_steps: int = 1,
 
 simulate = functools.partial(_simulate, donate=False)
 
-# `simulate` with the state DONATED: the input state's own tensors hold the
-# steps' state (on the card, the captured graph's buffers) and the result
-# is written into them; the input is dead after the call, as under the JAX
-# package's donate_argnums (run_protocol copies the caller's state once).
-# Under autograd it does not donate (see _simulate).
+# `simulate` with the state DONATED: the result is written into the input
+# state's own tensors (on the card, from the kept capture's buffers) and
+# returned; the input is dead after the call, as under the JAX package's
+# donate_argnums. Under autograd it does not donate (see _simulate).
 simulate_donated = functools.partial(_simulate, donate=True)
 
 # The JAX package's threshold above which run_protocol unrolls its
-# donated chunk scan by 4 (a TPU memory ceiling); the port takes the same
+# chunk scan by 4 (a TPU memory ceiling); the port takes the same
 # dispatch rule so the two packages run the same blocks, and its own
 # graph-pool peak is measured by tools/hbm_footprint.py --scan.
 VERY_LARGE_CAP = 4_200_000
@@ -319,24 +318,27 @@ def run_protocol(scene, num_steps: int = 500, stim_off_step: int | None = None,
     (rounded up to a multiple of 9), on the v5 / v5s path `pack_cap`
     (rounded up to a multiple of 128). The overflow is read once per chunk.
 
-    `unroll`: steps a captured graph holds (None: 4 on a donated run of
-    more than VERY_LARGE_CAP rows, else 1, the JAX package's rule).
+    `unroll`: steps a captured graph holds (None: 4 on the card's fused
+    v1-v4 paths above VERY_LARGE_CAP rows, else 1, the JAX package's rule
+    for its donated runs).
 
-    Memory: on the card the fused v1-v4 paths (whose windows cannot
-    overflow, so a chunk is never redone) donate each chunk's input state
-    (simulate_donated), as the JAX package's do on the TPU. The caller's
-    `scene.state` is copied once up front and stays valid; a `callback`
-    must not keep the state it is given past its return (the next chunk
-    overwrites those tensors): it copies what it keeps.
+    Memory: on the card each chunk loads its input state into the buffers
+    of the kept capture (models/scan.py), which every chunk and every later
+    call of the same shapes replays, and returns a copy of them: the
+    buffers stand where the JAX package's donated state stands on the TPU,
+    and the unit holds the scene's state, the buffers and the chunk's
+    input and result. The caller's `scene.state` is only read, a returned
+    state is never changed by a later call, and a `callback` may keep the
+    state it is given.
 
     `callback(step_idx, state)` runs between chunks and may return
     {"stim_off": True} (turnOffStim now, key 'q') or {"stop": True} (end
     the run, ESC). Returns (state, StepAux, traj|None).
 
     Tracing (utils/tracing.py): a call is one unit, span `protocol.unit`,
-    with the spans `protocol.copy_state`, `protocol.chunk`,
-    `protocol.overflow_fetch` (the host sync a chunk) and
-    `protocol.callback`, and the counter `protocol.host_syncs`."""
+    with the spans `protocol.chunk`, `protocol.overflow_fetch` (the host
+    sync a chunk) and `protocol.callback`, and the counter
+    `protocol.host_syncs`."""
     with tracing.span("protocol.unit", unit=True):
         return _run_protocol(scene, num_steps, stim_off_step, chunk,
                              record_every, callback, fused, impl, params,
@@ -353,14 +355,10 @@ def _run_protocol(scene, num_steps, stim_off_step, chunk, record_every,
     if record_every:
         # each chunk holds a whole number of record blocks
         chunk = max(record_every, chunk - chunk % record_every)
-    donate = (fused and run_impl in ("v1", "v2", "v3", "v4")
-              and state.device.type == "cuda")
-    with tracing.span("protocol.copy_state", copied=donate):
-        if donate:
-            state = copy_state(state)
     if unroll is None:
-        unroll = 4 if donate and state.capacity > VERY_LARGE_CAP else 1
-    sim_fn = simulate_donated if donate else simulate
+        unroll = 4 if (fused and run_impl in ("v1", "v2", "v3", "v4")
+                       and state.device.type == "cuda"
+                       and state.capacity > VERY_LARGE_CAP) else 1
     trajs = []
     max_overflow = 0
     regrow = 0
@@ -369,13 +367,13 @@ def _run_protocol(scene, num_steps, stim_off_step, chunk, record_every,
         n = min(chunk, num_steps - done)
         off = stim_off_step - done if done <= stim_off_step < done + n else -1
         with tracing.span("protocol.chunk", start=done, steps=n):
-            out = sim_fn(state, cfg, num_steps=n, stim_off_step=off,
-                         record_every=record_every,
-                         sub_q=scene.sub_block or None, impl=run_impl,
-                         params=params, fused=fused,
-                         neighbor_capacity=scene.neighbor_capacity,
-                         pack_cap=getattr(scene, "pack_cap", 0),
-                         w_chunk=scene.block_window, unroll=unroll)
+            out = simulate(state, cfg, num_steps=n, stim_off_step=off,
+                           record_every=record_every,
+                           sub_q=scene.sub_block or None, impl=run_impl,
+                           params=params, fused=fused,
+                           neighbor_capacity=scene.neighbor_capacity,
+                           pack_cap=getattr(scene, "pack_cap", 0),
+                           w_chunk=scene.block_window, unroll=unroll)
         with tracing.span("protocol.overflow_fetch"):
             step_overflow = int(out[1].overflow)
         tracing.count("protocol.host_syncs")

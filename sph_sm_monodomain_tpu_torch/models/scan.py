@@ -18,12 +18,12 @@ kernels and fills the constant cache, which a capture must not do. Then
 it captures, and caches the capture under the caller's static key plus the
 shapes, dtypes and device of the state and operands (the JAX package's
 `_SIM_STATIC` and its argument shapes). A later call copies its state and
-operands into the buffers and replays. A block shorter than `unroll`
-(a leftover, or one cut by the stim-off or a frame) has a capture of its
-own. The stim-off runs between replays as an in-place write of its fields
-into the buffers (the JAX package's `lax.cond`); frames are cloned
-between replays. A capture or replay that fails raises: nothing falls back
-to the eager loop on the card.
+operands into the buffers (one device copy a tensor) and replays. A block
+shorter than `unroll` (a leftover, or one cut by the stim-off or a frame)
+has a capture of its own. The stim-off runs between replays as an
+in-place write of its fields into the buffers (the JAX package's
+`lax.cond`); frames are cloned between replays. A capture or replay that
+fails raises: nothing falls back to the eager loop on the card.
 
 Under autograd (grad mode on, and a tensor of the state or the operands
 requiring grad) the steps run as a checkpointed adjoint scan
@@ -57,12 +57,13 @@ path's backward step holds the recompute's collectives and their VJPs'
 backward step; every rank's autograd engine runs the same graph in the
 same order, so the ranks issue the same collectives in the same order.
 
-`donate=True` makes the input state's own tensors the graph's buffers:
-the result is written into them and returned, and the input is dead after
-the call (the JAX package's `donate_argnums`). A donated call whose state
-is the buffers of the cached capture (the previous chunk's result)
-replays without a copy; another state is captured anew. Without
-`donate` the buffers belong to the cache and the result is a copy.
+The buffers of a capture are the cache's own, and no call returns them:
+the result leaves them as a copy, or with `donate=True` is written back
+into the input state's own tensors and returned (the JAX package's
+`donate_argnums`: the input is dead after the call). So a result is never
+changed by a later call, a state from elsewhere (a second run, a second
+scene of the same shapes) replays the graphs its key already has, and the
+caller's state is only read.
 
 Launch counts: a replay launches kernels without running their wrappers,
 so the counters of ops/cuda_lib.launch_counters() are corrected: what a
@@ -76,10 +77,10 @@ and instantiation of one block length; attribute: the steps it holds),
 `scan.replay` (the host's time in `graph.replay()`; `first` marks the
 first replay after a capture, which uploads the graph) and `scan.stim_off`,
 and the counters `scan.warmups`, `scan.replays`, `scan.captures` (graphs
-captured),`scan.captures.<why>` (why a key's
-buffers and graphs were made anew: `new_key`, `not_held` where a donated
-state is not the cached capture's buffers, `evicted` where the LRU dropped
-the key) and `scan.graph_kernels`: the kernel nodes of each captured
+captured), `scan.captures.<why>` (why a key's buffers and graphs were
+made: `new_key`, or `evicted` where the LRU dropped the key),
+`scan.loads` (calls served by a kept capture, their state copied into its
+buffers) and `scan.graph_kernels`: the kernel nodes of each captured
 graph, counted once from the graph itself (kept for that while tracing is
 on), stamps left out. Tracing's state is part of the capture key, so a
 graph captured with the step's device stamps is never replayed untraced,
@@ -295,11 +296,6 @@ class _Capture:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}    # block length -> (CUDAGraph, counter deltas)
 
-    def holds(self, leaves) -> bool:
-        return all(a.data_ptr() == b.data_ptr() and a.shape == b.shape
-                   and a.stride() == b.stride()
-                   for a, b in zip(leaves, _leaves(self.bufs)))
-
     def load_operands(self, op_leaves) -> None:
         for dst, src in zip(self.op_leaves, op_leaves):
             if torch.is_tensor(dst):
@@ -390,7 +386,9 @@ def run_steps(step, state, num_steps: int, *, key, operands=(),
     `operands` (a pytree: its tensors are copied into the capture's own on
     each call, its other leaves join the key); constant tensors must stay
     alive at their address (ops/constants.const_tensor). `stim_off(state)
-    -> state` runs before step `stim_off_step` (-1: never).
+    -> state` runs before step `stim_off_step` (-1: never). `donate`: the
+    result is written into the input state's own tensors and returned
+    (its fields must not share memory); else the input is left as it is.
 
     Under autograd the result, the frames and their gradients come from
     the checkpointed adjoint scan (module docstring), differentiable
@@ -414,29 +412,25 @@ def run_steps(step, state, num_steps: int, *, key, operands=(),
     full_key = _full_key(key, unroll, donate, leaves, op_leaves, op_spec)
     entry, overflow, frames = _run_graphed(step, state, operands, op_leaves,
                                            full_key, num_steps, **kw)
-    out = entry.bufs if donate else copy_state(entry.bufs)
-    return out, overflow, frames
+    if not donate:
+        return copy_state(entry.bufs), overflow, frames
+    _assign(state, entry.bufs)
+    return state, overflow, frames
 
 
 def _run_graphed(step, state, operands, op_leaves, full_key, num_steps,
                  *, stim_off_step, stim_off, record_every, extract,
                  hook=None):
-    """Run the steps through the cached capture of `full_key` (made and
-    cached on a first call): returns (capture, its overflow, frames), the
-    final state in the capture's buffers. `hook` as in _run_eager, which
-    sees a block of n steps once."""
-    key, unroll, donate, device = full_key[:4]
-    leaves = _leaves(state)
+    """Run the steps through the kept capture of `full_key` (made and
+    cached on a first call, else loaded with the state): returns (capture,
+    its overflow, frames), the final state in the capture's buffers.
+    `hook` as in _run_eager, which sees a block of n steps once."""
+    unroll, device, op_spec = full_key[1], full_key[3], full_key[5]
     entry = _captures.get(full_key)
-    why = "new_key"
-    if entry is not None and donate and not entry.holds(leaves):
-        del _captures[full_key]
-        entry, why = None, "not_held"
     try:
         with torch.cuda.device(device):
             if entry is None:
-                if why == "new_key" and full_key in _evicted:
-                    why = "evicted"
+                why = "evicted" if full_key in _evicted else "new_key"
                 _evicted.discard(full_key)
                 tracing.count(f"scan.captures.{why}")
                 tracing.count("scan.warmups")
@@ -446,19 +440,14 @@ def _run_graphed(step, state, operands, op_leaves, full_key, num_steps,
                         step, state, operands,
                         schedule(1, 1, stim_off_step, record_every),
                         stim_off, extract, hook)
-                if donate:
-                    _assign(state, cur)
-                    bufs = state
-                else:
-                    bufs = copy_state(cur)
-                entry = _Capture(bufs, op_leaves, full_key[5], device)
+                entry = _Capture(copy_state(cur), op_leaves, op_spec, device)
                 entry.overflow.copy_(overflow)
                 _cache(full_key, entry)
                 start = 1
             else:
                 _captures.move_to_end(full_key)
-                if not donate:
-                    _assign(entry.bufs, state)
+                tracing.count("scan.loads")
+                _assign(entry.bufs, state)
                 entry.load_operands(op_leaves)
                 entry.overflow.zero_()
                 frames, start = [], 0

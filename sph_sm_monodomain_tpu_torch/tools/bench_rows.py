@@ -71,7 +71,8 @@ def _chunk_wall(scene, reps=6, length=10):
     """Best seconds per step of `length` chained fused steps, as one scan.
 
     Very large scenes (> models.monodomain.VERY_LARGE_CAP) time the same
-    donated, unrolled dispatch run_protocol takes there."""
+    unrolled dispatch run_protocol takes there, chained in place
+    (donated)."""
     state, cfg = scene.state, scene.cfg
     sm_inv = sm_invariants(state, cfg)
 

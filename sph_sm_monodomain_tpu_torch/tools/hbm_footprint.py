@@ -13,7 +13,7 @@ scene was built, over one of two programs:
     chunk: the capture of a CUDA graph of `--unroll` steps and its replays
     (models/scan.py), with the graph's buffers, its memory pool and the
     result; with `--donate` the input state is a copy that the run
-    overwrites (simulate_donated), as run_protocol's chunks do.
+    overwrites (simulate_donated).
 It prints the bytes resident before the measured program and the
 footprint, the footprint per particle, and the ceiling it projects at the
 card's own memory (torch.cuda.get_device_properties(0).total_memory),

@@ -51,9 +51,9 @@ def _chain_time(body: Callable, init, length: int = 20, reps: int = 3,
     replays of a captured graph of `unroll` bodies between two CUDA
     events; on the CPU, eager calls under time.perf_counter.
 
-    `donate` / `unroll` reproduce run_protocol's very-large-scene dispatch
-    (models.monodomain.VERY_LARGE_CAP): the runs then chain, each donating
-    the previous run's output, as production's chunks do; the caller's
+    `unroll` reproduces run_protocol's very-large-scene dispatch
+    (models.monodomain.VERY_LARGE_CAP); with `donate` the runs chain in
+    place, each donating the previous run's output, and the caller's
     `init` survives (it is copied once up front)."""
     leaf = _leaf(init)
     cuda = leaf.is_cuda
@@ -226,8 +226,8 @@ def profile_phases_fused(scene, length: int | None = None) -> dict:
                             pack_cap=pack_cap, w_chunk=wc)
         return out
 
-    # very large scenes: time the donated, unrolled dispatch run_protocol
-    # takes there (models.monodomain.VERY_LARGE_CAP)
+    # very large scenes: time the unrolled dispatch run_protocol takes
+    # there (models.monodomain.VERY_LARGE_CAP), chained in place
     donate = state.pos.is_cuda and state.capacity > VERY_LARGE_CAP
     dk = {"donate": donate, "unroll": 4 if donate else 1}
     if length is None:

@@ -1102,6 +1102,92 @@ def test_simulate_donated_chains_in_place_on_card(device):
     assert again.pos.data_ptr() != want.pos.data_ptr()
 
 
+def _captures_seen(seen):
+    """A context in which every capture the run loop makes appends its
+    block length to `seen`."""
+    from unittest import mock
+    from sph_sm_monodomain_tpu_torch.models import scan
+    real = scan._Capture._capture
+
+    def counting(self, step, length):
+        seen.append(length)
+        return real(self, step, length)
+    return mock.patch.object(scan._Capture, "_capture", counting)
+
+
+def test_simulate_donated_loads_another_state_into_the_kept_capture(device):
+    """A donated call whose state is not the previous call's result (a
+    fresh copy of the start) replays the kept capture: no capture, the
+    previous result left as it was, and the same bits."""
+    from sph_sm_monodomain_tpu_torch.models import monodomain, scan
+    sc = T.build_scene("susane", device=device)
+    scan.clear_cache()
+    first = monodomain.simulate_donated(scan.copy_state(sc.state), sc.cfg,
+                                        3, stim_off_step=1)[0]
+    kept = scan.copy_state(first)
+    seen = []
+    with _captures_seen(seen):
+        second = monodomain.simulate_donated(scan.copy_state(sc.state),
+                                             sc.cfg, 3, stim_off_step=1)[0]
+    assert seen == []
+    _bits_equal(first, kept)
+    _bits_equal(second, kept)
+
+
+def test_protocol_units_load_into_the_kept_capture(device):
+    """A second run_protocol unit on one scene makes no warm-up and no
+    capture: it loads its state into the kept capture. It ends bit for
+    bit where a unit after clear_cache() and a unit under eager() end, and
+    leaves the scene's state and the first unit's result as they were."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+    from sph_sm_monodomain_tpu_torch.utils import tracing
+    sc = T.build_scene("susane", device=device)
+    kw = dict(num_steps=12, stim_off_step=5, chunk=4)
+    start = scan.copy_state(sc.state)
+    scan.clear_cache()
+    with tracing.enabled():
+        first = T.run_protocol(sc, **kw)[0]
+        kept = scan.copy_state(first)
+        before = tracing.snapshot()
+        second = T.run_protocol(sc, **kw)[0]
+        after = tracing.snapshot()
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("scan.captures", "scan.warmups", "scan.loads")}
+    assert moved["scan.captures"] == moved["scan.warmups"] == 0, moved
+    assert moved["scan.loads"] >= 1, moved
+    _bits_equal(sc.state, start)
+    _bits_equal(first, kept)
+    scan.clear_cache()
+    _bits_equal(T.run_protocol(sc, **kw)[0], second)
+    with scan.eager():
+        _bits_equal(T.run_protocol(sc, **kw)[0], second)
+
+
+def test_a_second_scene_runs_through_the_kept_capture(device):
+    """A scene of the same shapes with another seeded vm runs through the
+    capture the first scene left (no capture) and gives the bits it gives
+    after clear_cache(): no value of the first scene is held in the
+    graph."""
+    from sph_sm_monodomain_tpu_torch.models import scan
+    sc = T.build_scene("susane", device=device)
+    n = sc.num_particles
+    gen = torch.Generator().manual_seed(2**31 + 11)
+    vm = sc.state.vm.clone()
+    vm[:n] = (torch.randn(n, generator=gen) * 5.0).to(device)
+    other = sc._replace(state=sc.state.replace(vm=vm))
+    # the stimulus stays on: turnOffStim makes vm one uniform value
+    kw = dict(num_steps=12, stim_off_step=-1, chunk=4)
+    scan.clear_cache()
+    first = T.run_protocol(sc, **kw)[0]
+    seen = []
+    with _captures_seen(seen):
+        got = T.run_protocol(other, **kw)[0]
+    assert seen == []
+    assert not torch.equal(got.vm, first.vm)
+    scan.clear_cache()
+    _bits_equal(got, T.run_protocol(other, **kw)[0])
+
+
 def test_a_capture_that_meets_a_host_sync_raises(device):
     """A step that reads a value back to the host cannot be captured: the
     capture raises (no eager fallback) and leaves nothing cached."""

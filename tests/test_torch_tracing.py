@@ -142,7 +142,6 @@ def test_run_protocol_spans_and_host_syncs(susane):
     assert len(_names(spans, "protocol.unit")) == 1
     assert len(_names(spans, "protocol.chunk")) == 5
     assert len(_names(spans, "protocol.overflow_fetch")) == 5
-    assert len(_names(spans, "protocol.copy_state")) == 1
     assert len(_names(spans, "simulate.sm_invariants")) == 5
     assert counters["protocol.host_syncs"] == 5
     unit = spans.index(_names(spans, "protocol.unit")[0])
@@ -362,8 +361,10 @@ def test_captures_a_unit_makes(device):
             after = tracing.snapshot()
             got[name] = {k: after.get(k, 0) - before.get(k, 0)
                          for k in ("scan.captures", "scan.warmups",
-                                   "scan.captures.not_held")}
-    assert got["protocol"] == {"scan.captures": 1, "scan.warmups": 1,
-                               "scan.captures.not_held": 1}
+                                   "scan.loads")}
+    # a unit's calls load their state into the kept capture: the
+    # protocol's two chunks, the wave's one call
+    assert got["protocol"] == {"scan.captures": 0, "scan.warmups": 0,
+                               "scan.loads": 2}
     assert got["wave"] == {"scan.captures": 0, "scan.warmups": 0,
-                           "scan.captures.not_held": 0}
+                           "scan.loads": 1}
