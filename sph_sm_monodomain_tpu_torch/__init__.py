@@ -19,8 +19,8 @@ material, flagship and fhn fits. Entry points build on the card unless given dev
 against; this package imports neither jax nor sph_sm_monodomain_tpu.
 """
 
-from .config import (SimConfig, DEFAULT_CONFIG, PARAM_FIELDS, resolve_params,
-                     config_from_dict)
+from .config import (SimConfig, PortConfig, DEFAULT_CONFIG, PARAM_FIELDS,
+                     resolve_params, config_from_dict)
 from .state import (ParticleState, init_fluid, save_checkpoint,
                     load_checkpoint, state_from_numpy, state_to_numpy)
 from .models.monodomain import (step, step_fused, step_fused_diff, simulate,
@@ -30,7 +30,7 @@ from .ops import electrophysiology as stim
 from .models import variants
 
 __all__ = [
-    "SimConfig", "DEFAULT_CONFIG", "PARAM_FIELDS", "resolve_params",
+    "SimConfig", "PortConfig", "DEFAULT_CONFIG", "PARAM_FIELDS", "resolve_params",
     "config_from_dict", "ParticleState", "init_fluid", "save_checkpoint",
     "load_checkpoint", "state_from_numpy", "state_to_numpy", "step",
     "step_fused", "step_fused_diff", "simulate", "StepAux", "run_protocol",

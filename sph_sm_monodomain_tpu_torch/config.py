@@ -143,6 +143,26 @@ class SimConfig:
         return self.replace(volume_conservation=not self.volume_conservation)
 
 
+@dataclasses.dataclass(frozen=True)
+class PortConfig(SimConfig):
+    """SimConfig with the port's own settings, which the JAX package does
+    not have (SimConfig itself mirrors it field for field)."""
+
+    # max-pivot Jacobi rotations of the quadratic rest shape's 9 x 9
+    # pseudo-inverse (m9Matrix::invert); None takes jacobi_iterations, as
+    # the app does. The app's 20 leave a 9 x 9 (36 off-diagonal pairs)
+    # far from converged: on the biceps clouds A9qq^+ is 32-86% off and
+    # the muscle diverges; ~100 converge it, as Mueller et al. 2005
+    # sec. 4.3's exact inverse has it. The 3 x 3 polar keeps
+    # jacobi_iterations.
+    pinv_rotations: int | None = None
+
+
+def pinv_rotations(cfg: SimConfig) -> int:
+    """The rotations of the quadratic invariants' 9 x 9 pseudo-inverse."""
+    return getattr(cfg, "pinv_rotations", None) or cfg.jacobi_iterations
+
+
 DEFAULT_CONFIG = SimConfig()
 
 

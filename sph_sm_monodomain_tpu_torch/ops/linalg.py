@@ -94,11 +94,12 @@ def _rotation(apq, diff):
     return live, t
 
 
-def jacobi_eigh(A: torch.Tensor, iterations: int = 20):
+def jacobi_eigh(A: torch.Tensor, iterations: int = 20, pivots=None):
     """Max-pivot Jacobi eigendecomposition of a symmetric n x n matrix
     (m3Matrix / m9Matrix::eigenDecomposition): `iterations` rotations, each
     on the largest |off-diagonal| (first in row-major order on ties).
-    Returns (eigenvalues (n,), R (n, n)) with A ~= R diag(vals) R^T."""
+    Returns (eigenvalues (n,), R (n, n)) with A ~= R diag(vals) R^T.
+    `pivots`, a list, receives each rotation's (p, q) as 0-dim tensors."""
     n = A.shape[0]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     upper = torch.triu(torch.ones((n, n), dtype=torch.bool,
@@ -108,6 +109,8 @@ def jacobi_eigh(A: torch.Tensor, iterations: int = 20):
     for _ in range(iterations):
         idx = torch.argmax(torch.where(upper, A.abs(), neg).reshape(-1))
         p, q = idx // n, idx % n
+        if pivots is not None:
+            pivots.append((p, q))
         apq = A[p, q]
         live, t = _rotation(apq, A[p, p] - A[q, q])
         c = 1.0 / sqrt_rn(t * t + 1.0)
@@ -182,15 +185,18 @@ def polar_decomposition(A: torch.Tensor, iterations: int = 20):
     return R, S
 
 
-def pseudo_inverse(A: torch.Tensor, iterations: int = 20) -> torch.Tensor:
+def pseudo_inverse(A: torch.Tensor, iterations: int = 20,
+                   pivots=None) -> torch.Tensor:
     """Symmetric pseudo-inverse via Jacobi eigendecomposition
     (m9Matrix::invert, m9Matrix.cpp:80-102) of an (n, n) matrix, or of each
     matrix of a (K, n, n) batch in turn: the max-pivot Jacobi picks a
     different pivot per matrix, and this runs once per run (the rest-shape
-    invariants), so the batch is a loop."""
+    invariants), so the batch is a loop. `pivots` as in jacobi_eigh (a
+    batch's matrices one after another)."""
     if A.dim() == 3:
-        return torch.stack([pseudo_inverse(a, iterations) for a in A])
-    lam, R = jacobi_eigh(A, iterations)
+        return torch.stack([pseudo_inverse(a, iterations, pivots)
+                            for a in A])
+    lam, R = jacobi_eigh(A, iterations, pivots)
     nz = lam != 0.0
     d = torch.where(nz, 1.0 / torch.where(nz, lam, torch.ones_like(lam)),
                     torch.zeros_like(lam))

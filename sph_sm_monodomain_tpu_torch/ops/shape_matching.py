@@ -39,8 +39,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import SimConfig
+from ..config import SimConfig, pinv_rotations
 from ..state import ParticleState
+from ..utils import tracing
 from .constants import const_tensor
 from .linalg import (det3, invert3, polar_decomposition, pseudo_inverse,
                      small_matmul)
@@ -155,17 +156,55 @@ def sm_invariants(state: ParticleState, cfg: SimConfig,
     k = cfg.sm_clusters
     if k > 1:
         return _clustered_invariants(state, cfg, m, m_cm, comm)
+    if cfg.quadratic_match:
+        return _quadratic_invariants(state, cfg, m, m_cm, comm)
     mass_cm_sum, ocm_num = _allsum(comm, m_cm.sum(), m_cm @ state.orig_pos)
     ocm = ocm_num / mass_cm_sum
     q = state.orig_pos - ocm
-    if not cfg.quadratic_match:
-        mq, aqq = _allsum(comm, m @ q, (q * m[:, None]).T @ q)
-        return SMInvariants(mass_cm_sum, ocm, q, mq, invert3(aqq),
-                            None, None, None)
+    mq, aqq = _allsum(comm, m @ q, (q * m[:, None]).T @ q)
+    return SMInvariants(mass_cm_sum, ocm, q, mq, invert3(aqq),
+                        None, None, None)
+
+
+def _quadratic_invariants(state: ParticleState, cfg: SimConfig, m,
+                          m_cm, comm=None) -> SMInvariants:
+    """The quadratic moments of one cluster, computed in float64 and
+    rounded once to the state's dtype, as _clustered_invariants' are (the
+    JAX package sums in fp32): A9qq mixes the basis' linear and squared
+    terms (condition number ~2e4 on the biceps clouds), and its
+    pseudo-inverse carries the rounding of fp32 sums over the rows into
+    every goal."""
+    dtype, f64 = state.pos.dtype, torch.float64
+    m, m_cm, orig = m.to(f64), m_cm.to(f64), state.orig_pos.to(f64)
+    mass_cm_sum, ocm_num = _allsum(comm, m_cm.sum(), m_cm @ orig)
+    ocm = ocm_num / mass_cm_sum
+    q = orig - ocm
     q9 = _quad_basis(q)
     mq, mq9, a9qq = _allsum(comm, m @ q, m @ q9, (q9 * m[:, None]).T @ q9)
-    return SMInvariants(mass_cm_sum, ocm, q, mq, None, q9, mq9,
-                        pseudo_inverse(a9qq, cfg.jacobi_iterations))
+    fields = (mass_cm_sum, ocm, q, mq, None, q9, mq9,
+              _pseudo_inverse(a9qq, cfg))
+    return SMInvariants(*(None if x is None else x.to(dtype)
+                          for x in fields))
+
+
+def _pseudo_inverse(a9qq: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """A9qq's pseudo-inverse (cpp:383-388), of `pinv_rotations(cfg)`
+    Jacobi rotations, computed on the host: each rotation is a chain of
+    ~20 small dependent operations on a 9 x 9 (or K of them), which on the
+    card would cost as many launches and a device sync for its pivot.
+    While tracing is on, in the span `sm_invariants.pseudo_inverse`, whose
+    attribute `pivots` keeps the (p, q) of each rotation, read after the
+    span ends; the counter `sm_invariants.jacobi_rotations` counts the
+    rotations."""
+    rotations, host = pinv_rotations(cfg), a9qq.cpu()
+    if not tracing.on():
+        return pseudo_inverse(host, rotations).to(a9qq.device)
+    pivots = []
+    with tracing.span("sm_invariants.pseudo_inverse", pivots=pivots):
+        out = pseudo_inverse(host, rotations, pivots).to(a9qq.device)
+    pivots[:] = [(int(p), int(q)) for p, q in pivots]
+    tracing.count("sm_invariants.jacobi_rotations", len(pivots))
+    return out
 
 
 def _clustered_invariants(state: ParticleState, cfg: SimConfig, m,
@@ -222,7 +261,7 @@ def _clustered_invariants(state: ParticleState, cfg: SimConfig, m,
                                 seg_sum(m[:, None] * q9),
                                 seg_outer(q9 * m[:, None], q9))
         fields = (mass_cm_sum, ocm, q, mq, None, q9, mq9,
-                  pseudo_inverse(a9qq, cfg.jacobi_iterations))
+                  _pseudo_inverse(a9qq, cfg))
     inv = SMInvariants(*(None if x is None else x.to(dtype)
                          for x in fields))
     return _hoist_blocked(inv, cid, m_cm.to(dtype), k)
